@@ -1,0 +1,127 @@
+"""Bottleneck ResNet backbone with frozen BN (torch).
+
+Port of aod_meh_hua_tpu/models/resnet.py (`Bottleneck` :125-219, `ResNet`
+:270-328), which mirrors the reference's mmdet/models/backbones/resnet.py
+(depth 50, pytorch style: the stride sits on the 3x3 conv;
+norm_eval=True). BN always uses its running statistics, an affine map.
+
+The module runs NCHW tensors in `channels_last` memory, so a fused block
+hands the kernel an NHWC view without a copy. Stride-1 blocks of the
+stages in `stage_fused` take the fused kernel (ops/fused_block.py) under
+the JAX package's gate, so the same blocks fuse in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.fused_block import fold_bottleneck, fused_bottleneck
+
+_NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm at its running statistics: y = (x - mean) * scale /
+    sqrt(var + eps) + bias, eps 1e-5."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * s
+        return x * s.reshape(1, -1, 1, 1) + b.reshape(1, -1, 1, 1)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 (4 * planes) + residual, ReLU after each."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, fused: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.fused = fused
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride, 1)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(_conv(inplanes, planes * 4, 1, stride),
+                                            FrozenBatchNorm2d(planes * 4))
+
+    def fused_eligible(self, cin: int) -> bool:
+        """The JAX package's gate (models/resnet.py:145-156): stride 1 and
+        128-aligned input channels."""
+        return self.fused and self.stride == 1 and cin % 128 == 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_eligible(x.shape[1]):
+            nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
+            out = fused_bottleneck(nhwc.contiguous(), fold_bottleneck(self))
+            return out.permute(0, 3, 1, 2)
+        identity = x
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return torch.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """Bottleneck ResNet returning (C2, C3, C4, C5), NCHW."""
+
+    def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), stem_width: int = 64,
+                 fused_blocks: bool = False,
+                 stage_fused: Sequence[bool] = (True, True, False, False)):
+        super().__init__()
+        self.conv1 = _conv(3, stem_width, 7, 2, 3)
+        self.bn1 = FrozenBatchNorm2d(stem_width)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        inplanes = stem_width
+        self.stages = []
+        for stage, n_blocks in enumerate(block_counts):
+            planes = stem_width * (2 ** stage)
+            blocks = []
+            for b in range(n_blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0),
+                                         fused=fused_blocks and stage_fused[stage]))
+                inplanes = planes * 4
+            name = f"layer{stage + 1}"
+            self.add_module(name, nn.Sequential(*blocks))
+            self.stages.append(name)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        outs = []
+        for name in self.stages:
+            x = getattr(self, name)(x)
+            outs.append(x)
+        return tuple(outs)
+
+
+def check_backbone_options(cfg) -> None:
+    """Raise on the JAX package's backbone options the port lacks."""
+    for flag in ("stem_s2d", "backbone_int8", "conv1x1_matmul", "remat"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"{flag}: " + _NOT_PORTED.format(16))
+    if cfg.mc_dropout:
+        raise NotImplementedError("mc_dropout: " + _NOT_PORTED.format(11))

@@ -1,0 +1,109 @@
+"""Octave anchors of the RetinaNet family (numpy).
+
+A copy of `AnchorGenerator` from aod_meh_hua_tpu/ops/anchors.py (:25-156),
+without its `scales`/`base_sizes` overrides (other families' anchors)
+and `valid_flags` (training). It mirrors the reference's
+mmdet/core/anchor/anchor_generator.py:12 (octave scales,
+center_offset=0, ratio-major base anchors, row-major grid). The port
+keeps its own copy because the JAX package's
+`ops/__init__.py` imports jax; tests/test_torch_ops.py holds the two
+tables bit-equal.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+
+def _base_anchors(
+    base_size: float,
+    scales: np.ndarray,
+    ratios: np.ndarray,
+    center: Tuple[float, float],
+    scale_major: bool,
+) -> np.ndarray:
+    """Base anchors [num_ratios*num_scales, 4] around `center`.
+
+    scale_major=True: ratio-major ordering (all scales of ratio 0 first),
+    the reference's `(w * w_ratios[:, None] * scales[None, :])`.
+    """
+    w = h = float(base_size)
+    x_c, y_c = center
+    h_ratios = np.sqrt(ratios)
+    w_ratios = 1.0 / h_ratios
+    if scale_major:
+        ws = (w * w_ratios[:, None] * scales[None, :]).reshape(-1)
+        hs = (h * h_ratios[:, None] * scales[None, :]).reshape(-1)
+    else:
+        ws = (w * scales[:, None] * w_ratios[None, :]).reshape(-1)
+        hs = (h * scales[:, None] * h_ratios[None, :]).reshape(-1)
+    return np.stack(
+        [x_c - 0.5 * ws, y_c - 0.5 * hs, x_c + 0.5 * ws, y_c + 0.5 * hs],
+        axis=-1,
+    ).astype(np.float32)
+
+
+def _grid_anchors(base: np.ndarray, feat_size: Tuple[int, int], stride: Tuple[int, int]) -> np.ndarray:
+    """Tile base anchors over a feature grid; row-major cells, anchor-minor.
+
+    Output [H*W*A, 4]: the first A rows are the anchors of cell (0, 0),
+    then (0, 1), ... — the layout a head's [B, H, W, A*C] -> [B, H*W*A, C]
+    reshape implies.
+    """
+    feat_h, feat_w = feat_size
+    stride_w, stride_h = stride
+    shift_x = np.arange(feat_w, dtype=np.float32) * stride_w
+    shift_y = np.arange(feat_h, dtype=np.float32) * stride_h
+    xx = np.tile(shift_x, feat_h)
+    yy = np.repeat(shift_y, feat_w)
+    shifts = np.stack([xx, yy, xx, yy], axis=-1)
+    return (base[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
+
+
+@dataclass
+class AnchorGenerator:
+    """Octave anchor generator (RetinaNet family).
+
+    scales = octave_base_scale * 2**(i / scales_per_octave); base size of
+    each level is its stride; anchor centers sit at stride * cell_index
+    (center_offset = 0).
+    """
+
+    strides: Sequence[int] = (8, 16, 32, 64, 128)
+    ratios: Sequence[float] = (0.5, 1.0, 2.0)
+    octave_base_scale: int = 4
+    scales_per_octave: int = 3
+    scale_major: bool = True
+    center_offset: float = 0.0
+
+    def __post_init__(self):
+        self.strides = [(s, s) if isinstance(s, int) else tuple(s) for s in self.strides]
+        self.scales = np.array(
+            [self.octave_base_scale * 2 ** (i / self.scales_per_octave) for i in range(self.scales_per_octave)],
+            dtype=np.float32,
+        )
+        self._ratios = np.asarray(self.ratios, dtype=np.float32)
+        self.base_anchors: List[np.ndarray] = []
+        for sw, sh in self.strides:
+            base_size = min(sw, sh)
+            center = (self.center_offset * base_size, self.center_offset * base_size)
+            self.base_anchors.append(
+                _base_anchors(base_size, self.scales, self._ratios, center, self.scale_major)
+            )
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.strides)
+
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [b.shape[0] for b in self.base_anchors]
+
+    def grid_anchors(self, featmap_sizes: Sequence[Tuple[int, int]]) -> List[np.ndarray]:
+        return [
+            _grid_anchors(self.base_anchors[i], featmap_sizes[i], self.strides[i])
+            for i in range(self.num_levels)
+        ]

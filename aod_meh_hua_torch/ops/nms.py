@@ -1,0 +1,114 @@
+"""Fixed-shape multiclass NMS (torch), batched.
+
+Port of aod_meh_hua_tpu/ops/nms.py (`_compact_keep` :39-49,
+`multiclass_nms` :52-95, `_greedy_keep_sorted` :98-140,
+`batched_multiclass_nms` :177-189), which mirrors the reference's
+mmdet/core/post_processing/bbox_nms.py:7 with mmcv NMS semantics (greedy
+by descending score, suppress when IoU > iou_thr, ties by original
+index). The (anchor, class) candidates are capped at `pre_nms_cands` by
+a stable top-k, classes are kept apart by the class-offset trick, and
+the kept set is the fixpoint of the suppression map. jax.vmap becomes
+an explicit batch dimension.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .bbox import bbox_overlaps
+
+_NEG_INF = -1e10
+
+
+class NMSResult(NamedTuple):
+    boxes: torch.Tensor       # [B, K, 4] (x1, y1, x2, y2)
+    scores: torch.Tensor      # [B, K]
+    labels: torch.Tensor      # [B, K] int64 class ids (0-based, no background)
+    valid: torch.Tensor       # [B, K] bool
+    anchor_idx: torch.Tensor  # [B, K] int64 index into the input box array
+
+
+def _compact_keep(keep: torch.Tensor, max_out: int):
+    """Pack each row's kept candidates (already score-ordered) into its
+    first `max_out` slots: position = running count of kept.
+    keep [B, k] -> (slots [B, max_out] int64, ok [B, max_out] bool)."""
+    b, k = keep.shape
+    pos = torch.cumsum(keep.long(), dim=1) - 1
+    tgt = torch.where(keep & (pos < max_out), pos, torch.full_like(pos, max_out))
+    slots = torch.zeros((b, max_out + 1), dtype=torch.long, device=keep.device)
+    src = torch.arange(k, device=keep.device).expand(b, k)
+    slots.scatter_(1, tgt, src)  # column max_out collects the dropped ones
+    ok = torch.arange(max_out, device=keep.device)[None, :] < keep.sum(dim=1, keepdim=True)
+    return slots[:, :max_out], ok
+
+
+def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
+                        iou_thr: float) -> torch.Tensor:
+    """Exact greedy-NMS keep mask [B, k] for candidates sorted by
+    descending score.
+
+    Greedy NMS is the unique fixpoint of
+        keep[i] = ok[i] and not exists j < i: keep[j] and IoU(i, j) > thr;
+    iterating the map from keep = ok reaches it within the suppression
+    chain's depth. The loop runs until every image has reached it; an
+    image at its fixpoint does not change.
+    """
+    k = off_boxes.shape[1]
+    ar = torch.arange(k, device=off_boxes.device)
+    earlier = ar[:, None] < ar[None, :]  # j < i
+    sup = (bbox_overlaps(off_boxes, off_boxes) > iou_thr) & earlier  # [B, j, i]
+    keep = cand_ok
+    while True:
+        new = cand_ok & ~(keep[:, :, None] & sup).any(dim=1)
+        if torch.equal(new, keep):
+            return keep
+        keep = new
+
+
+def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, score_thr: float,
+                           iou_thr: float, max_out: int, pre_nms_cands: int = 1000
+                           ) -> NMSResult:
+    """Multiclass NMS per image with static output shape [B, max_out].
+
+    boxes [B, N, 4] shared across classes; scores [B, N, C] foreground
+    class scores.
+    """
+    b, n, c = scores.shape
+    flat = scores.reshape(b, -1)  # pair (anchor, class): idx = anchor * C + class
+    cand = torch.where(flat > score_thr, flat, torch.full_like(flat, _NEG_INF))
+    k = min(pre_nms_cands, n * c)
+    order = torch.sort(cand, dim=1, descending=True, stable=True)
+    top_scores, top_idx = order.values[:, :k], order.indices[:, :k]
+    anchor_idx = top_idx // c
+    labels = top_idx % c
+    cand_boxes = torch.gather(boxes, 1, anchor_idx[..., None].expand(-1, -1, 4))
+    cand_ok = top_scores > score_thr
+
+    # class-offset trick over the valid candidates: classes never overlap
+    max_coord = torch.where(cand_ok[..., None], cand_boxes,
+                            torch.zeros_like(cand_boxes)).amax(dim=(1, 2))
+    offsets = labels.to(boxes.dtype) * (max_coord[:, None] + 1.0)
+    keep = _greedy_keep_sorted(cand_boxes + offsets[..., None], cand_ok, iou_thr)
+
+    slots, ok = _compact_keep(keep, max_out)
+
+    def pick(t):
+        return torch.gather(t, 1, slots if t.dim() == 2 else slots[..., None].expand(-1, -1, 4))
+
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    out_boxes = torch.where(ok[..., None], pick(cand_boxes), zero)
+    out_scores = torch.where(ok, pick(top_scores), zero)
+    out_labels = torch.where(ok, pick(labels), 0)
+    out_anchor = torch.where(ok, pick(anchor_idx), 0)
+    return NMSResult(out_boxes, out_scores, out_labels, ok, out_anchor)
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, score_thr: float,
+                   iou_thr: float, max_out: int, pre_nms_cands: int = 1000) -> NMSResult:
+    """Single-image multiclass NMS: boxes [N, 4], scores [N, C] ->
+    NMSResult of [max_out] fields."""
+    res = batched_multiclass_nms(boxes[None], scores[None], score_thr, iou_thr,
+                                 max_out, pre_nms_cands)
+    return NMSResult(*(t[0] for t in res))

@@ -1,0 +1,199 @@
+"""Config dataclasses of the MEH-RetinaNet scoring path.
+
+A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig` and
+`tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-198, :3545).
+The port keeps its own copy because it imports nothing of the JAX
+package; tests/test_torch_ops.py holds the two copies equal field by
+field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class AnchorConfig:
+    strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    octave_base_scale: int = 4
+    scales_per_octave: int = 3
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.ratios) * self.scales_per_octave
+
+
+@dataclass(frozen=True)
+class TestCfg:
+    """Post-processing config (reference test_cfg, Config_RetinaNet.py:79-85)."""
+
+    nms_pre: int = 1000
+    score_thr: float = 0.05
+    nms_iou_thr: float = 0.5
+    max_per_img: int = 100
+    pre_nms_cands: int = 1000  # static candidate cap for fixed-shape NMS
+    # approximate per-level top-k (a TPU lever in the JAX package); the
+    # port runs the exact sort and raises when this is set
+    fast_topk: bool = False
+
+
+@dataclass(frozen=True)
+class HUACfg:
+    """Uncertainty scoring config (Config_RetinaNet.py:14-19 + Lambda_L2.py)."""
+
+    pool: str = "Entropy_NMS"           # Random | Entropy_ALL | Entropy_NMS | Entropy_NoNMS
+    unc_type: str = "epistemic"          # epistemic | aleatoric | total
+    agg: str = "objectSum_scaleMax_classSum"
+    # aggregation order ('class_first' = AggregateObjScaleUnc,
+    # 'scale_first' = ChangeOrder + AggregateObjClassScaleUnc) and the
+    # clsW class-count weighting (Lambda_L2.py:571-633)
+    agg_order: str = "class_first"
+    cls_weight: bool = False
+    obj_score_thr: float = 0.3           # GetObjectIdx score_thr
+    memb_iou_thr: float = 0.5            # GetObjectIdx iou_thr
+    fg_score_thr: float = 0.3            # FG anchor confidence gate
+    lambda_eps: float = 1e-7
+    lambda_scale: float = 25.0
+    mi_mode: str = "closed"              # closed | sampled (parity mode)
+    mi_samples: int = 500
+    mi_chunk: int = 50
+
+
+@dataclass(frozen=True)
+class RetinaNetConfig:
+    """MEH-RetinaNet (reference Config_RetinaNet.py model dict)."""
+
+    num_classes: int = 20
+    canvas: Tuple[int, int] = (608, 1024)   # (H, W): keep-ratio (1000, 600) resize + /32 pad
+    # backbone (ResNet-50-FPN); block_counts/width shrink for unit tests
+    block_counts: Tuple[int, ...] = (3, 4, 6, 3)
+    stem_width: int = 64
+    frozen_stages: int = 1
+    # neck
+    fpn_channels: int = 256
+    # head
+    stacked_convs: int = 4
+    feat_channels: int = 256
+    anchor: AnchorConfig = field(default_factory=AnchorConfig)
+    # bbox coder
+    target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
+    target_stds: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    # assigner (train_cfg)
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.4
+    min_pos_iou: float = 0.0
+    gt_max_assign_all: bool = True
+    # losses
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    cls_loss: str = "edl_softmax_focal"  # edl_softmax_focal | focal | edl_focal
+    bbox_loss: str = "l1"
+    meh_loss: str = "l2"                 # l2 (Lambda_L2) | l1 (Lambda_L1) | msle (Lambda_MSLE)
+    meh_loss_weight: float = 5.0         # Lambda_L2.py:241 final *5
+    use_meh: bool = True                 # False = Lambda_L2Net_NoL ablation
+    # data batching
+    max_gt: int = 64
+    # image normalization (img_norm_cfg, Config_RetinaNet.py:99-100),
+    # applied on the device to uint8 batches
+    img_mean: Tuple[float, ...] = (123.675, 116.28, 103.53)
+    img_std: Tuple[float, ...] = (58.395, 57.12, 57.375)
+    img_to_rgb: bool = True
+    compute_dtype: str = "float32"       # float32 | bfloat16
+    # MC-dropout baseline: channel dropout after every ReLU when > 0
+    mc_dropout: float = 0.0
+    # the next four are levers of the JAX package; the port does not
+    # have them yet and raises when one is set
+    remat: bool = False
+    stem_s2d: bool = False
+    backbone_int8: bool = False
+    conv1x1_matmul: bool = False
+    # whole-bottleneck fused kernel for the stride-1 C2/C3 blocks
+    # (ops/fused_block.py). Scoring/eval only: the kernel has no backward.
+    fused_blocks: bool = False
+    # which backbone stages the fused path covers when fused_blocks is on
+    # (stride-1 blocks with Cin % 128 == 0 only; see models/resnet.py)
+    fused_stages: Tuple[bool, ...] = (True, True, False, False)
+    test: TestCfg = field(default_factory=TestCfg)
+    hua: HUACfg = field(default_factory=HUACfg)
+
+    family = "retinanet"
+
+    @property
+    def backbone_channels(self) -> Tuple[int, ...]:
+        w = self.stem_width
+        return (4 * w, 8 * w, 16 * w, 32 * w)  # C2..C5 bottleneck expansions
+
+    @property
+    def cls_out_channels(self) -> int:
+        return self.num_classes  # 'relu' activation: no background channel
+
+    @property
+    def num_fg_classes(self) -> int:
+        return self.num_classes
+
+    def build_anchor_generator(self):
+        from ..ops.anchors import AnchorGenerator
+
+        return AnchorGenerator(
+            strides=self.anchor.strides, ratios=self.anchor.ratios,
+            octave_base_scale=self.anchor.octave_base_scale,
+            scales_per_octave=self.anchor.scales_per_octave,
+        )
+
+    def for_orientation(self, orientation: str) -> "RetinaNetConfig":
+        """Per-orientation variant: `canvas` is landscape; portrait
+        batches run on the transposed canvas."""
+        h, w = self.canvas
+        land = (max(h, w) == w)
+        if (orientation == "landscape") == land:
+            return self
+        return dataclasses.replace(self, canvas=(w, h))
+
+    def featmap_sizes(self):
+        h, w = self.canvas
+        assert h % 32 == 0 and w % 32 == 0, "canvas must be divisible by 32"
+        sizes = [(h // 8, w // 8), (h // 16, w // 16), (h // 32, w // 32)]
+        for _ in range(len(self.anchor.strides) - 3):
+            ph, pw = sizes[-1]
+            sizes.append(((ph + 1) // 2, (pw + 1) // 2))
+        return sizes
+
+    def level_bounds(self):
+        """Static (start, end) anchor offsets per level (full maps)."""
+        a = self.anchor.num_anchors
+        bounds, off = [], 0
+        for (h, w) in self.featmap_sizes():
+            n = h * w * a
+            bounds.append((off, off + n))
+            off += n
+        return bounds
+
+    def topk_level_bounds(self):
+        """Static (start, end) offsets after per-level nms_pre top-k."""
+        a = self.anchor.num_anchors
+        bounds, off = [], 0
+        for (h, w) in self.featmap_sizes():
+            n = min(h * w * a, self.test.nms_pre)
+            bounds.append((off, off + n))
+            off += n
+        return bounds
+
+
+def tiny_test_config(**overrides) -> RetinaNetConfig:
+    """A shrunken RetinaNet for fast CPU unit tests."""
+    base = dict(
+        canvas=(128, 256),
+        block_counts=(1, 1, 1, 1),
+        stem_width=8,
+        fpn_channels=16,
+        stacked_convs=1,
+        feat_channels=16,
+        num_classes=6,
+        max_gt=8,
+        test=TestCfg(nms_pre=200, pre_nms_cands=256, max_per_img=20),
+    )
+    base.update(overrides)
+    return RetinaNetConfig(**base)

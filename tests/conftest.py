@@ -29,6 +29,8 @@ def pytest_configure(config):
         "finishes in <10 min on a 1-core host; see docs/TESTING.md)")
     config.addinivalue_line(
         "markers", "full: heavy tests excluded from the smoke tier")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips with a reason elsewhere")
 
 
 # The <10-min smoke tier (VERDICT r3 directive #4): core numerics, the

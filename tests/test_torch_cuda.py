@@ -1,0 +1,107 @@
+"""The port's CUDA kernel on the card: the hand-written fused bottleneck
+against its plain PyTorch version, and the tiny model's fused path
+against its unfused one. Skips, with the reason, where there is no card.
+
+Run on a machine with an NVIDIA Hopper card (the JAX package need not be
+installed there, hence --noconftest):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+TF32 is turned off for every comparison, so the plain version's cuDNN
+convolutions run in full f32. Tolerances: f32 1e-4 of max|ref| (sums in
+another order), bf16 0.06 of max|ref| (tests/test_fused_block.py).
+"""
+
+import pytest
+import torch
+
+from aod_meh_hua_torch.ops import fused_block as fb_mod
+from aod_meh_hua_torch.ops.fused_block import (FoldedBlock, fused_bottleneck,
+                                               fused_bottleneck_reference)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def random_block(cin, p, cout, downsample, device, seed=0):
+    """Folded weights with unit-scale activations (std 1/sqrt(fan_in))."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, fan_in):
+        return (torch.randn(shape, generator=g) * fan_in ** -0.5).to(device)
+
+    def b(n):
+        return (torch.randn((1, n), generator=g) * 0.1).to(device)
+
+    return FoldedBlock(w(cin, p, fan_in=cin), b(p), w(9, p, p, fan_in=9 * p), b(p),
+                       w(p, cout, fan_in=p), b(cout),
+                       w(cin, cout, fan_in=cin) if downsample else None,
+                       b(cout) if downsample else None)
+
+
+CASES = [  # (B, H, W, Cin, P, Cout, downsample)
+    (2, 16, 16, 256, 64, 256, False),
+    (1, 19, 13, 256, 64, 256, False),     # H and W not multiples of the 8x8 tile
+    (2, 20, 12, 128, 64, 256, True),      # 1x1 downsample residual
+    (1, 12, 17, 512, 128, 512, False),
+    (1, 9, 8, 256, 128, 512, True),
+    (2, 11, 21, 128, 32, 128, False),     # the half-width test model's C2
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_plain(cuda, case, dtype):
+    b, h, w, cin, p, cout, down = case
+    fb = random_block(cin, p, cout, down, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, h, w, cin), generator=g, device=cuda).to(dtype)
+    before = fb_mod.fused_bottleneck.launches
+    got = fused_bottleneck(x, fb)
+    torch.cuda.synchronize()
+    assert fb_mod.fused_bottleneck.launches == before + 1
+    want = fused_bottleneck_reference(x, fb)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-4 if dtype == torch.float32 else 0.06
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    fb = random_block(256, 64, 256, False, cuda)
+    x = torch.randn((1, 8, 8, 256), device=cuda)
+    with pytest.raises(ValueError):
+        fused_bottleneck(x.permute(0, 2, 1, 3), fb)  # not contiguous
+    with pytest.raises(TypeError):
+        fused_bottleneck(x.half(), fb)
+    with pytest.raises(ValueError):
+        fused_bottleneck(x, random_block(256, 16, 256, False, cuda))  # P not instantiated
+
+
+def test_tiny_model_fused_matches_unfused(cuda):
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    cfg = dict(block_counts=(2, 2, 1, 1), stem_width=32)
+    fused = build_retinanet(tiny_test_config(fused_blocks=True, **cfg), device=cuda)
+    plain = build_retinanet(tiny_test_config(**cfg), device=cuda)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn((2, 128, 256, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    before = fb_mod.fused_bottleneck.launches
+    with torch.no_grad():
+        got, want = fused(x), plain(x)
+    torch.cuda.synchronize()
+    assert fb_mod.fused_bottleneck.launches == before + 2  # layer1.1 and layer2.1
+    for g, w in zip(got, want):  # 1e-4 of the output's scale; random heads are tiny
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-7

@@ -1,0 +1,124 @@
+"""The port's MEH-RetinaNet (aod_meh_hua_torch/models) against the JAX
+package's on the CPU: one JAX init of a tiny config, carried over with
+`from_jax_variables`, the same seeded images through both.
+
+The config is tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32),
+so layer1_1 (Cin 128) and layer2_1 (Cin 256) pass the fused gate. The
+JAX side runs fused_blocks=False (its plain path; its fused path needs a
+TPU outside interpret mode); the port runs both. Head outputs agree to
+1e-4 in f32 (TF32 does not arise on the CPU).
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from aod_meh_hua_tpu.engine.batch import prepare_images as jprepare
+from aod_meh_hua_tpu.models.detector import init_retinanet
+from aod_meh_hua_tpu.utils.config import tiny_test_config as jtiny
+from aod_meh_hua_torch.al.uncertainty import score_pool
+from aod_meh_hua_torch.engine.batch import prepare_images as tprepare
+from aod_meh_hua_torch.engine.score import make_output_scorer, make_score_step
+from aod_meh_hua_torch.models.convert import from_jax_variables
+from aod_meh_hua_torch.models.detector import MEHRetinaNet, build_retinanet
+from aod_meh_hua_torch.ops import fused_block
+from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
+
+TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    model, variables = init_retinanet(jtiny(**TINY), jax.random.PRNGKey(0))
+    return jax.jit(model.apply), jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
+
+
+def _images(orientation, b=2, seed=0):
+    h, w = jtiny().for_orientation(orientation).canvas
+    return np.random.RandomState(seed).randn(b, h, w, 3).astype(np.float32)
+
+
+def _port_model(variables, fused):
+    model = build_retinanet(ttiny(fused_blocks=fused, **TINY), device="cpu")
+    model.load_state_dict(from_jax_variables(variables))
+    return model
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("orientation", ["landscape", "portrait"])
+def test_head_outputs_match_jax(jax_model, fused, orientation):
+    japply, variables = jax_model
+    x = _images(orientation)
+    want = [np.asarray(a) for a in japply(variables, x)]
+    model = _port_model(variables, fused)
+    before = fused_block.fused_bottleneck.launches
+    with torch.no_grad():
+        got = [a.numpy() for a in model(torch.from_numpy(x))]
+    assert fused_block.fused_bottleneck.launches == before
+    for name, g, w in zip(("cls_scores", "bbox_preds", "lambdas"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def test_state_dict_loads_fused_and_unfused(jax_model):
+    _, variables = jax_model
+    sd = from_jax_variables(variables)
+    for fused in (False, True):
+        model = MEHRetinaNet(ttiny(fused_blocks=fused, **TINY))
+        assert set(model.state_dict()) == set(sd)
+        model.load_state_dict(sd)
+    gated = [name for name, m in model.backbone.named_modules()
+             if hasattr(m, "fused_eligible") and m.fused_eligible(m.conv1.in_channels)]
+    assert gated == ["layer1.1", "layer2.1"]
+
+
+def test_prepare_images_matches_jax():
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (3, 32, 48, 3)).astype(np.uint8)
+    shapes = np.array([[32, 48], [20, 48], [32, 30]], np.int32)
+    cfg_j, cfg_t = jtiny(), ttiny()
+    want = np.asarray(jprepare(images, shapes, cfg_j))
+    got = tprepare(torch.from_numpy(images), torch.from_numpy(shapes), cfg_t).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert (got[1, 20:] == 0).all() and (got[2, :, 30:] == 0).all()
+    f = torch.from_numpy(np.array(want))
+    assert tprepare(f, torch.from_numpy(shapes), cfg_t) is f
+
+
+def test_entry_points_raise_without_a_card():
+    """Entry points default to the card and never carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = ttiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_retinanet(cfg)
+    model = build_retinanet(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_score_step(model, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_output_scorer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        score_pool(model, cfg, [], 0)
+
+
+@pytest.mark.parametrize("override", [
+    dict(stem_s2d=True), dict(backbone_int8=True), dict(conv1x1_matmul=True),
+    dict(remat=True), dict(mc_dropout=0.1), dict(compute_dtype="bfloat16")])
+def test_unported_options_raise(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        MEHRetinaNet(ttiny(**override))
+
+
+@pytest.mark.parametrize("override", [
+    dict(hua=dict(pool="Entropy_ALL")), dict(hua=dict(pool="Entropy_NoNMS")),
+    dict(hua=dict(mi_mode="sampled")), dict(test=dict(fast_topk=True))])
+def test_unported_scoring_options_raise(override):
+    base = ttiny()
+    (field, values), = override.items()
+    cfg = dataclasses.replace(base, **{field: dataclasses.replace(getattr(base, field), **values)})
+    model = build_retinanet(base, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        make_score_step(model, cfg, device="cpu")
