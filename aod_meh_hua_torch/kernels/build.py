@@ -32,6 +32,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fused_bottleneck": ("fused_bottleneck_launch",
                          [_I] + [_P] * 10 + [_I] * 6 + [_P]),
+    "transposed_matmul": ("transposed_matmul_launch",
+                          [_P] * 3 + [_I] * 2 + [ctypes.c_longlong, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

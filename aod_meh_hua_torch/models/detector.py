@@ -43,7 +43,7 @@ class MEHRetinaNet(nn.Module):
                 "(ROADMAP Queue 1 item 16)")
         self.cfg = cfg
         self.backbone = ResNet(cfg.block_counts, cfg.stem_width, cfg.fused_blocks,
-                               cfg.fused_stages)
+                               cfg.fused_stages, cfg.conv1x1_matmul)
         self.neck = FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=1,
                         num_outs=len(cfg.anchor.strides))
         self.head = RetinaMEHHead(cfg.num_classes, cfg.fpn_channels,

@@ -8,7 +8,9 @@ norm_eval=True). BN always uses its running statistics, an affine map.
 The module runs NCHW tensors in `channels_last` memory, so a fused block
 hands the kernel an NHWC view without a copy. Stride-1 blocks of the
 stages in `stage_fused` take the fused kernel (ops/fused_block.py) under
-the JAX package's gate, so the same blocks fuse in both packages.
+the JAX package's gate, so the same blocks fuse in both packages. With
+`conv1x1_matmul`, the 1x1 convs of the other blocks run as matrix
+products (`Conv1x1Matmul`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,28 @@ class FrozenBatchNorm2d(nn.Module):
         return x * s.reshape(1, -1, 1, 1) + b.reshape(1, -1, 1, 1)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv2d:
+class Conv1x1Matmul(nn.Conv2d):
+    """A 1x1, zero-padding conv computed as [B*H*W, Cin] @ [Cin, Cout] with
+    torch.matmul (aod_meh_hua_tpu/models/resnet.py:39-69). The stride is
+    taken by subsampling the input first. The parameters are the
+    nn.Conv2d's, so state_dicts and from_jax_variables do not change."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sy, sx = self.stride
+        if (sy, sx) != (1, 1):
+            x = x[:, :, ::sy, ::sx]
+        b, cin, h, w = x.shape
+        y = torch.matmul(x.permute(0, 2, 3, 1).reshape(b * h * w, cin),
+                         self.weight.reshape(self.out_channels, cin).t())
+        return y.reshape(b, h, w, self.out_channels).permute(0, 3, 1, 2)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
+          as_matmul: bool = False) -> nn.Conv2d:
+    """nn.Conv2d without bias, or Conv1x1Matmul for a 1x1, zero-padding
+    conv when `as_matmul` (the JAX package's `_make_conv`)."""
+    if as_matmul and k == 1 and pad == 0:
+        return Conv1x1Matmul(cin, cout, 1, stride=stride, bias=False)
     return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
@@ -51,19 +74,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, fused: bool = False):
+                 downsample: bool = False, fused: bool = False,
+                 conv1x1_matmul: bool = False):
         super().__init__()
         self.stride = stride
         self.fused = fused
-        self.conv1 = _conv(inplanes, planes, 1)
+        self.conv1 = _conv(inplanes, planes, 1, as_matmul=conv1x1_matmul)
         self.bn1 = FrozenBatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride, 1)
         self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = _conv(planes, planes * 4, 1)
+        self.conv3 = _conv(planes, planes * 4, 1, as_matmul=conv1x1_matmul)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
         self.downsample = None
         if downsample:
-            self.downsample = nn.Sequential(_conv(inplanes, planes * 4, 1, stride),
+            self.downsample = nn.Sequential(_conv(inplanes, planes * 4, 1, stride,
+                                                  as_matmul=conv1x1_matmul),
                                             FrozenBatchNorm2d(planes * 4))
 
     def fused_eligible(self, cin: int) -> bool:
@@ -72,6 +97,7 @@ class Bottleneck(nn.Module):
         return self.fused and self.stride == 1 and cin % 128 == 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # fused blocks take precedence over conv1x1_matmul, as in the JAX package
         if self.fused_eligible(x.shape[1]):
             nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
             out = fused_bottleneck(nhwc.contiguous(), fold_bottleneck(self))
@@ -90,7 +116,8 @@ class ResNet(nn.Module):
 
     def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), stem_width: int = 64,
                  fused_blocks: bool = False,
-                 stage_fused: Sequence[bool] = (True, True, False, False)):
+                 stage_fused: Sequence[bool] = (True, True, False, False),
+                 conv1x1_matmul: bool = False):
         super().__init__()
         self.conv1 = _conv(3, stem_width, 7, 2, 3)
         self.bn1 = FrozenBatchNorm2d(stem_width)
@@ -103,7 +130,8 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0),
-                                         fused=fused_blocks and stage_fused[stage]))
+                                         fused=fused_blocks and stage_fused[stage],
+                                         conv1x1_matmul=conv1x1_matmul))
                 inplanes = planes * 4
             name = f"layer{stage + 1}"
             self.add_module(name, nn.Sequential(*blocks))
@@ -120,7 +148,7 @@ class ResNet(nn.Module):
 
 def check_backbone_options(cfg) -> None:
     """Raise on the JAX package's backbone options the port lacks."""
-    for flag in ("stem_s2d", "backbone_int8", "conv1x1_matmul", "remat"):
+    for flag in ("stem_s2d", "backbone_int8", "remat"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag}: " + _NOT_PORTED.format(16))
     if cfg.mc_dropout:

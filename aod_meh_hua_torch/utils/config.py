@@ -104,11 +104,12 @@ class RetinaNetConfig:
     compute_dtype: str = "float32"       # float32 | bfloat16
     # MC-dropout baseline: channel dropout after every ReLU when > 0
     mc_dropout: float = 0.0
-    # the next four are levers of the JAX package; the port does not
+    # the next three are levers of the JAX package; the port does not
     # have them yet and raises when one is set
     remat: bool = False
     stem_s2d: bool = False
     backbone_int8: bool = False
+    # backbone 1x1 convs as matrix products (models/resnet.py Conv1x1Matmul)
     conv1x1_matmul: bool = False
     # whole-bottleneck fused kernel for the stride-1 C2/C3 blocks
     # (ops/fused_block.py). Scoring/eval only: the kernel has no backward.

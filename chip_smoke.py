@@ -4,19 +4,29 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and builds every CUDA kernel
-   of the port from the sources in this checkout (nvcc, timed).
+   of the port from the sources in this checkout (one nvcc per source,
+   all started together, timed).
 2. Kernel phase, TF32 off: each kernel against its plain PyTorch version
-   at the main path's shapes (f32 and bf16) and at small edge cases, and
-   CUDA-event times of the kernel, the plain version and the library
-   yardstick (the unfused cuDNN chain of the same block).
-3. Main path: a full-width MEH-RetinaNet (R50-FPN, 9 anchors, 20
+   at its path's shapes and at small edge cases, and CUDA-event times of
+   the kernel, the plain version and the library yardstick (for the
+   fused bottleneck the unfused cuDNN chain of the same block, for the
+   transposed matmul one torch.matmul).
+3. Scoring path: a full-width MEH-RetinaNet (R50-FPN, 9 anchors, 20
    classes, 608x1024 canvases in both orientations, fused_blocks=True),
    seeded random weights with a sharpened cls head, scores a pool of
    seeded synthetic uint8 canvases through `score_pool` (Entropy_NMS).
    Checks the kernel's launch count, finite scores, NMS survivors and
    non-zero scores, and holds the fused model's head outputs and first
    batch's scores against the unfused model's. Profiles one score step.
-4. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+4. Probe path (aod_meh_hua_torch/tools/pallas_probe.py) at batch 8: the
+   C2 1x1 conv four ways (the transposed-matmul kernel the fourth), the
+   fused bottleneck against the unfused block, and the R50 conv census
+   in bf16 and in f32. Checks that each kernel launched once per call
+   the probe made.
+5. conv1x1_matmul: one landscape batch through the full-width model with
+   the 1x1 convs as matrix products and through the same weights
+   without, head outputs held together, forwards timed.
+6. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -33,14 +43,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
-
 BATCH = 8
 POOL = {"landscape": 14, "portrait": 12}   # 4 batches of 8, two of them padded
 F32_TOL = 1e-4    # of max|ref|: the same f32 sums in another order
 BF16_TOL = 0.06   # of max|ref|: bf16 rounding of intermediates (tests/test_fused_block.py)
+MATMUL_TOL = 2.0 ** -7  # of max|ref|: one bf16 ulp; kernel and plain version round one f32 sum
+PROBE_ITERS = 10
 
 
 def fail(msg: str) -> None:
@@ -54,22 +62,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # --- kernel phase -------------------------------------------------------------
+
+def times_in_turns(kernel, plain, library) -> dict:
+    """CUDA-event ms of the kernel, its plain version and the library
+    yardstick, taken in turns (k, p, l, l, p, k) and averaged per version."""
+    from aod_meh_hua_torch.tools.pallas_probe import cuda_time_ms
+
+    fns = {"ms": kernel, "plain_ms": plain, "library_ms": library}
+    t = {key: 0.0 for key in fns}
+    for key in ("ms", "plain_ms", "library_ms", "library_ms", "plain_ms", "ms"):
+        t[key] += cuda_time_ms(fns[key]) / 2
+    return t
+
 
 def random_block(cin, p, cout, downsample, gen, device):
     """Folded weights with unit-scale activations (std 1/sqrt(fan_in))."""
@@ -117,16 +122,15 @@ def unfused_chain(x_nchw, fb):
     return run
 
 
-def block_bound_ms(b, h, w, cin, p, cout, down, dtype_name):
+def block_bound_ms(b, h, w, cin, p, cout, down, dtype):
     """Least time for one launch: x read once, out written once, weights
     once, against the HBM rate; FLOPs against the type's peak."""
-    elt = 4 if dtype_name == "float32" else 2
+    from aod_meh_hua_torch.tools.pallas_probe import bound_ms
+
+    elt = dtype.itemsize
     weights = cin * p + 9 * p * p + p * cout + (cin * cout if down else 0)
     nbytes = elt * (b * h * w * (cin + cout) + weights) + 4 * (2 * p + cout * (2 if down else 1))
-    flops = 2 * b * h * w * weights
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_OPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 2 * b * h * w * weights, dtype)
 
 
 def kernel_phase(device):
@@ -168,23 +172,69 @@ def kernel_phase(device):
                 libout = lib()
                 torch.cuda.synchronize()
                 lib_err = (libout.permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
-                kern = lambda: fused_bottleneck(x, fb)  # noqa: E731
-                plain = lambda: fused_bottleneck_reference(x, fb)  # noqa: E731
-                # in turns: kernel, plain, library, library, plain, kernel
-                t = {"k": [], "p": [], "l": []}
-                for key in ("k", "p", "l", "l", "p", "k"):
-                    fn = {"k": kern, "p": plain, "l": lib}[key]
-                    t[key].append(cuda_time_ms(fn))
-                bound, bound_by = block_bound_ms(b, h, w, cin, p, cout, down, dname)
-                row.update(ms=sum(t["k"]) / 2, plain_ms=sum(t["p"]) / 2,
-                           library_ms=sum(t["l"]) / 2, library_max_abs_err=lib_err,
-                           bound_ms=bound, bound_by=bound_by)
+                row.update(times_in_turns(lambda: fused_bottleneck(x, fb),
+                                          lambda: fused_bottleneck_reference(x, fb), lib))
+                bound, bound_by = block_bound_ms(b, h, w, cin, p, cout, down, dt)
+                row.update(library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by)
             results.append(row)
             del got, ref
     return results
 
 
-# --- main path ----------------------------------------------------------------
+def matmul_kernel_phase(device):
+    """transposed_matmul against its plain version at the probe's batch-8
+    shape and at a ragged M; at the batch-8 shape, CUDA-event times of
+    the kernel, the plain version and torch.matmul, in turns."""
+    import torch
+    from aod_meh_hua_torch.ops.transposed_matmul import (transposed_matmul,
+                                                         transposed_matmul_reference)
+    from aod_meh_hua_torch.tools.pallas_probe import bound_ms
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    n, k = 64, 256
+    rows = []
+    # the C2 1x1 conv of the probe at batch 8 (M = 8*152*256), and an M
+    # that ends inside a 128-wide tile
+    for label, m in (("C2", BATCH * 152 * 256), ("ragged", 1000)):
+        wt = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+        xt = (torch.randn((k, m), generator=gen, device=device) * 0.1).to(torch.bfloat16)
+        got = transposed_matmul(wt, xt)
+        ref = transposed_matmul_reference(wt, xt)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = MATMUL_TOL * ref.float().abs().max().item()
+        if got.shape != (n, m) or not torch.isfinite(got.float()).all() or not err <= tol:
+            fail(f"transposed_matmul {label}: max abs err {err} > {tol}")
+        row = dict(case=label, dtype="bfloat16", shape=[n, k, m], max_abs_err=err, tol=tol)
+        if label == "C2":
+            row.update(times_in_turns(lambda: transposed_matmul(wt, xt),
+                                      lambda: transposed_matmul_reference(wt, xt),
+                                      lambda: torch.matmul(wt, xt)))
+            bound, bound_by = bound_ms(2 * (n * k + k * m + n * m), 2 * n * k * m, torch.bfloat16)
+            row.update(bound_ms=bound, bound_by=bound_by)
+        rows.append(row)
+        del wt, xt, got, ref
+    return rows
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper by name; `.launches` is its launch count."""
+    from aod_meh_hua_torch.ops.fused_block import fused_bottleneck
+    from aod_meh_hua_torch.ops.transposed_matmul import transposed_matmul
+
+    return {"fused_bottleneck": fused_bottleneck, "transposed_matmul": transposed_matmul}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+# --- scoring path -------------------------------------------------------------
 
 def synthetic_pool(cfg, seed: int = 0):
     """(orientation, EvalBatch, indices) triples of seeded uint8 canvases:
@@ -234,7 +284,6 @@ def main_path(device, cfg, per_forward: int):
     from aod_meh_hua_torch.engine.postprocess import make_candidate_selector
     from aod_meh_hua_torch.engine.score import make_score_step
     from aod_meh_hua_torch.models.detector import build_retinanet
-    from aod_meh_hua_torch.ops.fused_block import fused_bottleneck
     from aod_meh_hua_torch.ops.nms import batched_multiclass_nms
 
     t0 = time.time()
@@ -255,12 +304,12 @@ def main_path(device, cfg, per_forward: int):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(device)
-    fused_bottleneck.launches = 0
+    reset_launches()
     t0 = time.time()
     unc, mconf = score_pool(model, cfg, triples, n_images, device=device)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fused_bottleneck.launches
+    launches = read_launches()["fused_bottleneck"]
     peak = torch.cuda.max_memory_allocated(device)
 
     forwards = len(triples)
@@ -360,6 +409,71 @@ def profile_step(model, cfg, triple, device):
             "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in top]}
 
 
+# --- probe path ---------------------------------------------------------------
+
+def probe_path(device, card):
+    """The backbone probe at batch 8, through its entry points: the 1x1
+    conv four ways, the census in bf16 and in f32 (TF32 off), the fused
+    block against the unfused one. Each kernel must launch exactly once
+    per call the probe made of it."""
+    import torch
+    from aod_meh_hua_torch.tools import pallas_probe as probe
+
+    reset_launches()
+    mm = probe.matmul_probe(BATCH, PROBE_ITERS, device)
+    census = {str(dt).split(".")[1]: probe.census(BATCH, PROBE_ITERS, dt, device)
+              for dt in (torch.bfloat16, torch.float32)}
+    block = probe.block_probe(BATCH, PROBE_ITERS, device)
+    launches = read_launches()
+    for name, calls in (("transposed_matmul", mm["kernel_calls"]),
+                        ("fused_bottleneck", block["kernel_calls"])):
+        if launches[name] != calls:
+            fail(f"{name} launched {launches[name]} times for {calls} calls of the probe")
+    print("probe matmul:", json.dumps(mm), f"[{card}]", flush=True)
+    for dname, rows in census.items():
+        print(f"probe census {dname}:", json.dumps(rows), f"[{card}]", flush=True)
+    print("probe block:", json.dumps(block), f"[{card}]", flush=True)
+    return launches
+
+
+def conv1x1_matmul_check(device, cfg):
+    """One landscape batch through the full-width model with the 1x1 convs
+    as matrix products and through the same weights without: head outputs
+    within F32_TOL of their scale, and both forwards timed in turns."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.tools.pallas_probe import cuda_time_ms
+
+    as_mm = build_retinanet(dataclasses.replace(cfg, conv1x1_matmul=True), device=device)
+    as_conv = build_retinanet(cfg, device=device)
+    as_conv.load_state_dict(as_mm.state_dict())
+    h, w = cfg.for_orientation("landscape").canvas
+    rng = np.random.RandomState(1)
+    imgs = torch.from_numpy(rng.randint(0, 256, (BATCH, h, w, 3)).astype(np.uint8)).to(device)
+    shapes = torch.tensor([[h, w]] * BATCH, dtype=torch.int32, device=device)
+    images = prepare_images(imgs, shapes, cfg)
+    err = {}
+    with torch.no_grad():
+        got, want = as_mm(images), as_conv(images)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("cls_scores", "bbox_preds", "lambdas"), got, want):
+            err[name] = (g - r).abs().max().item()
+            if g.shape != r.shape or not torch.isfinite(g).all() \
+                    or err[name] > F32_TOL * r.abs().max().item():
+                fail(f"conv1x1_matmul {name}: max abs err {err[name]} or bad values")
+        del got, want
+        t = {"matmul": [], "conv": []}
+        for key in ("matmul", "conv", "conv", "matmul"):
+            model = as_mm if key == "matmul" else as_conv
+            t[key].append(cuda_time_ms(lambda: model(images), iters=3, warmup=1))
+    return dict(batch=BATCH, head_max_abs_err=err, forward_ms_conv1x1_matmul=sum(t["matmul"]) / 2,
+                forward_ms_conv=sum(t["conv"]) / 2)
+
+
 def main() -> int:
     import torch
 
@@ -384,12 +498,16 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
     cases = kernel_phase(device)
-    for row in cases:
+    mm_cases = matmul_kernel_phase(device)
+    for row in cases + mm_cases:
         print("kernel case:", json.dumps(row), flush=True)
     # R50-FPN: layer1_1, layer1_2 (C2) and layer2_1..layer2_3 (C3) fuse
     path, prof = main_path(device, RetinaNetConfig(fused_blocks=True), per_forward=5)
     print("main path:", json.dumps(path), f"[{card}]", flush=True)
     print("profile of one score step:", json.dumps(prof), f"[{card}]", flush=True)
+    probe_launches = probe_path(device, card)
+    c11 = conv1x1_matmul_check(device, RetinaNetConfig())
+    print("conv1x1_matmul:", json.dumps(c11), f"[{card}]", flush=True)
 
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
@@ -404,6 +522,15 @@ def main() -> int:
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),
     }]
+    mm = next(r for r in mm_cases if r["case"] == "C2")
+    kernels.append({
+        "name": "transposed_matmul", "route": "cuda",
+        "source": "aod_meh_hua_torch/csrc/transposed_matmul.cu",
+        "replaces": "tools/analysis/pallas_probe.py:232",
+        "launches": probe_launches["transposed_matmul"],
+        "max_abs_err": mm["max_abs_err"], "ms": mm["ms"], "plain_ms": mm["plain_ms"],
+        "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

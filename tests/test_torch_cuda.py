@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: the hand-written fused bottleneck
-against its plain PyTorch version, and the tiny model's fused path
-against its unfused one. Skips, with the reason, where there is no card.
+"""The port's CUDA kernels on the card: the hand-written fused bottleneck
+and transposed matmul against their plain PyTorch versions, and the tiny
+model's fused path against its unfused one. Skips, with the reason, where
+there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -9,7 +10,9 @@ installed there, hence --noconftest):
 
 TF32 is turned off for every comparison, so the plain version's cuDNN
 convolutions run in full f32. Tolerances: f32 1e-4 of max|ref| (sums in
-another order), bf16 0.06 of max|ref| (tests/test_fused_block.py).
+another order), bf16 0.06 of max|ref| (tests/test_fused_block.py); the
+transposed matmul 2^-7 of max|ref|, one bf16 ulp, since kernel and plain
+version each round one f32 sum.
 """
 
 import pytest
@@ -18,6 +21,8 @@ import torch
 from aod_meh_hua_torch.ops import fused_block as fb_mod
 from aod_meh_hua_torch.ops.fused_block import (FoldedBlock, fused_bottleneck,
                                                fused_bottleneck_reference)
+from aod_meh_hua_torch.ops.transposed_matmul import (transposed_matmul,
+                                                     transposed_matmul_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +110,43 @@ def test_tiny_model_fused_matches_unfused(cuda):
     assert fb_mod.fused_bottleneck.launches == before + 2  # layer1.1 and layer2.1
     for g, w in zip(got, want):  # 1e-4 of the output's scale; random heads are tiny
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-7
+
+
+@pytest.mark.parametrize("n, k, m", [(64, 256, 4096), (64, 256, 1000), (32, 128, 4096),
+                                     (64, 256, 1001)])  # the last: element-wise accesses
+def test_transposed_matmul_matches_plain(cuda, n, k, m):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wt = (torch.randn((n, k), generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    xt = (torch.randn((k, m), generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    before = transposed_matmul.launches
+    got = transposed_matmul(wt, xt)
+    torch.cuda.synchronize()
+    assert transposed_matmul.launches == before + 1
+    want = transposed_matmul_reference(wt, xt)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, m)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+
+
+def test_transposed_matmul_counts_each_launch(cuda):
+    wt = torch.zeros((64, 256), dtype=torch.bfloat16, device=cuda)
+    xt = torch.ones((256, 512), dtype=torch.bfloat16, device=cuda)
+    before = transposed_matmul.launches
+    for i in range(3):
+        transposed_matmul(wt, xt)
+        assert transposed_matmul.launches == before + i + 1
+
+
+def test_transposed_matmul_rejects_what_it_does_not_take(cuda):
+    wt = torch.randn((64, 256), device=cuda).to(torch.bfloat16)
+    xt = torch.randn((256, 1024), device=cuda).to(torch.bfloat16)
+    before = transposed_matmul.launches
+    with pytest.raises(ValueError):
+        transposed_matmul(wt, xt[:, ::2])           # not contiguous
+    with pytest.raises(TypeError):
+        transposed_matmul(wt.float(), xt.float())   # not bf16
+    with pytest.raises(ValueError):
+        transposed_matmul(wt, xt[:128].contiguous())  # K does not match
+    with pytest.raises(ValueError):
+        transposed_matmul(wt[:48].contiguous(), xt)   # N not instantiated
+    assert transposed_matmul.launches == before

@@ -105,7 +105,7 @@ def test_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("override", [
-    dict(stem_s2d=True), dict(backbone_int8=True), dict(conv1x1_matmul=True),
+    dict(stem_s2d=True), dict(backbone_int8=True),
     dict(remat=True), dict(mc_dropout=0.1), dict(compute_dtype="bfloat16")])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
