@@ -7,8 +7,9 @@ ctypes. Nothing is built when this module is imported: the first call to
 process per source, all started together.
 
 Libraries go to `build/kernels/` at the root of the checkout (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.
+.gitignore), named by a hash of the source, the shared headers
+(`csrc/*.cuh`, which every source may include) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -52,8 +53,11 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(_source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -15,12 +15,12 @@ products (`Conv1x1Matmul`).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.fused_block import fold_bottleneck, fused_bottleneck
+from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck
 
 _NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
 
@@ -90,6 +90,25 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(_conv(inplanes, planes * 4, 1, stride,
                                                   as_matmul=conv1x1_matmul),
                                             FrozenBatchNorm2d(planes * 4))
+        self._folded: Optional[FoldedBlock] = None
+        self._folded_key = None
+
+    def folded(self, dtype: torch.dtype) -> FoldedBlock:
+        """fold_bottleneck(self) in the kernel's layout: weights contiguous
+        in `dtype`, biases contiguous float32, on the parameters' device.
+        Folded once and cached; refolded when a parameter or buffer is
+        replaced, moved or edited in place (its `_version` moves), or when
+        `dtype` changes. Inference only: the cache carries no autograd."""
+        tensors = list(self.parameters()) + list(self.buffers())
+        key = (dtype, tuple((t.device, t.dtype, t.data_ptr(), t._version) for t in tensors))
+        if key != self._folded_key:
+            with torch.no_grad():
+                fb = fold_bottleneck(self)
+            self._folded = FoldedBlock(*(
+                None if a is None else a.to(dtype if name.startswith("w") else torch.float32)
+                .contiguous() for name, a in zip(FoldedBlock._fields, fb)))
+            self._folded_key = key
+        return self._folded
 
     def fused_eligible(self, cin: int) -> bool:
         """The JAX package's gate (models/resnet.py:145-156): stride 1 and
@@ -100,7 +119,7 @@ class Bottleneck(nn.Module):
         # fused blocks take precedence over conv1x1_matmul, as in the JAX package
         if self.fused_eligible(x.shape[1]):
             nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
-            out = fused_bottleneck(nhwc.contiguous(), fold_bottleneck(self))
+            out = fused_bottleneck(nhwc.contiguous(), self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         identity = x
         y = torch.relu(self.bn1(self.conv1(x)))

@@ -129,6 +129,8 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
         raise ValueError("fused_bottleneck: identity residual needs Cin == Cout")
     if not 0 < b <= 65535:
         raise ValueError(f"fused_bottleneck: batch {b} out of range")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck: x must be 16-byte aligned")
     if tuple(fb.w1.shape) != (cin, p) or tuple(fb.w2.shape) != (9, p, p):
         raise ValueError("fused_bottleneck: weight shapes do not match x")
 
@@ -137,6 +139,8 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
     dt = x.dtype
     dev = x.device
 
+    # no copies for a FoldedBlock already in the kernel's layout
+    # (models/resnet.py Bottleneck.folded)
     def wt(t):
         return t.to(device=dev, dtype=dt).contiguous()
 

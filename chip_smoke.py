@@ -48,6 +48,7 @@ POOL = {"landscape": 14, "portrait": 12}   # 4 batches of 8, two of them padded
 F32_TOL = 1e-4    # of max|ref|: the same f32 sums in another order
 BF16_TOL = 0.06   # of max|ref|: bf16 rounding of intermediates (tests/test_fused_block.py)
 MATMUL_TOL = 2.0 ** -7  # of max|ref|: one bf16 ulp; kernel and plain version round one f32 sum
+TF32_PEAK_OPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 PROBE_ITERS = 10
 
 
@@ -124,13 +125,23 @@ def unfused_chain(x_nchw, fb):
 
 def block_bound_ms(b, h, w, cin, p, cout, down, dtype):
     """Least time for one launch: x read once, out written once, weights
-    once, against the HBM rate; FLOPs against the type's peak."""
-    from aod_meh_hua_torch.tools.pallas_probe import bound_ms
+    once, against the HBM rate; FLOPs against the type's peak. For float32
+    that is the least time for f32-accurate work on the tensor cores:
+    3xTF32, three TF32 products per product at 495 TFLOP/s (the kernel's
+    route). Returns (ms, bound_by, ms on the CUDA cores' 67 TFLOP/s or None)."""
+    import torch
+    from aod_meh_hua_torch.tools.pallas_probe import HBM_BYTES_PER_S, bound_ms
 
     elt = dtype.itemsize
     weights = cin * p + 9 * p * p + p * cout + (cin * cout if down else 0)
     nbytes = elt * (b * h * w * (cin + cout) + weights) + 4 * (2 * p + cout * (2 if down else 1))
-    return bound_ms(nbytes, 2 * b * h * w * weights, dtype)
+    flops = 2 * b * h * w * weights
+    bound, bound_by = bound_ms(nbytes, flops, dtype)
+    if dtype != torch.float32:
+        return bound, bound_by, None
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_PEAK_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bound
 
 
 def kernel_phase(device):
@@ -174,8 +185,10 @@ def kernel_phase(device):
                 lib_err = (libout.permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
                 row.update(times_in_turns(lambda: fused_bottleneck(x, fb),
                                           lambda: fused_bottleneck_reference(x, fb), lib))
-                bound, bound_by = block_bound_ms(b, h, w, cin, p, cout, down, dt)
+                bound, bound_by, cuda_cores = block_bound_ms(b, h, w, cin, p, cout, down, dt)
                 row.update(library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by)
+                if cuda_cores is not None:
+                    row.update(bound_ms_cuda_cores=cuda_cores)
             results.append(row)
             del got, ref
     return results
@@ -193,9 +206,9 @@ def matmul_kernel_phase(device):
     gen = torch.Generator(device=device).manual_seed(1)
     n, k = 64, 256
     rows = []
-    # the C2 1x1 conv of the probe at batch 8 (M = 8*152*256), and an M
-    # that ends inside a 128-wide tile
-    for label, m in (("C2", BATCH * 152 * 256), ("ragged", 1000)):
+    # the C2 1x1 conv of the probe at batch 8 (M = 8*152*256), an M that
+    # ends inside a 128-wide tile, and one smaller than a tile
+    for label, m in (("C2", BATCH * 152 * 256), ("ragged", 1000), ("small", 40)):
         wt = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(torch.bfloat16)
         xt = (torch.randn((k, m), generator=gen, device=device) * 0.1).to(torch.bfloat16)
         got = transposed_matmul(wt, xt)
@@ -513,6 +526,10 @@ def main() -> int:
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731
     c2 = next(r for r in main_rows if r["case"] == "C2")
+    # the bf16 kernel per launch (the probe's dtype; not on the f32 scoring path)
+    bf16 = {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err")}
+            for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "bfloat16"}
     kernels = [{
         "name": "fused_bottleneck", "route": "cuda",
         "source": "aod_meh_hua_torch/csrc/fused_bottleneck.cu",
@@ -521,6 +538,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),
+        "bound_ms_cuda_cores": total("bound_ms_cuda_cores"),
+        "per_launch_f32": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms")}
+                           for r in main_rows},
+        "bf16": bf16,
     }]
     mm = next(r for r in mm_cases if r["case"] == "C2")
     kernels.append({

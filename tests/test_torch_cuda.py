@@ -12,11 +12,14 @@ TF32 is turned off for every comparison, so the plain version's cuDNN
 convolutions run in full f32. Tolerances: f32 1e-4 of max|ref| (sums in
 another order), bf16 0.06 of max|ref| (tests/test_fused_block.py); the
 transposed matmul 2^-7 of max|ref|, one bf16 ulp, since kernel and plain
-version each round one f32 sum.
+version each round one f32 sum. The f32 kernel (3xTF32 on the tensor
+cores) is also held to a float64 evaluation of the same block within
+1e-5 of the output's scale, which a single TF32 pass (about 1e-3) fails.
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from aod_meh_hua_torch.ops import fused_block as fb_mod
 from aod_meh_hua_torch.ops.fused_block import (FoldedBlock, fused_bottleneck,
@@ -54,13 +57,16 @@ def random_block(cin, p, cout, downsample, device, seed=0):
                        b(cout) if downsample else None)
 
 
-CASES = [  # (B, H, W, Cin, P, Cout, downsample)
+CASES = [  # (B, H, W, Cin, P, Cout, downsample); output tiles are 8x16 (8x8 for f32 at P=128)
     (2, 16, 16, 256, 64, 256, False),
-    (1, 19, 13, 256, 64, 256, False),     # H and W not multiples of the 8x8 tile
+    (1, 19, 13, 256, 64, 256, False),     # H and W not multiples of the tile
+    (1, 13, 27, 256, 64, 256, False),     # H and W end inside the tile in both directions
     (2, 20, 12, 128, 64, 256, True),      # 1x1 downsample residual
     (1, 12, 17, 512, 128, 512, False),
+    (1, 9, 76, 512, 128, 512, False),     # the portrait C3 width
     (1, 9, 8, 256, 128, 512, True),
     (2, 11, 21, 128, 32, 128, False),     # the half-width test model's C2
+    (1, 10, 19, 64, 32, 128, True),       # P=32 with a downsample
 ]
 
 
@@ -80,6 +86,41 @@ def test_kernel_matches_plain(cuda, case, dtype):
     tol = 1e-4 if dtype == torch.float32 else 0.06
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item(), err
+
+
+def reference_f64(x, fb):
+    """fused_bottleneck_reference's arithmetic in float64 (for f32 x, whose
+    intermediates the kernel does not round)."""
+    p = fb.w1.shape[1]
+
+    def k1(t):
+        return t.double().t()[:, :, None, None]
+
+    def bias(t):
+        return t.double().reshape(1, -1, 1, 1)
+
+    xd = x.double().permute(0, 3, 1, 2)
+    y = torch.relu(F.conv2d(xd, k1(fb.w1)) + bias(fb.b1))
+    w2 = fb.w2.double().reshape(3, 3, p, p).permute(3, 2, 0, 1)
+    y = torch.relu(F.conv2d(y, w2, padding=1) + bias(fb.b2))
+    y = F.conv2d(y, k1(fb.w3)) + bias(fb.b3)
+    res = xd if fb.wd is None else F.conv2d(xd, k1(fb.wd)) + bias(fb.bd)
+    return torch.relu(y + res).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[3], CASES[4], CASES[7]])
+def test_kernel_f32_matches_float64(cuda, case):
+    """3xTF32 keeps the f32 kernel at f32 accuracy: within 1e-5 of the
+    output's scale of the float64 block."""
+    b, h, w, cin, p, cout, down = case
+    fb = random_block(cin, p, cout, down, cuda, seed=4)
+    x = torch.randn((b, h, w, cin), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda)
+    got = fused_bottleneck(x, fb)
+    want = reference_f64(x, fb)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -112,8 +153,15 @@ def test_tiny_model_fused_matches_unfused(cuda):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-7
 
 
-@pytest.mark.parametrize("n, k, m", [(64, 256, 4096), (64, 256, 1000), (32, 128, 4096),
-                                     (64, 256, 1001)])  # the last: element-wise accesses
+@pytest.mark.parametrize("n, k, m", [
+    (64, 256, 4096), (64, 256, 1000), (32, 128, 4096),
+    (64, 256, 1001),      # element-wise accesses (M % 8 != 0)
+    (64, 256, 4168),      # M ends inside a 128-column tile
+    (64, 256, 40),        # M smaller than one tile
+    (32, 64, 7),          # ... and element-wise
+    (64, 256, 50_000),    # more tiles than SMs: each block walks several
+    (32, 96, 40_001),     # ... element-wise, K shorter than the ring
+])
 def test_transposed_matmul_matches_plain(cuda, n, k, m):
     g = torch.Generator(device=cuda).manual_seed(3)
     wt = (torch.randn((n, k), generator=g, device=cuda) * 0.02).to(torch.bfloat16)

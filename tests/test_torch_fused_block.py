@@ -123,6 +123,41 @@ def test_fused_port_block_matches_unfused_jax_block(downsample):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _folded_equal(a: tfb.FoldedBlock, b: tfb.FoldedBlock) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_block_folds_once_per_weight_version():
+    """Bottleneck.folded caches the kernel-layout FoldedBlock: reused across
+    forwards, refolded after load_state_dict, an in-place edit or a new
+    dtype; the output is the same as folding on every forward."""
+    _, x, variables = _case((1, 6, 7, 128), True, seed=6)
+    block = _port_block(variables, 128, 64, True, fused=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        first = block(xt)
+        fb = block._folded
+        assert block(xt).equal(first) and block._folded is fb
+        want = tfb.fused_bottleneck(xt.permute(0, 2, 3, 1).contiguous(), tfb.fold_bottleneck(block))
+    assert first.permute(0, 2, 3, 1).equal(want)
+    assert _folded_equal(fb, tfb.fold_bottleneck(block))
+    for name, t in zip(tfb.FoldedBlock._fields, fb):
+        assert t.is_contiguous() and t.dtype == torch.float32 and not t.requires_grad, name
+
+    state = {k: v * 1.5 if k.endswith("weight") else v for k, v in block.state_dict().items()}
+    block.load_state_dict(state)
+    assert block.folded(torch.float32) is not fb
+    assert _folded_equal(block._folded, tfb.fold_bottleneck(block))
+    fb2 = block._folded
+    with torch.no_grad():
+        block.bn2.running_var.mul_(2.0)
+    assert block.folded(torch.float32) is not fb2
+    assert _folded_equal(block._folded, tfb.fold_bottleneck(block))
+    bf = block.folded(torch.bfloat16)
+    assert bf.w2.dtype == torch.bfloat16 and bf.b2.dtype == torch.float32
+    assert block.folded(torch.bfloat16) is bf
+
+
 @pytest.mark.parametrize("cin,stride,fused,expect", [
     (128, 1, True, True), (256, 1, True, True), (64, 1, True, False),
     (256, 2, True, False), (256, 1, False, False)])
