@@ -36,11 +36,15 @@ def score_pool(
     num_images: int,
     rng: Optional[np.random.RandomState] = None,
     device="cuda",
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Score every pool image. `loader` is any iterable of (orientation,
     EvalBatch, indices) triples, EvalLoader's contract; `indices` maps
     each row to its dataset index and `batch.valid` marks padding rows.
     Returns (uncertainty [N], max_conf [N]) in dataset order, float64.
+    With hua.mi_mode="sampled", every batch draws from `generator` (on
+    `device`; the JAX package passes its key to every batch); the step
+    raises without one.
 
     Batch k+1 is uploaded before batch k's scores are read back.
     """
@@ -67,7 +71,7 @@ def score_pool(
     cur = stage(next(it, None))
     while cur is not None:
         orientation, batch, idx = cur
-        u, mc = steps[orientation](batch)
+        u, mc = steps[orientation](batch, generator)
         cur = stage(next(it, None))  # upload k+1 while k computes
         u = u.cpu().numpy()[: len(idx)]
         mc = mc.cpu().numpy()[: len(idx)]

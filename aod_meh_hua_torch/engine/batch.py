@@ -2,7 +2,7 @@
 per-device anchor table.
 
 Port of aod_meh_hua_tpu/engine/batch.py (`prepare_images` :16-37,
-`ConstArg` :40-83, `EvalBatch` :98-104).
+`ConstArg` :40-83, `Batch` :86-95, `EvalBatch` :98-104).
 """
 
 from __future__ import annotations
@@ -11,6 +11,12 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+
+
+def as_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on `device` (in `dtype`)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    return t.to(device=device, dtype=dtype)
 
 
 def prepare_images(images: torch.Tensor, img_shapes: torch.Tensor, cfg) -> torch.Tensor:
@@ -49,6 +55,17 @@ class AnchorTable:
             t = torch.from_numpy(self.host).to(device)
             self._cache[device] = t
         return t
+
+
+class Batch(NamedTuple):
+    """Training batch; numpy arrays or tensors."""
+
+    images: object        # [B, H, W, 3] uint8, or normalised float32
+    gt_boxes: object      # [B, G, 4] float32 in resized-image coordinates
+    gt_labels: object     # [B, G] int
+    gt_valid: object      # [B, G] bool (GTs padded to max_gt)
+    anchor_valid: object  # [B, A] bool (pad-region mask, ops/anchors.anchor_valid_flags)
+    img_shapes: object    # [B, 2] int32 (h, w) resized shape
 
 
 class EvalBatch(NamedTuple):

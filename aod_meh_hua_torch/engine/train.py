@@ -1,0 +1,201 @@
+"""Training: one step that fuses the supervised and the MEH phases.
+
+Port of aod_meh_hua_tpu/engine/train.py (`frozen_mask`, `make_optimizer`,
+`set_learning_rate`, `schedule_lr`, `create_train_state` :52-124,
+`_meh_regression` :126-136, `make_retina_loss_fn` :161-219,
+`make_train_step` :277-335), which mirrors the reference's
+Epoch_Based_Runner_Lambda.py:20-38 (per iteration: the main loss's
+backward and SGD step on the trunk, then the MEH loss on the pre-update
+per-anchor cls loss, backward and SGD step on the lambda branch),
+train_Lambda.py:41-48 (two SGDs with the same lr, momentum and wd),
+Lambda_L2.py:106-121, :235-252 and L_anchor_head.py:290-320.
+
+The MEH branch reads detached FPN features (models/detector.py) and
+regresses the detached per-anchor loss `loss_noR`, so the gradient of
+loss_cls + loss_bbox + loss_meh splits exactly as the reference's two
+backwards: one backward and one SGD update do both phases. Weight decay
+and momentum act per parameter, so one torch.optim.SGD over the
+non-frozen parameters is update for update the reference's two
+optimizers, and the JAX package's optax chain.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.assigner import anchor_targets
+from ..ops.losses import pseudo_logits, sigmoid_focal_loss_elementwise
+from ..utils.config import RetinaNetConfig, TrainConfig
+from ..utils.device import resolve_device
+from .batch import AnchorTable, Batch, as_tensor, prepare_images
+
+_STEM = ("conv1", "bn1")
+
+
+def frozen_mask(model: torch.nn.Module, frozen_stages: int = 1) -> Dict[str, bool]:
+    """Parameter name -> True for the parameters training must not touch:
+    the ResNet stem and layer1..layer{frozen_stages} (the reference's
+    frozen_stages=1, resnet.py:305). frozen_stages <= 0 freezes nothing."""
+    frozen = set(_STEM + tuple(f"layer{i}" for i in range(1, frozen_stages + 1))) \
+        if frozen_stages > 0 else set()
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        out[name] = parts[0] == "backbone" and parts[1] in frozen
+    return out
+
+
+def make_optimizer(tcfg: TrainConfig, model: torch.nn.Module,
+                   frozen_stages: int = 1) -> torch.optim.SGD:
+    """torch.optim.SGD(lr, momentum, weight_decay, dampening=0,
+    nesterov=False) over the non-frozen parameters: buf = mu * buf +
+    (g + wd * p); p -= lr * buf, the JAX package's optax chain. The
+    frozen parameters stay out of it, so they see neither weight decay
+    nor momentum. tcfg.grad_clip rides along in optimizer.defaults, as
+    optax keeps clip_by_global_norm in the chain: make_train_step reads
+    it there."""
+    if tcfg.optimizer != "sgd":
+        raise NotImplementedError(
+            f"optimizer={tcfg.optimizer!r}: the port trains with SGD only; AdamW comes "
+            "with the DETR family (ROADMAP Queue 1 item 15)")
+    mask = frozen_mask(model, frozen_stages)
+    opt = torch.optim.SGD([p for name, p in model.named_parameters() if not mask[name]],
+                          lr=tcfg.lr, momentum=tcfg.momentum,
+                          weight_decay=tcfg.weight_decay, dampening=0.0, nesterov=False)
+    opt.defaults["grad_clip"] = tcfg.grad_clip
+    return opt
+
+
+def create_train_state(model: torch.nn.Module, tcfg: TrainConfig,
+                       frozen_stages: int = 1) -> torch.optim.SGD:
+    """Readies `model` for training and returns its optimizer (the model
+    and the optimizer's momentum buffers are the train state).
+
+    The frozen parameters keep requires_grad only when tcfg.grad_clip is
+    set: optax's clip_by_global_norm sits before the frozen mask, so its
+    global norm counts their gradients too (make_train_step clips by the
+    optimizer's grad_clip, which is tcfg's). Otherwise backward skips
+    them."""
+    mask = frozen_mask(model, frozen_stages)
+    for name, p in model.named_parameters():
+        p.requires_grad_(not mask[name] or bool(tcfg.grad_clip))
+    return make_optimizer(tcfg, model, frozen_stages)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every parameter group's learning rate."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def schedule_lr(tcfg: TrainConfig, outer_epoch: int, inner_epoch: int) -> float:
+    """The reference script's schedule (tools/train_RetinaNet.py:179-200): the lr is
+    reset to base each outer epoch and drops x0.1 at lr_step_epoch of the
+    final outer epoch only."""
+    lr = tcfg.lr
+    if outer_epoch == tcfg.outer_epoch - 1 and inner_epoch >= tcfg.lr_step_epoch:
+        lr = lr * 0.1
+    return lr
+
+
+def _meh_regression(lam: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+                    kind: str) -> torch.Tensor:
+    """Per-level MEH loss (Lambda_L2.py:235-252 and the L1/MSLE ablations)."""
+    lam = lam + 1e-9
+    if kind == "l2":
+        return torch.mean((torch.abs(lam - target) * w) ** 2) * 5.0
+    if kind == "l1":
+        return torch.mean(torch.abs(lam - target) * w)
+    if kind == "msle":
+        return torch.mean(torch.abs(torch.log(lam + 1.0) - torch.log(target + 1.0)) * w)
+    raise ValueError(kind)
+
+
+def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
+                        ) -> Tuple[Callable, np.ndarray]:
+    """Returns (loss_fn, anchors_host); loss_fn(batch: Batch of tensors on
+    the model's device, anchors [A, 4]) -> (total, aux) with aux's
+    loss, loss_cls, loss_bbox, loss_meh and num_pos."""
+    gen = cfg.build_anchor_generator()
+    anchors_host = np.concatenate(gen.grid_anchors(cfg.featmap_sizes())).astype(np.float32)
+    bounds = cfg.level_bounds()
+
+    def loss_fn(batch: Batch, anchors: torch.Tensor):
+        cls_scores, bbox_preds, lambdas = model(
+            prepare_images(batch.images, batch.img_shapes, cfg))
+        t = anchor_targets(anchors, batch.anchor_valid, batch.gt_boxes, batch.gt_labels,
+                           batch.gt_valid, num_classes=cfg.num_classes,
+                           target_means=cfg.target_means, target_stds=cfg.target_stds,
+                           pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
+                           min_pos_iou=cfg.min_pos_iou,
+                           gt_max_assign_all=cfg.gt_max_assign_all)
+        num_total = t.num_pos.sum().float()
+        elem = sigmoid_focal_loss_elementwise(pseudo_logits(cls_scores, cfg.cls_loss),
+                                              t.labels, gamma=cfg.focal_gamma,
+                                              alpha=cfg.focal_alpha)  # [B, A, C]
+        loss_cls = (elem * t.label_weights[..., None]).sum() / num_total
+        # the unreduced per-anchor loss, the MEH regression target (loss_noR)
+        loss_nor = elem.sum(dim=-1).detach()  # [B, A]
+        loss_bbox = (torch.abs(bbox_preds - t.bbox_targets) * t.bbox_weights).sum() / num_total
+        loss_meh = torch.zeros((), dtype=torch.float32, device=cls_scores.device)
+        if lambdas is not None:
+            w = t.bbox_weights[..., 0]  # Lambda_L2.py:237 weights by the bbox weights
+            for s0, s1 in bounds:
+                loss_meh = loss_meh + _meh_regression(
+                    lambdas[:, s0:s1], loss_nor[:, s0:s1], w[:, s0:s1], cfg.meh_loss)
+        total = loss_cls + loss_bbox + loss_meh
+        aux = {"loss": total, "loss_cls": loss_cls, "loss_bbox": loss_bbox,
+               "loss_meh": loss_meh, "num_pos": num_total}
+        return total, aux
+
+    return loss_fn, anchors_host
+
+
+def _clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm on .grad in place: g * max_norm / norm
+    when the global norm exceeds max_norm, g unchanged otherwise."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+def make_train_step(model: torch.nn.Module, cfg: RetinaNetConfig,
+                    optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
+    """Returns step(batch: Batch) -> aux (detached scalar tensors on
+    `device`): one forward, one backward and one optimizer step on
+    `model`, which lives on `device` with fused_blocks off (the fused
+    kernel has no backward). Where the optimizer carries a grad_clip
+    (make_optimizer's TrainConfig.grad_clip), the gradients are clipped
+    by their global norm over every parameter that has one, the frozen
+    ones included, before the optimizer sees them."""
+    dev = resolve_device(device)
+    if cfg.fused_blocks:
+        raise ValueError("the fused bottleneck kernel has no backward; train with "
+                         "fused_blocks=False")
+    param = next(model.parameters())
+    if param.device.type != dev.type:
+        raise ValueError(f"model is on {param.device}, the step on {dev}")
+    grad_clip = optimizer.defaults.get("grad_clip")
+    loss_fn, anchors_host = make_retina_loss_fn(model, cfg)
+    anchors = AnchorTable(anchors_host)
+
+    def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        b = Batch(images=as_tensor(batch.images, dev),
+                  gt_boxes=as_tensor(batch.gt_boxes, dev, torch.float32),
+                  gt_labels=as_tensor(batch.gt_labels, dev, torch.long),
+                  gt_valid=as_tensor(batch.gt_valid, dev, torch.bool),
+                  anchor_valid=as_tensor(batch.anchor_valid, dev, torch.bool),
+                  img_shapes=as_tensor(batch.img_shapes, dev))
+        model.zero_grad(set_to_none=True)
+        total, aux = loss_fn(b, anchors.get(dev))
+        total.backward()
+        if grad_clip:
+            _clip_by_global_norm(model.parameters(), grad_clip)
+        optimizer.step()
+        return {k: v.detach() for k, v in aux.items()}
+
+    return step

@@ -8,7 +8,9 @@ norm_eval=True). BN always uses its running statistics, an affine map.
 The module runs NCHW tensors in `channels_last` memory, so a fused block
 hands the kernel an NHWC view without a copy. Stride-1 blocks of the
 stages in `stage_fused` take the fused kernel (ops/fused_block.py) under
-the JAX package's gate, so the same blocks fuse in both packages. With
+the JAX package's gate, so the same blocks fuse in both packages. The
+kernel has no backward: a backward through a fused block raises, so a
+model is trained with fused_blocks off, as in the JAX package. With
 `conv1x1_matmul`, the 1x1 convs of the other blocks run as matrix
 products (`Conv1x1Matmul`).
 """
@@ -20,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck
+from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck_block
 
 _NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
 
@@ -119,7 +121,9 @@ class Bottleneck(nn.Module):
         # fused blocks take precedence over conv1x1_matmul, as in the JAX package
         if self.fused_eligible(x.shape[1]):
             nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
-            out = fused_bottleneck(nhwc.contiguous(), self.folded(x.dtype))
+            # differentiating through the kernel raises (it has no backward)
+            out = fused_bottleneck_block(nhwc.contiguous(), self.folded(x.dtype),
+                                         tuple(self.parameters()))
             return out.permute(0, 3, 1, 2)
         identity = x
         y = torch.relu(self.bn1(self.conv1(x)))

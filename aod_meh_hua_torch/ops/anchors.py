@@ -1,17 +1,19 @@
-"""Octave anchors of the RetinaNet family (numpy).
+"""Octave anchors of the RetinaNet family and their pad-region flags
+(numpy).
 
-A copy of `AnchorGenerator` from aod_meh_hua_tpu/ops/anchors.py (:25-156),
-without its `scales`/`base_sizes` overrides (other families' anchors)
-and `valid_flags` (training). It mirrors the reference's
-mmdet/core/anchor/anchor_generator.py:12 (octave scales,
-center_offset=0, ratio-major base anchors, row-major grid). The port
-keeps its own copy because the JAX package's
-`ops/__init__.py` imports jax; tests/test_torch_ops.py holds the two
-tables bit-equal.
+A copy of `AnchorGenerator` (:25-156, without its `scales`/`base_sizes`
+overrides, other families' anchors), `_valid_flags` (:71-93) and
+`anchor_valid_flags` (:244-262) from aod_meh_hua_tpu/ops/anchors.py. It
+mirrors the reference's mmdet/core/anchor/anchor_generator.py:12 (octave
+scales, center_offset=0, ratio-major base anchors, row-major grid,
+single_level_valid_flags). The port keeps its own copy because the JAX
+package's `ops/__init__.py` imports jax; tests/test_torch_ops.py and
+tests/test_torch_train.py hold the two copies bit-equal.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -63,6 +65,26 @@ def _grid_anchors(base: np.ndarray, feat_size: Tuple[int, int], stride: Tuple[in
     return (base[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
 
 
+def _valid_flags(
+    feat_size: Tuple[int, int],
+    stride: Tuple[int, int],
+    valid_shape: Tuple[int, int],
+    num_base_anchors: int,
+) -> np.ndarray:
+    """Per-anchor validity for an image padded to `valid_shape` (h, w):
+    a grid cell is valid iff its index is below ceil(valid_extent /
+    stride), expanded to all anchors of the cell."""
+    feat_h, feat_w = feat_size
+    valid_h = min(int(math.ceil(valid_shape[0] / stride[1])), feat_h)
+    valid_w = min(int(math.ceil(valid_shape[1] / stride[0])), feat_w)
+    vx = np.zeros(feat_w, dtype=bool)
+    vx[:valid_w] = True
+    vy = np.zeros(feat_h, dtype=bool)
+    vy[:valid_h] = True
+    valid = np.tile(vx, feat_h) & np.repeat(vy, feat_w)
+    return np.repeat(valid, num_base_anchors)
+
+
 @dataclass
 class AnchorGenerator:
     """Octave anchor generator (RetinaNet family).
@@ -107,3 +129,26 @@ class AnchorGenerator:
             _grid_anchors(self.base_anchors[i], featmap_sizes[i], self.strides[i])
             for i in range(self.num_levels)
         ]
+
+    def valid_flags(
+        self, featmap_sizes: Sequence[Tuple[int, int]], pad_shape: Tuple[int, int]
+    ) -> List[np.ndarray]:
+        return [
+            _valid_flags(featmap_sizes[i], self.strides[i], pad_shape, self.num_base_anchors[i])
+            for i in range(self.num_levels)
+        ]
+
+
+def anchor_valid_flags(
+    generator,
+    featmap_sizes: Sequence[Tuple[int, int]],
+    pad_shapes: np.ndarray,
+) -> np.ndarray:
+    """Batch valid flags: pad_shapes [B, 2] (h, w) -> bool [B, total_anchors]
+    (the reference's valid_flags + anchor_inside_flags with
+    allowed_border=-1)."""
+    flags = []
+    for hw in np.asarray(pad_shapes):
+        per_level = generator.valid_flags(featmap_sizes, (int(hw[0]), int(hw[1])))
+        flags.append(np.concatenate(per_level))
+    return np.stack(flags)

@@ -1,8 +1,8 @@
-"""Box primitives: IoU overlaps and delta-XYWH decoding (torch).
+"""Box primitives: IoU overlaps, delta-XYWH encoding and decoding (torch).
 
 Port of aod_meh_hua_tpu/ops/bbox.py:19-142, which mirrors the reference's
 mmdet/core/bbox/iou_calculators/iou2d_calculator.py and
-delta_xywh_bbox_coder.py:144 (delta2bbox). Boxes are (x1, y1, x2, y2) in
+delta_xywh_bbox_coder.py:98 (bbox2delta) and :144 (delta2bbox). Boxes are (x1, y1, x2, y2) in
 pixels; area = (x2 - x1) * (y2 - y1) (no +1). Every function broadcasts
 over leading batch dimensions.
 """
@@ -36,6 +36,33 @@ def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
     inter = wh[..., 0] * wh[..., 1]
     union = a1 + a2 - inter if mode == "iou" else a1 + torch.zeros_like(a2)
     return inter / union.clamp(min=eps)
+
+
+def delta_encode(proposals: torch.Tensor, gt: torch.Tensor,
+                 means=(0.0, 0.0, 0.0, 0.0), stds=(1.0, 1.0, 1.0, 1.0),
+                 eps: float = 0.0) -> torch.Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) deltas w.r.t. proposals.
+    `eps` floors the proposals' widths and heights, which keeps padded
+    rows finite (they are masked downstream)."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    if eps:
+        pw = pw.clamp(min=eps)
+        ph = ph.clamp(min=eps)
+    dx = (gx - px) / pw
+    dy = (gy - py) / ph
+    dw = torch.log((gw / pw).clamp(min=1e-12))
+    dh = torch.log((gh / ph).clamp(min=1e-12))
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
 
 
 def delta_decode(rois: torch.Tensor, deltas: torch.Tensor,

@@ -14,13 +14,16 @@ sqrt(var + eps).
 
 Layouts are the JAX package's: x and the output are NHWC; w1 [Cin, P],
 w2 [9, P, P] (taps HW-major, then in, out), w3 [P, Cout], wd [Cin, Cout];
-biases [1, C] in float32. Inference only: no backward.
+biases [1, C] in float32. Inference only: the kernel has no backward,
+as the JAX kernel defines no VJP. `fused_bottleneck_block`, which
+models/resnet.py calls, makes differentiating through it raise, as
+jax.grad through the JAX kernel does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -164,3 +167,30 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
 
 
 fused_bottleneck.launches = 0
+
+
+class _NoBackward(torch.autograd.Function):
+    """fused_bottleneck as an autograd node over the block's parameters
+    and input, whose backward raises: the folded weights carry no graph,
+    so without this node autograd would give those parameters no
+    gradient and say nothing."""
+
+    @staticmethod
+    def forward(ctx, x, fb, *params):
+        return fused_bottleneck(x, fb)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "fused_bottleneck has no backward (the kernel is for scoring and eval, as "
+            "the JAX kernel, which defines no VJP); train with fused_blocks=False")
+
+
+def fused_bottleneck_block(x: torch.Tensor, fb: FoldedBlock,
+                           params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """fused_bottleneck(x, fb) for a block whose folded weights `fb` come
+    from `params`. Under torch.no_grad or inference mode, or when neither
+    x nor a parameter requires grad, the output is fused_bottleneck's and
+    carries no graph; otherwise it is differentiable in name only, and a
+    backward through it raises."""
+    return _NoBackward.apply(x, fb, *params)

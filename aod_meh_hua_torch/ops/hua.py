@@ -2,10 +2,11 @@
 
 Port of aod_meh_hua_tpu/ops/hua.py (`parse_agg_spec` :46-61,
 `_masked_reduce` :64-81, `object_membership` :84-99, `lambda_rescale`
-:102-116, `hua_object_scores` :119-214), which mirrors the reference's
-Lambda_L2.py:343-349 (GetObjectIdx), :489-537 (ComputeObjUnc) and
-:571-633 (AggregateObjScaleUnc, ChangeOrder + AggregateObjClassScaleUnc,
-clsW). Objects are a static axis (the NMS output slots), membership a
+:102-116, `hua_object_scores` :119-214, `hua_scale_scores` :217-266),
+which mirrors the reference's Lambda_L2.py:343-349 (GetObjectIdx),
+:489-537 (ComputeObjUnc), :571-633 (AggregateObjScaleUnc, ChangeOrder +
+AggregateObjClassScaleUnc, clsW) and :539-569 + :636-691
+(ComputeScaleUnc / AggregateScaleUnc, the pools without objects). Objects are a static axis (the NMS output slots), membership a
 dense [A, K] mask, and the class -> scale -> object reduction masked
 sums, means and maxes. Empty sets read exactly 0, which the zeroRate
 selection depends on. The JAX function is per image under vmap; the
@@ -14,7 +15,7 @@ port takes an explicit batch dimension.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -143,3 +144,52 @@ def hua_object_scores(
         # classes over every (object, scale) cell, empty reductions included
         score = score * valid.any(dim=2).any(dim=1).sum(dim=-1).to(dt)
     return score
+
+
+def hua_scale_scores(
+    level_scores: Sequence[torch.Tensor],
+    level_lambda: Optional[Sequence[torch.Tensor]],
+    agg: Dict[str, str],
+    fg_score_thr: float = 0.3,
+    lambda_eps: float = 1e-7,
+    lambda_scale: float = 25.0,
+    unc_type: str = "epistemic",
+    mi_fn: Callable = None,
+    num_fg_classes: int = None,
+) -> torch.Tensor:
+    """Scale/class HUA score per image for Entropy_ALL / Entropy_NoNMS -> [B].
+
+    level_scores: per level [B, Nl, C] softmax probabilities over the
+    FULL feature map (no top-k). level_lambda: per level [B, Nl] MEH
+    lambda, or None for no lambda rescale (the Entropy_NoNMS pathway).
+    The FG gate reads the first `num_fg_classes` columns only.
+    """
+    if mi_fn is None:
+        mi_fn = dirichlet_mutual_information
+    num_cls = level_scores[0].shape[-1]
+    num_fg = num_fg_classes or num_cls
+
+    sums: List[torch.Tensor] = []
+    cnts: List[torch.Tensor] = []
+    for li, probs in enumerate(level_scores):
+        fg = probs[..., :num_fg].amax(dim=-1) > fg_score_thr         # [B, Nl]
+        alpha = probs
+        if level_lambda is not None:
+            lam = level_lambda[li]
+            # the mean runs over the whole level map, not the FG-masked part
+            lam_p = lam.mean(dim=-1, keepdim=True) / (lam + lambda_eps) * lambda_scale
+            alpha = probs * lam_p[..., None]
+        unc = getattr(mi_fn(alpha), unc_type)                           # [B, Nl]
+        # torch.argmax takes the first maximum, as jnp.argmax does
+        onehot = torch.nn.functional.one_hot(probs.argmax(dim=-1), num_cls).to(probs.dtype)
+        w = onehot * fg[..., None].to(probs.dtype)                       # [B, Nl, C]
+        sums.append((w * unc[..., None]).sum(dim=1))                     # [B, C]
+        cnts.append(w.sum(dim=1))
+
+    u = torch.stack(sums, dim=1)  # [B, S, C]
+    n = torch.stack(cnts, dim=1)
+    valid = n > 0
+    mean_u = torch.where(valid, u / n.clamp(min=1.0), torch.zeros_like(u))
+    v_s, ok_s = _masked_reduce(mean_u, valid, agg["class"], dim=2)   # [B, S]
+    score, ok = _masked_reduce(v_s, ok_s, agg["scale"], dim=1)       # [B]
+    return torch.where(ok, score, torch.zeros_like(score))

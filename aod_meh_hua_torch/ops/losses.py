@@ -1,0 +1,114 @@
+"""Classification and regression losses of MEH-RetinaNet (torch): focal,
+the EDL variants, L1.
+
+Port of aod_meh_hua_tpu/ops/losses.py:25-162, which mirrors the
+reference's mmdet/models/losses/EDL_Softmax_FocalLoss.py:31-68 (the live
+cls loss: softmax -> pseudo-logit -> sigmoid focal loss),
+EDL_FocalLoss.py, EDL_ReLU.py, mmcv's sigmoid_focal_loss kernel (per
+(anchor, class) terms with integer targets), smooth_l1_loss.py (L1Loss,
+the live bbox loss) and utils.py weight_reduce_loss. Labels run over
+[0, C], where C is background.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def weight_reduce_loss(loss: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                       reduction: str = "mean",
+                       avg_factor: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mmdet's weight-then-reduce helper. With avg_factor and
+    reduction='mean': sum(loss * weight) / avg_factor."""
+    if weight is not None:
+        if weight.dim() < loss.dim():
+            weight = weight.reshape(weight.shape + (1,) * (loss.dim() - weight.dim()))
+        loss = loss * weight
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "mean":
+        return loss.mean() if avg_factor is None else loss.sum() / avg_factor
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def _one_hot_fg(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """One-hot over the foreground classes; label == num_classes (background)
+    gives a row of zeros, as jax.nn.one_hot does for an out-of-range index."""
+    return F.one_hot(labels.long(), num_classes + 1)[..., :num_classes].float()
+
+
+def sigmoid_focal_loss_elementwise(logits: torch.Tensor, labels: torch.Tensor,
+                                   gamma: float = 2.0, alpha: float = 0.25) -> torch.Tensor:
+    """Per-(anchor, class) focal terms [..., C]: for the target class
+    -alpha (1 - p)^gamma log(p), for the rest -(1 - alpha) p^gamma
+    log(1 - p), p = sigmoid(logits), the logs in log-sigmoid form."""
+    p = torch.sigmoid(logits)
+    t = _one_hot_fg(labels, logits.shape[-1])
+    pos = -alpha * torch.pow(1.0 - p, gamma) * F.logsigmoid(logits)
+    neg = -(1.0 - alpha) * torch.pow(p, gamma) * F.logsigmoid(-logits)
+    return t * pos + (1.0 - t) * neg
+
+
+def sigmoid_focal_loss(logits, labels, weight=None, gamma: float = 2.0, alpha: float = 0.25,
+                       reduction: str = "mean", avg_factor=None) -> torch.Tensor:
+    loss = sigmoid_focal_loss_elementwise(logits, labels, gamma=gamma, alpha=alpha)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def pseudo_logits(logits: torch.Tensor, cls_loss: str, eps: float = 1e-9) -> torch.Tensor:
+    """The logits the sigmoid focal loss sees under each cls loss:
+    'edl_softmax_focal' (the live config) p = softmax(logits);
+    'edl_focal' p = (relu(logits) + 1) / S (EDL_FocalLoss.py:31-70); both
+    then log(p / (1 - p + eps) + eps). 'focal' passes the logits on."""
+    if cls_loss == "focal":
+        return logits
+    if cls_loss == "edl_softmax_focal":
+        p = torch.softmax(logits, dim=-1)
+    elif cls_loss == "edl_focal":
+        conc = torch.relu(logits) + 1.0
+        p = conc / conc.sum(dim=-1, keepdim=True)
+    else:
+        raise ValueError(f"unknown cls_loss {cls_loss!r}")
+    return torch.log(p / (1.0 - p + eps) + eps)
+
+
+def edl_softmax_focal_loss(logits, labels, weight=None, gamma: float = 2.0,
+                           alpha: float = 0.25, reduction: str = "mean", avg_factor=None,
+                           eps: float = 1e-9, loss_weight: float = 1.0) -> torch.Tensor:
+    """The live RetinaNet cls loss: prob = softmax(logits), pseudo-logit
+    log(prob / (1 - prob + eps) + eps), then the sigmoid focal loss."""
+    pseudo = pseudo_logits(logits, "edl_softmax_focal", eps)
+    loss = sigmoid_focal_loss_elementwise(pseudo, labels, gamma=gamma, alpha=alpha)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def edl_focal_loss(logits, labels, weight=None, gamma: float = 2.0, alpha: float = 0.25,
+                   reduction: str = "mean", avg_factor=None, eps: float = 1e-9,
+                   loss_weight: float = 1.0) -> torch.Tensor:
+    """EDL_FocalLoss.py: evidence relu(logits), alpha_c = e + 1,
+    p = alpha_c / S, focal loss on log(p / (1 - p))."""
+    pseudo = pseudo_logits(logits, "edl_focal", eps)
+    loss = sigmoid_focal_loss_elementwise(pseudo, labels, gamma=gamma, alpha=alpha)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def edl_relu_loss(logits, labels, weight=None, reduction: str = "mean", avg_factor=None,
+                  loss_weight: float = 1.0) -> torch.Tensor:
+    """EDL_ReLU.py log-likelihood: sum_c y_c (log S - log a_c) with
+    a = relu(logits) + 1; per anchor before the reduction."""
+    conc = torch.relu(logits) + 1.0
+    s = conc.sum(dim=-1, keepdim=True)
+    y = _one_hot_fg(labels, logits.shape[-1])
+    loss = (y * (torch.log(s) - torch.log(conc))).sum(dim=-1)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def l1_loss(pred, target, weight=None, reduction: str = "mean", avg_factor=None,
+            loss_weight: float = 1.0) -> torch.Tensor:
+    loss = torch.abs(pred - target)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -1,7 +1,8 @@
-"""Config dataclasses of the MEH-RetinaNet scoring path.
+"""Config dataclasses of the MEH-RetinaNet path.
 
-A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig` and
-`tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-198, :3545).
+A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
+`TrainConfig` and `tiny_test_config` from aod_meh_hua_tpu/utils/config.py
+(:18-198, :2246-2271, :3545).
 The port keeps its own copy because it imports nothing of the JAX
 package; tests/test_torch_ops.py holds the two copies equal field by
 field.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -181,6 +182,33 @@ class RetinaNetConfig:
             bounds.append((off, off + n))
             off += n
         return bounds
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer/schedule (reference Config_RetinaNet.py:89-94 + the
+    training script's overrides). The port trains with SGD only:
+    engine/train.py make_optimizer raises for another `optimizer`."""
+
+    lr: float = 0.001
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    batch_size: int = 2
+    seed: int = 20
+    # reference schedule: outer_epoch x epoch_ratio[0] inner epochs; lr
+    # drops x0.1 at lr_step_epoch of the FINAL outer epoch only
+    outer_epoch: int = 2
+    epoch_ratio: Tuple[int, ...] = (3, 1)
+    lr_step_epoch: int = 2
+    # "sgd" (torch-exact SGD), or the DETR family's AdamW variants
+    optimizer: str = "sgd"
+    backbone_lr_mult: float = 1.0
+    grad_clip: Optional[float] = None
+    # linear warmup (SSD config: 500 iters, ratio 1e-3; Config_SSD.py:158-162)
+    warmup_iters: int = 0
+    warmup_ratio: float = 1e-3
+    # full train-state snapshot every N inner epochs (0 = off)
+    ckpt_interval: int = 1
 
 
 def tiny_test_config(**overrides) -> RetinaNetConfig:

@@ -26,7 +26,21 @@
 5. conv1x1_matmul: one landscape batch through the full-width model with
    the 1x1 convs as matrix products and through the same weights
    without, head outputs held together, forwards timed.
-6. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+6. The other pools on the scoring model (fused_blocks on), one batch of
+   each orientation: Entropy_ALL and Entropy_NoNMS (closed-form MI), and
+   Entropy_NMS with the sampled MI from seeded CUDA generators, held to
+   the closed-form scores within a Monte-Carlo tolerance (SAMPLED_* below).
+7. Eval path: `make_eval_step` (fused) over the synthetic pool, the
+   detections per class, and VOC mAP (the copied voc_eval) against
+   synthetic ground truth; with the detections as ground truth the mAP
+   must be 1.
+8. Training path: a full-width model (fused_blocks off, as training
+   needs) takes 2 warm-up and 10 timed steps on one seeded synthetic
+   batch with TrainConfig() defaults; losses finite and falling, the
+   frozen stem and layer1 bit-for-bit unchanged, the lambda branch and
+   the head moved; one portrait step. Then two steps of the tiny config
+   on the card and on the CPU (the port's plain path), held together.
+9. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -41,6 +55,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
 
 BATCH = 8
@@ -50,6 +66,23 @@ BF16_TOL = 0.06   # of max|ref|: bf16 rounding of intermediates (tests/test_fuse
 MATMUL_TOL = 2.0 ** -7  # of max|ref|: one bf16 ulp; kernel and plain version round one f32 sum
 TF32_PEAK_OPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 PROBE_ITERS = 10
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_RTOL = 1e-4   # card vs CPU losses; parameters to 1e-4 of each tensor's max|p|
+# card vs CPU updates (new - old): 1e-3 of each tensor's max|update| plus two
+# f32 ulps of its max|p| (the rounding of new - old), tests/test_torch_train.py's
+UPDATE_RTOL = 1e-3
+# Sampled MI against the closed form, per image over SAMPLED_SEEDS seeds of
+# 500 draws: |mean - closed| <= SAMPLED_K * sd / sqrt(seeds) + SAMPLED_BIAS * closed.
+# sd is the seeds' spread; the bias term covers the plug-in entropy of the
+# 500-draw mean, low by about (C - 1) / (2 * 500 * (S + 1)) nats per anchor
+# (-0.5% to -0.8% of the score over a 32-image synthetic pool on the CPU;
+# on an H100 the mean of 4 seeds sat -0.45% off on average, at most 0.78%,
+# and one seed's sd reached 0.64% of the score). So 4 standard errors and
+# 1.5%: a sampler off by 3% fails on these images.
+SAMPLED_SEEDS = 4
+SAMPLED_K = 4.0
+SAMPLED_BIAS = 0.015
+SCALE_AGG = "scaleAvg_classAvg"  # the reference AL scripts' aggregation for the scale pools
 
 
 def fail(msg: str) -> None:
@@ -253,7 +286,6 @@ def synthetic_pool(cfg, seed: int = 0):
     """(orientation, EvalBatch, indices) triples of seeded uint8 canvases:
     32-pixel cells of random colour plus noise, varied img_shapes and
     scale_factors, the last batch of each orientation padded."""
-    import numpy as np
     from aod_meh_hua_torch.engine.batch import EvalBatch
 
     rng = np.random.RandomState(seed)
@@ -287,10 +319,10 @@ def upload(batch, device):
 
 def main_path(device, cfg, per_forward: int):
     """Score the synthetic pool with `cfg` (fused_blocks on); the fused
-    kernel must launch `per_forward` times in each forward."""
+    kernel must launch `per_forward` times in each forward. Returns the
+    result, a profile of one step, the model, the pool and its scores."""
     import dataclasses
 
-    import numpy as np
     import torch
     from aod_meh_hua_torch.al.uncertainty import score_pool
     from aod_meh_hua_torch.engine.batch import prepare_images
@@ -378,7 +410,7 @@ def main_path(device, cfg, per_forward: int):
                   score_max_rel_err_fused_vs_unfused=score_rel_err, score_pool_s=wall,
                   img_per_s=n_images / wall, peak_mem_bytes=peak, setup_s=setup_s,
                   unc_min=float(unc.min()), unc_max=float(unc.max()))
-    return result, profile_step(model, cfg, triples[0], device)
+    return result, profile_step(model, cfg, triples[0], device), model, triples, unc
 
 
 KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> group, first match wins
@@ -386,25 +418,20 @@ KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> group, first match win
     ("conv", "convolution"), ("gemm", "convolution"), ("xmma", "convolution"),
     ("sm90", "convolution"), ("cudnn", "convolution"), ("fft", "convolution"),
     ("winograd", "convolution"), ("sort", "sort"), ("radix", "sort"),
+    ("multi_tensor_apply", "optimizer (foreach)"),
 )
 
 
-def profile_step(model, cfg, triple, device):
-    """Device time by kernel over one score step (torch.profiler), grouped,
-    with the device's busy share of the step's wall time."""
-    import torch
+def profile_device(fn) -> dict:
+    """Device time by kernel over one call of `fn` (torch.profiler; `fn`
+    must end in a host read), grouped, with the device's busy share of
+    the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from aod_meh_hua_torch.engine.score import make_score_step
-
-    orientation, batch, _ = triple
-    step = make_score_step(model, cfg.for_orientation(orientation), device=device)
-    up = upload(batch, device)
-    step(up)[0].cpu()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step(up)[0].cpu()
+        fn()
         wall_us = (time.time() - t0) * 1e6
     kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -416,10 +443,333 @@ def profile_step(model, cfg, triple, device):
         g = next((grp for key, grp in KERNEL_GROUPS if key in name.lower()), "other")
         groups[g] = groups.get(g, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    return {"batch": len(batch.valid), "orientation": orientation, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / wall_us,
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
             "group_ms": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
             "top_kernels": [{"name": n[:90], "ms": t / 1e3, "calls": c} for n, t, c in top]}
+
+
+def profile_step(model, cfg, triple, device):
+    """profile_device over one score step, after one unprofiled step."""
+    from aod_meh_hua_torch.engine.score import make_score_step
+
+    orientation, batch, _ = triple
+    step = make_score_step(model, cfg.for_orientation(orientation), device=device)
+    up = upload(batch, device)
+    step(up)[0].cpu()
+    return {"batch": len(batch.valid), "orientation": orientation,
+            **profile_device(lambda: step(up)[0].cpu())}
+
+
+# --- the other pools ------------------------------------------------------------
+
+def timed_pool(model, cfg, triples, device, per_forward, generator=None):
+    """score_pool over `triples` with the launch counts reset just before
+    and read just after; the fused kernel must launch `per_forward` times
+    per forward. Returns (scores, max-confidences, seconds, launches)."""
+    import torch
+    from aod_meh_hua_torch.al.uncertainty import score_pool
+
+    n = int(max(idx.max() for *_, idx in triples)) + 1
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    unc, mconf = score_pool(model, cfg, triples, n, device=device, generator=generator)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()["fused_bottleneck"]
+    if launches != per_forward * len(triples):
+        fail(f"{cfg.hua.pool}/{cfg.hua.mi_mode}: fused_bottleneck launched {launches} times "
+             f"for {len(triples)} forwards")
+    idx = np.concatenate([i for *_, i in triples])
+    if not (np.isfinite(unc[idx]).all() and np.isfinite(mconf[idx]).all()):
+        fail(f"{cfg.hua.pool}/{cfg.hua.mi_mode}: scores are not finite")
+    return unc[idx], mconf[idx], wall, launches
+
+
+def pools_path(device, model, cfg, triples, closed_unc, per_forward):
+    """Entropy_ALL and Entropy_NoNMS (closed form), and Entropy_NMS with
+    the sampled MI, over one batch of each orientation, through
+    score_pool on the fused scoring model."""
+    import dataclasses
+
+    import torch
+    from aod_meh_hua_torch.engine.score import make_score_step
+
+    two = [next(t for t in triples if t[0] == o) for o in ("landscape", "portrait")]
+    idx = np.concatenate([i for *_, i in two])
+    n_img = len(idx)
+    out, launches = {}, 0
+    for pool in ("Entropy_ALL", "Entropy_NoNMS"):
+        pcfg = dataclasses.replace(cfg, hua=dataclasses.replace(cfg.hua, pool=pool,
+                                                                agg=SCALE_AGG))
+        timed_pool(model, pcfg, two[:1], device, per_forward)  # warm-up
+        unc, _, wall, k = timed_pool(model, pcfg, two, device, per_forward)
+        launches += k
+        if not (unc > 0).any():
+            fail(f"{pool}: every image scored 0")
+        out[pool] = dict(img_per_s=n_img / wall, nonzero=int((unc > 0).sum()),
+                         unc_min=float(unc.min()), unc_max=float(unc.max()), launches=k)
+
+    scfg = dataclasses.replace(cfg, hua=dataclasses.replace(cfg.hua, mi_mode="sampled"))
+    runs, walls = [], []
+    for seed in range(SAMPLED_SEEDS):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        unc, _, wall, k = timed_pool(model, scfg, two, device, per_forward, generator=gen)
+        runs.append(unc)
+        walls.append(wall)
+        launches += k
+    runs = np.stack(runs)
+    closed = closed_unc[idx]
+    if not np.array_equal(runs[0] == 0, closed == 0):
+        fail(f"sampled MI: zero set {runs[0] == 0} differs from the closed form's {closed == 0}")
+    mean, sd = runs.mean(axis=0), runs.std(axis=0, ddof=1)
+    tol = SAMPLED_K * sd / np.sqrt(SAMPLED_SEEDS) + SAMPLED_BIAS * np.abs(closed)
+    err = np.abs(mean - closed)
+    if not (err <= tol).all():
+        fail(f"sampled MI: |mean - closed| {err} over the tolerance {tol}")
+    nz = closed > 0
+
+    # the sampled MI's time per batch: a sampled step less a closed one, same batch
+    _, batch0, _ = two[0]
+    steps = {mode: make_score_step(model, c.for_orientation("landscape"), device=device)
+             for mode, c in (("closed", cfg), ("sampled", scfg))}
+    up = upload(batch0, device)
+    gen = torch.Generator(device=device).manual_seed(99)
+    step_ms = {}
+    for mode in ("closed", "sampled", "sampled", "closed"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        steps[mode](up, gen)[0].cpu()
+        step_ms.setdefault(mode, []).append((time.time() - t0) * 1e3)
+    step_ms = {m: min(v) for m, v in step_ms.items()}
+    out["Entropy_NMS_sampled"] = dict(
+        img_per_s=n_img / float(np.mean(walls)), seeds=SAMPLED_SEEDS,
+        max_rel_err_of_mean=float(np.max(err[nz] / closed[nz])),
+        max_err_over_tol=float(np.max(err / np.maximum(tol, 1e-30))),
+        # a uniform bias of this share of the score fails some image, and
+        # what a sampler 3% off (either way) would read against the limit
+        least_rel_tol=float(np.min(tol[nz] / closed[nz])),
+        err_over_tol_if_3pct_off=min(
+            float(np.max(np.abs(mean * f - closed)[nz] / tol[nz])) for f in (0.97, 1.03)),
+        mean_rel_err_of_mean=float(np.mean((mean[nz] - closed[nz]) / closed[nz])),
+        max_rel_sd_one_seed=float(np.max(sd[nz] / closed[nz])),
+        step_ms_closed=step_ms["closed"], step_ms_sampled=step_ms["sampled"],
+        sampled_mi_ms_per_batch=step_ms["sampled"] - step_ms["closed"])
+    return dict(images=n_img, forwards=len(two), pools=out), launches
+
+
+# --- eval path -----------------------------------------------------------------
+
+def synthetic_gts(triples, num_classes, seed=3):
+    """Per pool image: 1..5 random boxes in original-image coordinates (the
+    resized shape over the scale factor) with random labels."""
+    rng = np.random.RandomState(seed)
+    anns = []
+    for _, batch, idx in triples:
+        for r in range(len(idx)):
+            h, w = batch.img_shapes[r] / batch.scale_factors[r][[1, 0]]
+            n = rng.randint(1, 6)
+            xy = rng.uniform(0, 1, (n, 2)) * [w * 0.7, h * 0.7]
+            wh = rng.uniform(0.05, 0.3, (n, 2)) * [w, h]
+            anns.append({"bboxes": np.concatenate([xy, xy + wh], 1).astype(np.float32),
+                         "labels": rng.randint(0, num_classes, n)})
+    return anns
+
+
+def eval_path(device, model, cfg, triples, per_forward):
+    """make_eval_step over the pool (fused), the detections per class and
+    the VOC mAP (voc07, 11 points) against synthetic ground truth; with
+    the detections themselves as ground truth the mAP must be 1."""
+    import torch
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class, make_eval_step
+    from aod_meh_hua_torch.utils.voc_eval import eval_map
+
+    steps = {o: make_eval_step(model, cfg.for_orientation(o), device=device)
+             for o in ("landscape", "portrait")}
+    steps["landscape"](upload(triples[0][1], device))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    dets = [steps[o](upload(b, device)) for o, b, _ in triples]
+    results = []
+    for (_, b, _), d in zip(triples, dets):
+        results += detections_to_per_class(d, cfg.num_classes, batch_valid=b.valid)
+    wall = time.time() - t0
+    launches = read_launches()["fused_bottleneck"]
+    if launches != per_forward * len(triples):
+        fail(f"eval: fused_bottleneck launched {launches} times for {len(triples)} forwards")
+    n_dets = sum(len(a) for img in results for a in img)
+    if n_dets == 0:
+        fail("eval: no detection in the pool")
+    if not all(np.isfinite(a).all() for img in results for a in img):
+        fail("eval: detections are not finite")
+    m = eval_map(results, synthetic_gts(triples, cfg.num_classes))["mAP"]
+    if not (np.isfinite(m) and 0.0 <= m <= 1.0):
+        fail(f"eval: mAP {m} is not in [0, 1]")
+    # boxes clipped to zero area at the border match nothing, not even themselves
+    kept = [[a[(a[:, 2] > a[:, 0]) & (a[:, 3] > a[:, 1])] for a in img] for img in results]
+    as_gt = [{"bboxes": np.concatenate([a[:, :4] for a in img]),
+              "labels": np.concatenate([np.full(len(a), c) for c, a in enumerate(img)])}
+             for img in kept]
+    m_self = eval_map(kept, as_gt)["mAP"]
+    if m_self != 1.0:
+        fail(f"eval: mAP with the detections as ground truth is {m_self}, not 1")
+    n_img = len(results)
+    return dict(images=n_img, forwards=len(triples), launches=launches, detections=n_dets,
+                mAP_synthetic_gt=m, mAP_detections_as_gt=m_self, eval_s=wall,
+                img_per_s=n_img / wall), launches
+
+
+# --- training path ---------------------------------------------------------------
+
+def synthetic_train_batch(cfg, orientation, b, seed):
+    """A Batch of seeded uint8 canvases (as synthetic_pool draws them),
+    1..5 boxes per image in resized-image coordinates padded to
+    cfg.max_gt, and the pad-region anchor flags of each image's shape."""
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
+
+    ocfg = cfg.for_orientation(orientation)
+    rng = np.random.RandomState(seed)
+    h, w = ocfg.canvas
+    cell = 32
+    coarse = rng.randint(0, 256, (b, h // cell, w // cell, 3)).astype(np.uint8)
+    imgs = coarse.repeat(cell, axis=1).repeat(cell, axis=2)
+    shapes = np.array([[rng.randint(h * 3 // 4, h + 1), rng.randint(w * 3 // 4, w + 1)]
+                       for _ in range(b)], np.int32)
+    g = ocfg.max_gt
+    boxes = np.zeros((b, g, 4), np.float32)
+    labels = np.zeros((b, g), np.int64)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        ih, iw = shapes[i]
+        for j in range(rng.randint(1, 6)):
+            bw, bh = rng.uniform(0.08, 0.5) * iw, rng.uniform(0.08, 0.5) * ih
+            x1, y1 = rng.uniform(0, iw - bw), rng.uniform(0, ih - bh)
+            boxes[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            labels[i, j] = rng.randint(0, ocfg.num_classes)
+            valid[i, j] = True
+    av = anchor_valid_flags(ocfg.build_anchor_generator(), ocfg.featmap_sizes(), shapes)
+    return ocfg, Batch(imgs, boxes, labels, valid, av, shapes)
+
+
+LOSS_KEYS = ("loss", "loss_cls", "loss_bbox", "loss_meh")
+
+
+def train_path(device):
+    """TrainConfig() on a full-width model (fused_blocks off): 2 warm-up
+    and 10 timed steps on one landscape batch, then one portrait step."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask, make_train_step
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig, TrainConfig
+
+    cfg, tcfg = RetinaNetConfig(), TrainConfig()
+    model = build_retinanet(cfg, device=device, seed=0)
+    opt = create_train_state(model, tcfg)
+    mask = frozen_mask(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
+    batch = type(batch)(*(torch.from_numpy(a).to(device) for a in batch))
+    step = make_train_step(model, lcfg, opt, device=device)
+
+    auxes = [step(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    auxes += [step(batch) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(device)
+    traj = {k: [float(a[k]) for a in auxes] for k in LOSS_KEYS}
+    for k, v in traj.items():
+        if not np.isfinite(v).all():
+            fail(f"training: {k} is not finite: {v}")
+    if not traj["loss"][-1] < traj["loss"][0]:
+        fail(f"training: the loss did not fall: {traj['loss']}")
+    for name, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[name])
+        if mask[name] and moved:
+            fail(f"training: frozen parameter {name} moved")
+        if name.startswith(("head.L_convs", "head.retina_L", "head.cls_convs", "head.retina_cls",
+                            "head.reg_convs", "head.retina_reg")) and not moved:
+            fail(f"training: {name} did not move")
+
+    # one more landscape step, profiled (after the checks: it updates the weights)
+    prof = profile_device(lambda: float(step(batch)["loss"]))
+
+    pcfg, pbatch = synthetic_train_batch(cfg, "portrait", tcfg.batch_size, seed=6)
+    pstep = make_train_step(model, pcfg, opt, device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    paux = pstep(pbatch)
+    torch.cuda.synchronize()
+    portrait_ms = (time.time() - t0) * 1e3
+    if not all(np.isfinite(float(paux[k])) for k in LOSS_KEYS):
+        fail(f"training: a portrait loss is not finite: {paux}")
+    return dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
+                steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+                peak_mem_bytes=peak, loss_trajectory=traj,
+                num_pos=[float(a["num_pos"]) for a in auxes],
+                frozen_params=sum(mask.values()), portrait_step_ms_first_call=portrait_ms,
+                portrait_loss={k: float(paux[k]) for k in LOSS_KEYS},
+                profile_of_one_step=prof)
+
+
+def train_card_vs_cpu(device):
+    """Two steps of tiny_test_config() from the same weights and batch on
+    the card and on the CPU: losses to TRAIN_RTOL, parameters to
+    TRAIN_RTOL of each tensor's max|p|, and the updates (new - old) to
+    UPDATE_RTOL of each tensor's max|update| plus two ulps of max|p|."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import TrainConfig, tiny_test_config
+
+    cfg, tcfg = tiny_test_config(), TrainConfig()
+    _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
+
+    def two_steps(dev):
+        model = build_retinanet(cfg, device=dev, seed=1)
+        initial = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        step = make_train_step(model, cfg, create_train_state(model, tcfg), device=dev)
+        losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(2)]
+        return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
+
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = two_steps("cpu"), two_steps(device)
+    loss_err = max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(cpu_l, gpu_l) for k in LOSS_KEYS)
+    if not loss_err <= TRAIN_RTOL:
+        fail(f"training card vs CPU: losses {gpu_l} vs {cpu_l}")
+    param_err = update_err = 0.0
+    # what each check would read of a tensor that the card left unchanged
+    missing_param, missing_update = [], []
+    for name, (c0, c) in cpu_p.items():
+        g0, g = gpu_p[name]
+        scale = max(c.abs().max().item(), 1e-30)
+        err = (g - c).abs().max().item() / scale
+        param_err = max(param_err, err)
+        if err > TRAIN_RTOL:
+            fail(f"training card vs CPU: {name} differs by {err} of its max")
+        dc, dg = c - c0, g - g0
+        tol = UPDATE_RTOL * dc.abs().max().item() + 2 * float(np.finfo(np.float32).eps) * scale
+        uerr = (dg - dc).abs().max().item() / tol
+        update_err = max(update_err, uerr)
+        if uerr > 1.0:
+            fail(f"training card vs CPU: the update of {name} is {uerr} of its tolerance off")
+        if dc.abs().max().item() > 0:
+            missing_param.append(dc.abs().max().item() / scale / TRAIN_RTOL)
+            missing_update.append(dc.abs().max().item() / tol)
+    return dict(steps=2, max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
+                max_update_err_over_tol=update_err, tensors_moved=len(missing_update),
+                # readings over each check's limit; a tensor reading <= 1 would pass unmoved
+                if_unmoved_param_check_min=min(missing_param),
+                if_unmoved_param_check_passes=sum(int(r <= 1) for r in missing_param),
+                if_unmoved_update_check_min=min(missing_update),
+                if_unmoved_update_check_passes=sum(int(r <= 1) for r in missing_update),
+                losses_card=gpu_l, losses_cpu=cpu_l)
 
 
 # --- probe path ---------------------------------------------------------------
@@ -455,7 +805,6 @@ def conv1x1_matmul_check(device, cfg):
     within F32_TOL of their scale, and both forwards timed in turns."""
     import dataclasses
 
-    import numpy as np
     import torch
     from aod_meh_hua_torch.engine.batch import prepare_images
     from aod_meh_hua_torch.models.detector import build_retinanet
@@ -515,9 +864,21 @@ def main() -> int:
     for row in cases + mm_cases:
         print("kernel case:", json.dumps(row), flush=True)
     # R50-FPN: layer1_1, layer1_2 (C2) and layer2_1..layer2_3 (C3) fuse
-    path, prof = main_path(device, RetinaNetConfig(fused_blocks=True), per_forward=5)
+    cfg = RetinaNetConfig(fused_blocks=True)
+    path, prof, model, triples, unc = main_path(device, cfg, per_forward=5)
     print("main path:", json.dumps(path), f"[{card}]", flush=True)
     print("profile of one score step:", json.dumps(prof), f"[{card}]", flush=True)
+    pools, pool_launches = pools_path(device, model, cfg, triples, unc, per_forward=5)
+    print("pools path:", json.dumps(pools), f"[{card}]", flush=True)
+    ev, eval_launches = eval_path(device, model, cfg, triples, per_forward=5)
+    print("eval path:", json.dumps(ev), f"[{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    train = train_path(device)
+    print("training path:", json.dumps(train), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print("training card vs CPU:", json.dumps(train_card_vs_cpu(device)), f"[{card}]",
+          flush=True)
     probe_launches = probe_path(device, card)
     c11 = conv1x1_matmul_check(device, RetinaNetConfig())
     print("conv1x1_matmul:", json.dumps(c11), f"[{card}]", flush=True)
@@ -534,7 +895,10 @@ def main() -> int:
         "name": "fused_bottleneck", "route": "cuda",
         "source": "aod_meh_hua_torch/csrc/fused_bottleneck.cu",
         "replaces": "aod_meh_hua_tpu/ops/fused_block.py:221",
-        "launches": path["launches"],
+        # the scoring, extra-pool and eval runs, each counted from 0
+        "launches": path["launches"] + pool_launches + eval_launches,
+        "launches_by_path": {"score_pool": path["launches"], "other_pools": pool_launches,
+                             "eval": eval_launches},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),

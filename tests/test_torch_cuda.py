@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the hand-written fused bottleneck
 and transposed matmul against their plain PyTorch versions, and the tiny
-model's fused path against its unfused one. Skips, with the reason, where
-there is no card.
+model's fused path against its unfused one; the train step on the card
+against the CPU, a backward through a fused block on the card, and the
+sampled Dirichlet MI with a CUDA generator at small concentrations.
+Skips, with the reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -12,7 +14,8 @@ TF32 is turned off for every comparison, so the plain version's cuDNN
 convolutions run in full f32. Tolerances: f32 1e-4 of max|ref| (sums in
 another order), bf16 0.06 of max|ref| (tests/test_fused_block.py); the
 transposed matmul 2^-7 of max|ref|, one bf16 ulp, since kernel and plain
-version each round one f32 sum. The f32 kernel (3xTF32 on the tensor
+version each round one f32 sum. Two train steps: losses to rtol 1e-4,
+parameters to 1e-4 of each tensor's max|p|. The f32 kernel (3xTF32 on the tensor
 cores) is also held to a float64 evaluation of the same block within
 1e-5 of the output's scale, which a single TF32 pass (about 1e-3) fails.
 """
@@ -198,3 +201,85 @@ def test_transposed_matmul_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         transposed_matmul(wt[:48].contiguous(), xt)   # N not instantiated
     assert transposed_matmul.launches == before
+
+
+def _tiny_train_run(device, steps=2):
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
+    from aod_meh_hua_torch.utils.config import TrainConfig, tiny_test_config
+
+    cfg = tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32)
+    g = torch.Generator().manual_seed(8)
+    h, w = cfg.canvas
+    boxes = torch.zeros((2, cfg.max_gt, 4))
+    boxes[:, :2] = torch.tensor([[10.0, 12.0, 70.0, 90.0], [120.0, 30.0, 200.0, 110.0]])
+    valid = torch.zeros((2, cfg.max_gt), dtype=torch.bool)
+    valid[:, :2] = True
+    shapes = torch.tensor([[h, w], [h - 20, w - 36]], dtype=torch.int32)
+    av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes.numpy())
+    batch = Batch(torch.randn((2, h, w, 3), generator=g), boxes,
+                  torch.tensor([[1, 4] + [0] * (cfg.max_gt - 2)] * 2), valid,
+                  torch.from_numpy(av), shapes)
+    model = build_retinanet(cfg, device=device, seed=3)
+    initial = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, cfg, create_train_state(model, TrainConfig()), device=device)
+    losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(steps)]
+    return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Losses to rtol 1e-4, parameters to 1e-4 of each tensor's max-abs,
+    and the updates (new - old) to 1e-3 of their own max-abs plus two f32
+    ulps of the tensor's max-abs, so a wrong or missing update on the
+    card fails even where it is small beside the parameter."""
+    cpu_losses, cpu_params = _tiny_train_run("cpu")
+    gpu_losses, gpu_params = _tiny_train_run(cuda)
+    for c, g in zip(cpu_losses, gpu_losses):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4), k
+    for name, (c0, c) in cpu_params.items():
+        g0, g = gpu_params[name]
+        scale = c.abs().max().item()
+        assert (g - c).abs().max().item() <= 1e-4 * scale + 1e-12, name
+        dc, dg = c - c0, g - g0
+        ulp = torch.finfo(torch.float32).eps * scale
+        assert (dg - dc).abs().max().item() <= 1e-3 * dc.abs().max().item() + 2 * ulp, name
+
+
+def test_backward_through_the_fused_kernel_raises(cuda):
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    model = build_retinanet(tiny_test_config(fused_blocks=True, block_counts=(2, 2, 1, 1),
+                                             stem_width=32), device=cuda)
+    x = torch.randn((1, 128, 256, 3), device=cuda)
+    before = fb_mod.fused_bottleneck.launches
+    out = model(x)
+    assert fb_mod.fused_bottleneck.launches == before + 2
+    with pytest.raises(RuntimeError, match="fused_bottleneck has no backward"):
+        out[0].sum().backward()
+
+
+def test_sampled_mi_on_cuda_at_small_alpha(cuda):
+    """With a CUDA generator: at alpha = 1e-8 the draws sit at the
+    vertices (aleatoric about 0, where torch's own Dirichlet sampler
+    returns the uniform point); at moderate alpha the estimate is near
+    the closed form; one seed gives one result."""
+    from aod_meh_hua_torch.ops.dirichlet import (dirichlet_mi_sampled,
+                                                 dirichlet_mutual_information)
+
+    alpha = torch.tensor([[1e-8, 1e-8, 1e-8], [5e-4, 1e-9, 2e-9], [0.05, 0.05, 0.05],
+                          [2.0, 5.0, 0.7]], device=cuda)
+
+    def run(seed):
+        return dirichlet_mi_sampled(alpha, torch.Generator(device=cuda).manual_seed(seed),
+                                    num_samples=4000, chunk=500)
+
+    got, exact = run(0), dirichlet_mutual_information(alpha)
+    assert got.aleatoric.device.type == "cuda"
+    assert got.aleatoric[:2].abs().max().item() < 1e-3
+    assert (got.aleatoric - exact.aleatoric).abs().max().item() < 0.02
+    assert (got.total - exact.total).abs().max().item() < 0.02
+    assert torch.equal(run(1).epistemic, run(1).epistemic)

@@ -47,7 +47,8 @@ def _boxes(rng, n, size=100.0):
 
 # --- config and anchors ------------------------------------------------
 
-@pytest.mark.parametrize("name", ["AnchorConfig", "TestCfg", "HUACfg", "RetinaNetConfig"])
+@pytest.mark.parametrize("name", ["AnchorConfig", "TestCfg", "HUACfg", "RetinaNetConfig",
+                                  "TrainConfig"])
 def test_config_fields_equal(name):
     j, t = getattr(jcfg, name), getattr(tcfg, name)
     jf = [(f.name, f.default if f.default is not dataclasses.MISSING else f.default_factory())
@@ -235,6 +236,38 @@ def test_hua_object_scores(agg_order, cls_weight, spec):
                                  agg_order=agg_order, cls_weight=cls_weight).numpy()
     np.testing.assert_array_equal(got == 0, want == 0)
     assert (got != 0).sum() >= 2 and got[-1] == 0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("spec,num_fg,with_lambda", [
+    ("scaleAvg_classAvg", None, True), ("scaleSum_classMax", None, False),
+    ("scaleMax_classSum", 5, True)])
+def test_hua_scale_scores(spec, num_fg, with_lambda):
+    """Full-map probabilities with planted confident anchors; the last
+    image has none (score exactly 0). num_fg < C gates on the first
+    columns only, as the SSD family's background column needs."""
+    rng = np.random.RandomState(3)
+    sizes = (300, 120, 40)
+    levels, lams = [], []
+    for n in sizes:
+        logits = rng.randn(4, n, 6).astype(np.float32) * 0.1  # max prob < 0.3
+        for b in range(3):
+            hot = rng.choice(n, 6, replace=False)
+            logits[b, hot, rng.randint(0, 6, 6)] += 4.0
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        levels.append((e / e.sum(-1, keepdims=True)).astype(np.float32))
+        lams.append((np.abs(rng.randn(4, n)) + 0.1).astype(np.float32))
+    agg = jhua.parse_agg_spec(spec)
+    lam_arg = lams if with_lambda else None
+    fn = lambda ls, ll: jhua.hua_scale_scores(ls, ll, agg, num_fg_classes=num_fg)
+    want = np.asarray(jax.jit(jax.vmap(fn))([jnp.asarray(a) for a in levels],
+                                            None if lam_arg is None else
+                                            [jnp.asarray(a) for a in lam_arg]))
+    got = thua.hua_scale_scores([_t(a) for a in levels],
+                                None if lam_arg is None else [_t(a) for a in lam_arg],
+                                agg, num_fg_classes=num_fg).numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    assert (got[:3] > 0).all() and got[3] == 0
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 

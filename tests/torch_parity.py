@@ -1,0 +1,81 @@
+"""Inputs shared by the port's parity tests (tests/test_torch_*.py):
+seeded variables of a tiny JAX MEH-RetinaNet, and seeded synthetic
+training batches, as numpy arrays.
+
+TINY is tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32,
+num_classes=20): layer1.1 (Cin 128) and layer2.1 (Cin 256) pass the
+fused gate, and layer1, which training freezes, has two blocks.
+"""
+
+import functools
+
+import jax
+import numpy as np
+
+from aod_meh_hua_tpu.models.detector import build_retinanet
+from aod_meh_hua_tpu.ops import anchor_valid_flags
+from aod_meh_hua_tpu.utils.config import tiny_test_config
+
+TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32, num_classes=20)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree(overrides):
+    cfg = tiny_test_config(**dict(overrides))
+    model = build_retinanet(cfg)
+    h, w = cfg.canvas
+    return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                 jax.ShapeDtypeStruct((1, h, w, 3), np.float32))
+
+
+def jax_retinanet(seed=0, **overrides):
+    """(Flax model, variables) of tiny_test_config(**overrides), the
+    variables a seeded numpy draw in the tree model.init makes (tracing
+    it, which is much faster on the CPU than running it): convs
+    N(0, 1/fan_in), the head's N(0, 0.01^2), zero conv biases but a
+    uniform retina_cls bias, BN with scale and bias near (1, 0) and
+    running statistics near (0, 1), so that folding BN is not the
+    identity."""
+    model, shapes = _tree(tuple(sorted(overrides.items())))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        keys = [getattr(k, "key", str(k)) for k in path]
+        shape, name = leaf.shape, keys[-1]
+        if name == "kernel":
+            std = 0.01 if "head" in keys else float(np.prod(shape[:-1])) ** -0.5
+            return (rng.randn(*shape) * std).astype(np.float32)
+        if name == "bias" and "retina_cls" in keys:
+            return rng.uniform(-0.05, 0.05, shape).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.7, 1.3, shape).astype(np.float32)
+        if name == "mean" or (name == "bias" and keys[1] == "backbone"):
+            return (rng.randn(*shape) * 0.05).astype(np.float32)
+        return np.zeros(shape, np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def train_batch(cfg, seed=0, b=2, max_boxes=3):
+    """(images, gt_boxes, gt_labels, gt_valid, anchor_valid, img_shapes):
+    normalised float32 canvases, 1..max_boxes boxes per image padded to
+    cfg.max_gt, and the pad-region flags of each image's shape (the
+    second image is cut short, so some anchors are invalid)."""
+    rng = np.random.RandomState(seed)
+    h, w = cfg.canvas
+    images = rng.randn(b, h, w, 3).astype(np.float32) * 0.5
+    g = cfg.max_gt
+    gt_boxes = np.zeros((b, g, 4), np.float32)
+    gt_labels = np.zeros((b, g), np.int32)
+    gt_valid = np.zeros((b, g), bool)
+    shapes = np.tile([[h, w]], (b, 1)).astype(np.int32)
+    shapes[1:] = [h - 24, w - 40]
+    for i in range(b):
+        for j in range(rng.randint(1, max_boxes + 1)):
+            x1, y1 = rng.uniform(0, shapes[i, 1] - 72), rng.uniform(0, shapes[i, 0] - 72)
+            bw, bh = rng.uniform(16, 70), rng.uniform(16, 70)
+            gt_boxes[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            gt_labels[i, j] = rng.randint(0, cfg.num_classes)
+            gt_valid[i, j] = True
+    av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
+    return images, gt_boxes, gt_labels, gt_valid, av, shapes
