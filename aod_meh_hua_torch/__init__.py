@@ -3,3 +3,5 @@
 The JAX package beside it is the reference the port is held against;
 this package imports nothing of it, nor jax.
 """
+
+__version__ = "0.1.0"

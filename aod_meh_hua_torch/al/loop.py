@@ -1,0 +1,399 @@
+"""The active-learning cycle orchestrator.
+
+Port of aod_meh_hua_tpu/al/loop.py:48-703 (`ALPaths`, `ALDriver`),
+single-device, which mirrors the reference's tools/train_RetinaNet.py:
+76-253: per cycle, write the split -> build a fresh detector -> train in
+three runs (outer epoch 0 twice, then the final outer epoch once; each
+run is epoch_ratio[0] inner epochs over X_L repeated x_l_repeat times;
+the lr resets to base per run and steps x0.1 at lr_step_epoch of the
+final run only) -> eval mAP -> per-cycle checkpoint -> score the pool ->
+update_X_L with zeroRate -> persist the X_L/X_U/Unc .npy files; with the
+cycle resume of ResumeCycle (mmdet/utils/functions.py:478), load_cycle,
+and the mid-cycle resume of cfg.resume_from.
+
+The device work is the port's steps (engine/train.py, engine/eval.py,
+al/uncertainty.py score_pool); this loop is host Python and numpy. The
+modes of the JAX driver that the port does not have yet raise
+NotImplementedError with their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+import aod_meh_hua_torch
+
+from ..data.canvas_cache import open_canvas_cache
+from ..data.loader import EvalLoader, TrainLoader
+from ..data.pipeline import PipelineConfig
+from ..data.splits import init_split, load_cycle_state, save_cycle_state, update_labeled_set
+from ..data.voc import VOC_CLASSES, ConcatVOC, VOCDataset
+from ..engine import checkpoint
+from ..engine.batch import EvalBatch
+from ..engine.eval import detections_to_per_class, make_eval_step
+from ..engine.train import create_train_state, make_train_step, set_learning_rate
+from ..models.detector import MEHRetinaNet, build_retinanet
+from ..utils.config import ALConfig, RetinaNetConfig, TrainConfig
+from ..utils.device import resolve_device
+from ..utils.env import collect_env, save_code
+from ..utils.voc_eval import eval_map
+from .uncertainty import _upload, score_pool
+
+
+@dataclass
+class ALPaths:
+    voc07: str                 # .../VOC2007
+    voc12: Optional[str]       # .../VOC2012 (None for voc07-only runs)
+    work_dir: str
+    trainval07: Optional[str] = None  # default: ImageSets/Main/trainval.txt
+    trainval12: Optional[str] = None
+    test07: Optional[str] = None      # default: ImageSets/Main/test.txt
+
+    def __post_init__(self):
+        j = os.path.join
+        self.trainval07 = self.trainval07 or j(self.voc07, "ImageSets/Main/trainval.txt")
+        if self.voc12:
+            self.trainval12 = self.trainval12 or j(self.voc12, "ImageSets/Main/trainval.txt")
+        self.test07 = self.test07 or j(self.voc07, "ImageSets/Main/test.txt")
+        self.save_dir = j(self.work_dir, "model_save")
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class ALDriver:
+    """Runs the full AL experiment on one device (the card unless
+    device="cpu")."""
+
+    def __init__(
+        self,
+        model_cfg: RetinaNetConfig,
+        train_cfg: TrainConfig,
+        al_cfg: ALConfig,
+        paths: ALPaths,
+        pipeline: Optional[PipelineConfig] = None,
+        validate: bool = True,
+        name: str = "retinanet_meh",
+        log: Optional[callable] = print,
+        num_devices: Optional[int] = None,
+        cache_dir: Optional[str] = "auto",
+        distributed: bool = False,
+        fsdp: int = 1,
+        baseline: Optional[str] = None,
+        device="cuda",
+    ):
+        """cache_dir: decoded-canvas cache root ("auto" = <work_dir>/
+        canvas_cache, None = off): eval/score sweeps decode each JPEG once
+        per experiment and read the prepared canvas back on every later
+        sweep."""
+        if num_devices is not None and num_devices > 1:
+            _not_ported("num_devices > 1 (data parallel)", "12")
+        if distributed:
+            _not_ported("distributed (multi-host)", "12")
+        if fsdp > 1:
+            _not_ported("fsdp > 1 (ZeRO-3)", "12")
+        if baseline is not None:
+            _not_ported(f"baseline={baseline!r}", "11")
+        if getattr(model_cfg, "family", "retinanet") != "retinanet":
+            _not_ported(f"the {model_cfg.family} family", "10")
+        self.device = resolve_device(device)
+        self.cfg = model_cfg
+        self.tcfg = train_cfg
+        self.al = al_cfg
+        self.paths = paths
+        if pipeline is None:
+            pipeline = PipelineConfig(canvas=model_cfg.canvas, device_normalize=True)
+        self.pipeline = pipeline
+        self.validate = validate
+        self.name = name
+        self.log = log or (lambda *a, **k: None)
+        self.rng = np.random.RandomState(train_cfg.seed)
+
+        datasets = [VOCDataset(paths.trainval07, paths.voc07)]
+        if paths.voc12:
+            datasets.append(VOCDataset(paths.trainval12, paths.voc12))
+        self.pool = ConcatVOC(datasets)
+        self.val = VOCDataset(paths.test07, paths.voc07, test_mode=True) if validate else None
+
+        if cache_dir == "auto":
+            cache_dir = os.path.join(paths.work_dir, "canvas_cache")
+        self.cache_dir = cache_dir
+        self._caches: Dict[str, object] = {}
+
+        self._train_steps: Dict[str, callable] = {}
+        self._eval_steps: Dict[str, callable] = {}
+        self.model: Optional[MEHRetinaNet] = None
+        self.optimizer: Optional[torch.optim.SGD] = None
+        self.step = 0  # train steps of the current cycle's model
+        self.metrics: List[dict] = []
+        # wall time of each phase: {"cycle", "phase", "seconds", "images"}
+        self.timings: List[dict] = []
+        # optional hook: model -> None, in place (e.g. a pretrained backbone)
+        self.pretrained_loader = None
+
+    # ----- step cache -----
+
+    def _train_step(self, orientation: str):
+        if orientation not in self._train_steps:
+            self._train_steps[orientation] = make_train_step(
+                self.model, self.cfg.for_orientation(orientation), self.optimizer,
+                device=self.device)
+        return self._train_steps[orientation]
+
+    def _eval_step(self, orientation: str):
+        if orientation not in self._eval_steps:
+            self._eval_steps[orientation] = make_eval_step(
+                self.model, self.cfg.for_orientation(orientation), device=self.device)
+        return self._eval_steps[orientation]
+
+    # ----- phases -----
+
+    def _init_model(self, seed: int) -> MEHRetinaNet:
+        return build_retinanet(self.cfg, device=self.device, seed=seed)
+
+    def _fresh_model(self, cycle: int) -> None:
+        """A fresh model (seed tcfg.seed + cycle, driver :156-162) and a
+        fresh optimizer; the steps are rebuilt around them."""
+        self.model = self._init_model(self.tcfg.seed + cycle)
+        if self.pretrained_loader is not None:
+            self.pretrained_loader(self.model)
+        self.optimizer = create_train_state(self.model, self.tcfg,
+                                            frozen_stages=self.cfg.frozen_stages)
+        self.step = 0
+        self._train_steps.clear()
+        self._eval_steps.clear()
+
+    def _train_state(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def _train_run(self, x_l, run_seed: int, is_final_run: bool,
+                   cycle: int = 0, run_idx: int = 0, start_epoch: int = 0) -> None:
+        loader = TrainLoader(
+            self.pool, x_l, self.cfg, self.pipeline,
+            batch_size=self.tcfg.batch_size, repeat=self.al.x_l_repeat,
+            seed=run_seed,
+        )
+        n_inner = self.tcfg.epoch_ratio[0]
+        run_iter = 0  # warmup restarts per run (each run is a new runner)
+        if start_epoch:
+            # mid-cycle resume: replay the consumed RNG + warmup counter
+            loader.burn_epochs(start_epoch)
+            run_iter = start_epoch * len(loader)
+        for inner in range(start_epoch, n_inner):
+            lr = self.tcfg.lr * (0.1 if (is_final_run and inner >= self.tcfg.lr_step_epoch) else 1.0)
+            set_learning_rate(self.optimizer, lr)
+            t0, n_iter = time.time(), 0
+            auxes = []  # device scalars; read once at the epoch's end
+            for orientation, batch in loader:
+                if run_iter < self.tcfg.warmup_iters:
+                    # mmcv linear warmup: lr * (1 - (1 - k/N)(1 - ratio))
+                    f = 1 - (1 - run_iter / self.tcfg.warmup_iters) * (1 - self.tcfg.warmup_ratio)
+                    set_learning_rate(self.optimizer, lr * f)
+                elif run_iter == self.tcfg.warmup_iters and self.tcfg.warmup_iters:
+                    set_learning_rate(self.optimizer, lr)
+                auxes.append(self._train_step(orientation)(batch))
+                self.step += 1
+                n_iter += 1
+                run_iter += 1
+            parts = ("loss", "loss_cls", "loss_bbox", "loss_meh")
+            host = (torch.stack([torch.stack([a[k] for k in parts]) for a in auxes]).cpu().numpy()
+                    if auxes else np.zeros((0, 4), np.float32))
+            losses = host[:, 0].astype(np.float64)
+            dt = time.time() - t0
+            bad = np.nonzero(~np.isfinite(losses))[0]
+            if bad.size:
+                # the reference's NaN/Inf asserts (My_L_ssd_head.py:281),
+                # epoch-granular (per-iter would wait on the device)
+                i = int(bad[0])
+                raise FloatingPointError(
+                    f"non-finite loss {losses[i]} at epoch iter {i + 1} "
+                    f"(cls {float(host[i, 1])}, bbox {float(host[i, 2])}, "
+                    f"meh {float(host[i, 3])})"
+                )
+            loss_sum = float(losses.sum())
+            self.log(
+                f"    epoch done: {n_iter} iters, mean loss "
+                f"{loss_sum / max(n_iter, 1):.4f}, lr {lr:g}, {dt:.1f}s"
+            )
+            self._log_train_entry({
+                "mean_loss": loss_sum / max(n_iter, 1), "iters": n_iter,
+                "lr": lr, "seconds": round(dt, 2),
+                "img_per_s": round(n_iter * self.tcfg.batch_size / max(dt, 1e-9), 2),
+            })
+            self.timings.append({"cycle": cycle, "phase": "train_epoch", "seconds": dt,
+                                 "images": n_iter * self.tcfg.batch_size})
+            ival = self.tcfg.ckpt_interval
+            if ival and ((inner + 1) % ival == 0 or inner + 1 == n_inner):
+                checkpoint.save_train_state(
+                    self.paths.save_dir, self._train_state(),
+                    {"cycle": cycle, "run": run_idx, "epoch": inner,
+                     "run_iter": run_iter, "name": self.name},
+                )
+
+    def _log_train_entry(self, entry: dict):
+        """Append a jsonl train-log record (the TextLoggerHook analog)."""
+        os.makedirs(self.paths.work_dir, exist_ok=True)
+        with open(os.path.join(self.paths.work_dir, "train_log.jsonl"), "a") as f:
+            f.write(json.dumps(entry) + "\n")
+
+    def _canvas_cache(self, name: str, dataset):
+        """Per-dataset decoded-canvas cache (pool + val differ), built
+        lazily and kept open across cycles."""
+        if name not in self._caches:
+            cd = os.path.join(self.cache_dir, name) if self.cache_dir else None
+            self._caches[name] = open_canvas_cache(cd, dataset, self.pipeline, log=self.log)
+        return self._caches[name]
+
+    def evaluate(self) -> float:
+        """VOC07 11-point mAP of the current model on the test split."""
+        assert self.val is not None
+        loader = EvalLoader(self.val, np.arange(len(self.val)), self.pipeline,
+                            batch_size=self.al.score_batch_size,
+                            cache=self._canvas_cache("val", self.val))
+
+        def stage(item):
+            if item is None:
+                return None
+            o, b, bidx = item
+            return o, EvalBatch(_upload(b.images, self.device), b.img_shapes,
+                                b.scale_factors, np.asarray(b.valid)), bidx
+
+        results, order = [], []
+        # one-batch lookahead: upload k+1 while k's detections come back
+        it = iter(loader)
+        cur = stage(next(it, None))
+        while cur is not None:
+            orientation, batch, bidx = cur
+            dets = self._eval_step(orientation)(batch)
+            cur = stage(next(it, None))
+            results.extend(detections_to_per_class(dets, self.cfg.num_classes, batch.valid))
+            order.extend(bidx.tolist())
+        annotations = [self.val.get_ann_info(i) for i in order]
+        out = eval_map(results, annotations, iou_thr=0.5, mode="11points")
+        return out["mAP"]
+
+    # ----- the main loop -----
+
+    def run(self, resume_cycle: int = -1, load_cycle: int = -1,
+            resume_from: Optional[str] = None):
+        """resume_from: a save_dir (or train_state.ckpt) written by the
+        epoch snapshots — resumes training inside the interrupted cycle at
+        the next epoch, bit-identical to the uninterrupted run.
+        resume_cycle is the cycle-granular restart (ResumeCycle)."""
+        os.makedirs(self.paths.work_dir, exist_ok=True)
+        try:
+            save_code(self.paths.work_dir)  # SaveCode (functions.py:103-116)
+        except OSError as e:
+            self.log(f"code snapshot skipped: {e}")  # it must never block training
+        mid = None  # progress dict for a mid-cycle resume
+        if resume_from:
+            d = resume_from if os.path.isdir(resume_from) else os.path.dirname(resume_from)
+            with open(os.path.join(d, "train_state.json")) as f:
+                mid = json.load(f)
+            mid["dir"] = d
+            resume_cycle = mid["cycle"]
+        x_l, x_u, x_all = init_split(len(self.pool), self.al.x_l_0_size, self.rng)
+        save_cycle_state(self.paths.work_dir, 0, x_l, x_u)
+        resumed = resume_cycle < 0
+
+        for cycle in self.al.cycles:
+            if not resumed:
+                if cycle < resume_cycle:
+                    continue
+                loaded = load_cycle_state(self.paths.work_dir, resume_cycle)
+                if loaded is None:
+                    raise FileNotFoundError(f"no saved state for cycle {resume_cycle}")
+                x_l, x_u = loaded
+                resumed = True
+
+            t_cycle = time.time()
+            self.log(f"== cycle {cycle}: |X_L|={len(x_l)} |X_U|={len(x_u)} ==")
+            self._fresh_model(cycle)
+            if load_cycle >= 0:
+                path = checkpoint.cycle_ckpt_path(self.paths.save_dir, self.name, load_cycle,
+                                                  self.tcfg.epoch_ratio[0])
+                self.model.load_state_dict(checkpoint.load_checkpoint(path))
+                self.log(f"  loaded params from {path}")
+
+            # three training runs: outer 0 twice, final outer once
+            runs = []
+            for outer in range(self.tcfg.outer_epoch):
+                n_runs = 2 if outer == 0 else 1
+                for r in range(n_runs):
+                    runs.append((outer, r))
+
+            start_run, start_epoch = 0, 0
+            if mid is not None and cycle == mid["cycle"]:
+                state, _ = checkpoint.load_train_state(mid["dir"])
+                self.model.load_state_dict(state["model"])
+                self.optimizer.load_state_dict(state["optimizer"])
+                self.step = int(state["step"])
+                start_run, start_epoch = mid["run"], mid["epoch"] + 1
+                if start_epoch >= self.tcfg.epoch_ratio[0]:
+                    start_run, start_epoch = start_run + 1, 0
+                self.log(f"  resumed mid-cycle at run {start_run + 1}, "
+                         f"epoch {start_epoch + 1}")
+                mid = None
+
+            for ri, (outer, r) in enumerate(runs):
+                if ri < start_run:
+                    continue
+                is_final = ri == len(runs) - 1
+                self.log(f"  train run {ri + 1}/{len(runs)} (outer {outer})")
+                self._train_run(
+                    x_l, self.tcfg.seed + cycle * 100 + ri, is_final,
+                    cycle=cycle, run_idx=ri,
+                    start_epoch=start_epoch if ri == start_run else 0,
+                )
+
+            if self.validate:
+                t0 = time.time()
+                mAP = self.evaluate()
+                self.timings.append({"cycle": cycle, "phase": "eval",
+                                     "seconds": time.time() - t0, "images": len(self.val)})
+                self.log(f"  cycle {cycle} VOC mAP: {mAP:.4f}")
+                self.metrics.append({"cycle": cycle, "mAP": mAP, "n_labeled": int(len(x_l))})
+                with open(os.path.join(self.paths.work_dir, "metrics.json"), "w") as f:
+                    json.dump(self.metrics, f, indent=2)
+
+            checkpoint.save_cycle_checkpoint(
+                self.paths.save_dir, self.name, cycle, self.tcfg.epoch_ratio[0],
+                self.model.state_dict(),
+                meta={"version": aod_meh_hua_torch.__version__,
+                      "CLASSES": list(VOC_CLASSES), "cycle": cycle,
+                      "n_labeled": int(len(x_l)), "family": self.cfg.family,
+                      "env": collect_env()},
+            )
+
+            if cycle != self.al.cycles[-1]:
+                self.log("  scoring pool ...")
+                t0 = time.time()
+                loader = EvalLoader(
+                    self.pool, np.arange(len(self.pool)), self.pipeline,
+                    batch_size=self.al.score_batch_size,
+                    cache=self._canvas_cache("pool", self.pool))
+                unc, mconf = score_pool(self.model, self.cfg, loader, len(self.pool),
+                                        rng=self.rng, device=self.device)
+                dt = time.time() - t0
+                self.timings.append({"cycle": cycle, "phase": "score",
+                                     "seconds": dt, "images": len(self.pool)})
+                self.log(f"  pool scored: {len(self.pool)} imgs in {dt:.1f}s "
+                         f"({len(self.pool) / dt:.1f} img/s)")
+                x_l, x_u = update_labeled_set(
+                    unc, x_all, x_l, self.al.x_s_size, self.rng,
+                    zero_rate=self.al.zero_rate, max_conf=mconf,
+                    use_max_conf=self.al.use_max_conf,
+                )
+                save_cycle_state(self.paths.work_dir, cycle + 1, x_l, x_u, unc)
+            self.timings.append({"cycle": cycle, "phase": "cycle",
+                                 "seconds": time.time() - t_cycle, "images": 0})
+        return self.metrics

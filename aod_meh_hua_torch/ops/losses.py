@@ -37,9 +37,11 @@ def weight_reduce_loss(loss: torch.Tensor, weight: Optional[torch.Tensor] = None
 
 
 def _one_hot_fg(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """One-hot over the foreground classes; label == num_classes (background)
-    gives a row of zeros, as jax.nn.one_hot does for an out-of-range index."""
-    return F.one_hot(labels.long(), num_classes + 1)[..., :num_classes].float()
+    """One-hot over the foreground classes; a label outside [0, num_classes)
+    (the background num_classes, or a dataset class the model does not
+    have) gives a row of zeros, as jax.nn.one_hot does."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[..., None] == classes).float()
 
 
 def sigmoid_focal_loss_elementwise(logits: torch.Tensor, labels: torch.Tensor,

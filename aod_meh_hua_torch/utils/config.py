@@ -1,8 +1,8 @@
 """Config dataclasses of the MEH-RetinaNet path.
 
 A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
-`TrainConfig` and `tiny_test_config` from aod_meh_hua_tpu/utils/config.py
-(:18-198, :2246-2271, :3545).
+`TrainConfig`, `ALConfig` and `tiny_test_config` from
+aod_meh_hua_tpu/utils/config.py (:18-198, :2246-2294, :3545).
 The port keeps its own copy because it imports nothing of the JAX
 package; tests/test_torch_ops.py holds the two copies equal field by
 field.
@@ -209,6 +209,30 @@ class TrainConfig:
     warmup_ratio: float = 1e-3
     # full train-state snapshot every N inner epochs (0 = off)
     ckpt_interval: int = 1
+
+
+@dataclass(frozen=True)
+class ALConfig:
+    """Active-learning loop (reference Config_RetinaNet.py:156-166 + the
+    driver's flags)."""
+
+    cycles: Tuple[int, ...] = (0, 1, 2, 3, 4, 5, 6)
+    x_l_0_size: int = 16551 // 20
+    x_s_size: int = 16551 // 40
+    x_l_repeat: int = 2
+    x_u_repeat: int = 2
+    zero_rate: float = 0.15              # train_RetinaNet.py:39
+    use_max_conf: str = "False"          # False | min | max
+    eval_interval: int = 3
+    # pool-scoring / eval batch size, decoupled from the train batch
+    score_batch_size: int = 64
+    # int8 pool scoring is a lever of the JAX package; the port raises
+    int8_scoring: bool = False
+
+    def __post_init__(self):
+        if self.int8_scoring:
+            raise NotImplementedError(
+                "int8_scoring: the port scores in float32 (ROADMAP Queue 1 item 16)")
 
 
 def tiny_test_config(**overrides) -> RetinaNetConfig:

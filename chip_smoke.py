@@ -40,7 +40,23 @@
    frozen stem and layer1 bit-for-bit unchanged, the lambda branch and
    the head moved; one portrait step. Then two steps of the tiny config
    on the card and on the CPU (the port's plain path), held together.
-9. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+9. AL phase, the system's real entry point: the port's JPEG decoder and
+   resize against the hashes of the committed fixtures
+   (aod_meh_hua_torch/data/fixtures/fixtures.json, made with OpenCV);
+   then a synthetic VOC07 tree of the fixture JPEGs (32 trainval and 8
+   test ids, seeded annotations) through the port's CLI, in process, at
+   full width (RetinaNetConfig(), the default pipeline): a 2-cycle AL
+   run (see al_path for its cuts), each cycle's fresh model with its cls
+   head sharpened so that the pool holds objects past the score gates.
+   Checks that the cuts reached the driver, the cycles, the losses and
+   mAPs, that enough unlabeled images score above 0 and cycle 0
+   acquires the top-scored ones, and the artifacts; times the decoder, the
+   training epochs, the eval and pool sweeps from JPEG and from the
+   canvas cache and each cycle, and the device's busy share over one
+   training epoch. Neither kernel lies on this path (fused_blocks is off
+   where the model trains): their launches there are counted and
+   reported, and must be 0.
+10. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -49,11 +65,15 @@ of the repository. Every failed check raises.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -317,6 +337,21 @@ def upload(batch, device):
     return EvalBatch(*(torch.from_numpy(a).to(device) for a in batch[:3]), batch.valid)
 
 
+CLS_LOGIT_STD = 1.5
+
+
+def sharpen_cls_head(model, images) -> None:
+    """Scale the cls head's weight so that its logits on `images` have a
+    std of CLS_LOGIT_STD, a stand-in for a trained head: random weights
+    give a ~uniform softmax (0.05) under the 0.3 object and FG gates, and
+    every pool score would be 0."""
+    import torch
+
+    with torch.no_grad():
+        logits = model(images)[0]
+        model.head.retina_cls.weight.mul_(CLS_LOGIT_STD / logits.std().item())
+
+
 def main_path(device, cfg, per_forward: int):
     """Score the synthetic pool with `cfg` (fused_blocks on); the fused
     kernel must launch `per_forward` times in each forward. Returns the
@@ -337,11 +372,7 @@ def main_path(device, cfg, per_forward: int):
     first = triples[0][1]
     shapes0 = torch.from_numpy(first.img_shapes).to(device)
     images0 = prepare_images(torch.from_numpy(first.images).to(device), shapes0, cfg)
-    # random weights give a ~uniform softmax (0.05) under the 0.3 object
-    # and FG gates; sharpen the cls head to logit std 1.5
-    with torch.no_grad():
-        logits = model(images0)[0]
-        model.head.retina_cls.weight.mul_(1.5 / logits.std().item())
+    sharpen_cls_head(model, images0)
     setup_s = time.time() - t0
 
     # warm-up on one batch (cuDNN handles, allocator), outside the count
@@ -835,6 +866,225 @@ def conv1x1_matmul_check(device, cfg):
     return dict(batch=BATCH, head_max_abs_err=err, forward_ms_conv1x1_matmul=sum(t["matmul"]) / 2,
                 forward_ms_conv=sum(t["conv"]) / 2)
 
+# --- AL phase: the CLI on a VOC tree of JPEGs ---------------------------------------
+
+FIXTURES = REPO / "aod_meh_hua_torch" / "data" / "fixtures"
+AL_TRAINVAL, AL_TEST = 32, 8
+# the CLI's configs, but for the cuts of the data size (the JAX CLI reads
+# these from --config, which the port does not have yet)
+AL_TRAIN = dict(outer_epoch=1, epoch_ratio=(1,), ckpt_interval=1)
+AL_AL = dict(cycles=(0, 1), x_l_0_size=8, x_s_size=4, x_l_repeat=1, score_batch_size=8,
+             zero_rate=0.15)
+VOC_XML = """<annotation>
+  <size><width>{w}</width><height>{h}</height><depth>3</depth></size>
+  {objects}
+</annotation>"""
+VOC_OBJ = """<object>
+  <name>{name}</name><difficult>{difficult}</difficult>
+  <bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox>
+</object>"""
+
+
+def decoder_check() -> dict:
+    """The port's decode and resize of each fixture against the hashes
+    OpenCV gave (tests/make_jpeg_fixtures.py); host ms per decode."""
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import resize_linear_u8
+
+    with open(FIXTURES / "fixtures.json") as f:
+        table = json.load(f)["files"]
+    if len(table) < 6:
+        fail(f"only {len(table)} JPEG fixtures")
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    decode_ms = {}
+    for name, e in sorted(table.items()):
+        t0 = time.perf_counter()
+        img = imread(str(FIXTURES / name))
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        if list(img.shape) != e["shape"] or sha(img) != e["decode_sha256"]:
+            fail(f"decoder: {name} does not decode as OpenCV does")
+        if sha(resize_linear_u8(img, *e["resize"])) != e["resize_sha256"]:
+            fail(f"resize: {name} does not resize as OpenCV does")
+    return {"fixtures": len(table), "decode_ms": decode_ms,
+            "decode_ms_mean": float(np.mean(list(decode_ms.values())))}
+
+
+def synthetic_voc(root: Path, n_trainval: int = AL_TRAINVAL, n_test: int = AL_TEST,
+                  seed: int = 0) -> Path:
+    """A VOC2007 tree of the fixture JPEGs (copied: the machine with the
+    card has no JPEG encoder) with seeded annotations of 1-4 objects
+    each; trainval and test id lists."""
+    from aod_meh_hua_torch.data.jpeg import jpeg_size
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES
+
+    rng = np.random.RandomState(seed)
+    base = root / "VOC2007"
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    files = sorted(FIXTURES.glob("*.jpg"))
+    ids = []
+    for i in range(n_trainval + n_test):
+        src = files[i % len(files)]
+        img_id = f"{i:06d}"
+        shutil.copyfile(src, base / "JPEGImages" / f"{img_id}.jpg")
+        w, h = jpeg_size(str(src))
+        objs = []
+        for _ in range(rng.randint(1, 5)):
+            bw, bh = int(rng.randint(40, w // 2)), int(rng.randint(40, h // 2))
+            x1, y1 = int(rng.randint(1, w - bw)), int(rng.randint(1, h - bh))
+            objs.append(VOC_OBJ.format(name=VOC_CLASSES[rng.randint(0, 20)],
+                                       difficult=int(rng.rand() < 0.2),
+                                       x1=x1, y1=y1, x2=x1 + bw, y2=y1 + bh))
+        (base / "Annotations" / f"{img_id}.xml").write_text(
+            VOC_XML.format(w=w, h=h, objects="\n".join(objs)))
+        ids.append(img_id)
+    (base / "ImageSets/Main/trainval.txt").write_text("\n".join(ids[:n_trainval]))
+    (base / "ImageSets/Main/test.txt").write_text("\n".join(ids[n_trainval:]))
+    return base
+
+
+# the cache sweep scores the same uint8 canvases with the same weights
+# as the driver's sweep; the card's convolutions may pick other algorithms
+AL_CACHE_RTOL = 1e-4
+# the pool's unlabeled images whose score must be non-zero, so that every
+# acquisition of cycle 0 is by score and none by the zeroRate draw
+AL_MIN_NONZERO = AL_AL["x_s_size"]
+
+
+def al_path(device, bare_img_per_s: float) -> dict:
+    """The port's CLI (`main`, in process, on the card, no --mini) on the
+    synthetic tree: RetinaNetConfig() at 608x1024, the default pipeline,
+    TrainConfig() and ALConfig() but for AL_TRAIN and AL_AL, two cycles.
+    Just before the pool sweep, the scoring model's cls head is sharpened
+    on the pool's first canvas (sharpen_cls_head, through the driver's
+    score_pool), so that the sweep meets objects; training runs from the
+    plain random weights (a sharpened head makes their few SGD steps
+    diverge).
+    The launch counts are reset just before the run and read just after.
+    bare_img_per_s: the training path's rate, beside the loader's."""
+    import torch
+    from aod_meh_hua_torch.al import loop as loop_module
+    from aod_meh_hua_torch.al.uncertainty import score_pool
+    from aod_meh_hua_torch.data.loader import EvalLoader
+    from aod_meh_hua_torch.engine import checkpoint
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.tools import train_retinanet
+    from aod_meh_hua_torch.utils import config as config_module
+
+    root = REPO / "build" / "chip_smoke_al"
+    shutil.rmtree(root, ignore_errors=True)
+    voc07 = synthetic_voc(root)
+    work = root / "work"
+    argv = ["--voc07", str(voc07), "--work-dir", str(work), "--cycles", "2",
+            "--ckpt-interval", "1", "--score-batch-size", "8", "--zero-rate", "0.15"]
+    real_score_pool, sharpened = loop_module.score_pool, []
+
+    def first_canvas(loader, cfg):
+        _, batch, _ = next(iter(EvalLoader(loader.dataset, loader.indices[:1], loader.pipeline,
+                                           batch_size=1, prefetch=False)))
+        return prepare_images(torch.from_numpy(batch.images).to(device),
+                              torch.from_numpy(batch.img_shapes), cfg)
+
+    def sharpened_score_pool(model, cfg, loader, n_images, **kwargs):
+        sharpen_cls_head(model, first_canvas(loader, cfg))
+        sharpened.append(n_images)
+        return real_score_pool(model, cfg, loader, n_images, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.time()
+    with mock.patch.object(config_module, "TrainConfig",
+                           functools.partial(config_module.TrainConfig, **AL_TRAIN)), \
+            mock.patch.object(config_module, "ALConfig",
+                              functools.partial(config_module.ALConfig, **AL_AL)), \
+            mock.patch.object(loop_module, "score_pool", sharpened_score_pool):
+        driver = train_retinanet.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    # checks; first that the cuts and the sharpening reached the driver
+    if driver.cfg.canvas != (608, 1024) or driver.cfg.block_counts != (3, 4, 6, 3):
+        fail(f"AL: not the full-width config: {driver.cfg.canvas}, {driver.cfg.block_counts}")
+    cuts = {k: getattr(driver.tcfg, k) for k in AL_TRAIN}, {k: getattr(driver.al, k) for k in AL_AL}
+    if cuts != (AL_TRAIN, AL_AL):
+        fail(f"AL: the driver ran with {cuts}, not the cuts {AL_TRAIN}, {AL_AL}")
+    if sharpened != [AL_TRAINVAL]:
+        fail(f"AL: the pool sweeps that went through the sharpened head: {sharpened}")
+    metrics = driver.metrics
+    if [m["cycle"] for m in metrics] != [0, 1]:
+        fail(f"AL: the cycles that ran: {metrics}")
+    log = [json.loads(line) for line in (work / "train_log.jsonl").read_text().splitlines()]
+    losses = [e["mean_loss"] for e in log]
+    if not losses or not np.isfinite(losses).all() or \
+            not np.isfinite([m["mAP"] for m in metrics]).all():
+        fail(f"AL: a loss or mAP is not finite: {losses}, {metrics}")
+    x_l0, x_l1 = np.load(work / "X_L_0.npy"), np.load(work / "X_L_1.npy")
+    if not (set(x_l0) <= set(x_l1) and len(x_l1) == len(x_l0) + AL_AL["x_s_size"]):
+        fail(f"AL: X_L_0 {x_l0} -> X_L_1 {x_l1}")
+    unc = np.load(work / "Unc_1.npy")
+    if unc.shape != (AL_TRAINVAL,) or not np.isfinite(unc).all():
+        fail(f"AL: Unc_1 has shape {unc.shape} or is not finite")
+    unlabeled = np.setdiff1d(np.arange(AL_TRAINVAL), x_l0)
+    nonzero = int((unc[unlabeled] > 0).sum())
+    if nonzero < AL_MIN_NONZERO:
+        fail(f"AL: {nonzero} unlabeled images scored above 0, fewer than {AL_MIN_NONZERO}")
+    # zero_rate 0.15 of 4 rounds to no zero draw: the picks are the top 4 by score
+    picked = np.sort(unc[np.setdiff1d(x_l1, x_l0)])
+    if not np.array_equal(picked, np.sort(unc[unlabeled])[-AL_AL["x_s_size"]:]):
+        fail(f"AL: acquired scores {picked} are not the top of {np.sort(unc[unlabeled])}")
+    ckpts = [f for f in (work / "model_save").iterdir() if "_mycode" in f.name]
+    if len(ckpts) != 2 or not (work / "metrics.json").exists():
+        fail(f"AL: checkpoints {ckpts}, metrics.json missing")
+    if any(launches.values()):
+        fail(f"AL: a hand-written kernel launched on the AL path: {launches}")
+
+    def rate(phase, cycle=None):
+        rows = [t for t in driver.timings if t["phase"] == phase
+                and (cycle is None or t["cycle"] == cycle)]
+        n, sec = sum(t["images"] for t in rows), sum(t["seconds"] for t in rows)
+        return {"images": n, "seconds": sec, "img_per_s": n / sec if sec else None}
+
+    result = dict(
+        argv=argv, configs={"train": AL_TRAIN, "al": AL_AL}, wall_s=wall,
+        cycles=[{"cycle": t["cycle"], "seconds": t["seconds"]} for t in driver.timings
+                if t["phase"] == "cycle"],
+        metrics=metrics, mean_losses=losses, x_l_0=x_l0.tolist(), x_l_1=x_l1.tolist(),
+        unc_1_nonzero=int((unc > 0).sum()), unc_1_nonzero_unlabeled=nonzero,
+        unc_1_top=np.sort(unc)[-AL_AL["x_s_size"]:].tolist(),
+        train_through_loader=rate("train_epoch"),
+        train_epochs_img_per_s=[e["img_per_s"] for e in log],
+        bare_step_img_per_s=bare_img_per_s,
+        eval_from_jpeg=rate("eval", 0), eval_from_cache=rate("eval", 1),
+        pool_from_jpeg=rate("score", 0), peak_mem_bytes=peak, launches=launches)
+
+    # one more training epoch of the cycle-1 model over X_L_1, profiled
+    result["profile_of_one_train_epoch"] = profile_device(
+        lambda: driver._train_run(x_l1, 12345, False, cycle=9, run_idx=0))
+
+    # a second sweep of the pool by cycle 0's model, sharpened as before,
+    # from the canvas cache the first one filled: the same scores
+    driver.model.load_state_dict(checkpoint.load_checkpoint(checkpoint.cycle_ckpt_path(
+        driver.paths.save_dir, driver.name, 0, driver.tcfg.epoch_ratio[0])))
+    loader = EvalLoader(driver.pool, np.arange(len(driver.pool)), driver.pipeline,
+                        batch_size=driver.al.score_batch_size,
+                        cache=driver._canvas_cache("pool", driver.pool))
+    sharpen_cls_head(driver.model, first_canvas(loader, driver.cfg))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    unc_cached, _ = score_pool(driver.model, driver.cfg, loader, len(driver.pool), device=device)
+    torch.cuda.synchronize()
+    pool_cached_s = time.time() - t1
+    if not (np.array_equal(unc_cached > 0, unc > 0)
+            and np.allclose(unc_cached, unc, rtol=AL_CACHE_RTOL, atol=0)):
+        fail(f"AL: the sweep from the canvas cache gave {unc_cached}, the first one {unc}")
+    result["pool_from_cache"] = {"images": len(driver.pool), "seconds": pool_cached_s,
+                                 "img_per_s": len(driver.pool) / pool_cached_s,
+                                 "max_rel_diff": float(np.max(np.abs(unc_cached - unc)
+                                                              / np.maximum(unc, 1e-30)))}
+    return result
+
 
 def main() -> int:
     import torch
@@ -882,6 +1132,13 @@ def main() -> int:
     probe_launches = probe_path(device, card)
     c11 = conv1x1_matmul_check(device, RetinaNetConfig())
     print("conv1x1_matmul:", json.dumps(c11), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    dec = decoder_check()
+    print("decoder (host):", json.dumps(dec), f"[{card}]", flush=True)
+    t0 = time.time()
+    al = al_path(device, train["img_per_s"])
+    print("AL path:", json.dumps(al), f"[{card}]", flush=True)
+    print(f"AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
 
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
@@ -898,7 +1155,7 @@ def main() -> int:
         # the scoring, extra-pool and eval runs, each counted from 0
         "launches": path["launches"] + pool_launches + eval_launches,
         "launches_by_path": {"score_pool": path["launches"], "other_pools": pool_launches,
-                             "eval": eval_launches},
+                             "eval": eval_launches, "al_cli": al["launches"]["fused_bottleneck"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),
@@ -913,6 +1170,8 @@ def main() -> int:
         "source": "aod_meh_hua_torch/csrc/transposed_matmul.cu",
         "replaces": "tools/analysis/pallas_probe.py:232",
         "launches": probe_launches["transposed_matmul"],
+        "launches_by_path": {"probe": probe_launches["transposed_matmul"],
+                             "al_cli": al["launches"]["transposed_matmul"]},
         "max_abs_err": mm["max_abs_err"], "ms": mm["ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
     })

@@ -2,8 +2,9 @@
 and transposed matmul against their plain PyTorch versions, and the tiny
 model's fused path against its unfused one; the train step on the card
 against the CPU, a backward through a fused block on the card, and the
-sampled Dirichlet MI with a CUDA generator at small concentrations.
-Skips, with the reason, where there is no card.
+sampled Dirichlet MI with a CUDA generator at small concentrations; the
+AL CLI's --mini run and a mid-cycle resume on the card. Skips, with the
+reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -20,6 +21,10 @@ cores) is also held to a float64 evaluation of the same block within
 1e-5 of the output's scale, which a single TF32 pass (about 1e-3) fails.
 """
 
+import warnings
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -283,3 +288,92 @@ def test_sampled_mi_on_cuda_at_small_alpha(cuda):
     assert (got.aleatoric - exact.aleatoric).abs().max().item() < 0.02
     assert (got.total - exact.total).abs().max().item() < 0.02
     assert torch.equal(run(1).epistemic, run(1).epistemic)
+
+
+# --- the AL driver and its CLI on the card -------------------------------------------
+
+def _fixture_voc(root: Path) -> str:
+    """chip_smoke.py's VOC tree of the committed fixture JPEGs, 14
+    trainval and 4 test ids."""
+    from chip_smoke import synthetic_voc
+
+    return str(synthetic_voc(root, n_trainval=14, n_test=4, seed=3))
+
+
+def test_mini_cli_on_the_card(cuda, tmp_path):
+    """The port's CLI, --mini, on the card: two cycles, the artifacts of
+    tests/test_al_loop.py::test_al_two_cycles."""
+    from aod_meh_hua_torch.tools import train_retinanet
+
+    voc = _fixture_voc(tmp_path)
+    work = tmp_path / "work"
+    driver = train_retinanet.main(["--mini", "--voc07", voc, "--work-dir", str(work)])
+    assert driver.device.type == "cuda"
+    assert [m["cycle"] for m in driver.metrics] == [0, 1]
+    assert all(np.isfinite(m["mAP"]) for m in driver.metrics)
+    x_l0, x_l1 = np.load(work / "X_L_0.npy"), np.load(work / "X_L_1.npy")
+    assert len(x_l0) == 4 and len(x_l0) < len(x_l1) <= 6 and set(x_l0) <= set(x_l1)
+    unc = np.load(work / "Unc_1.npy")
+    assert unc.shape == (14,) and np.isfinite(unc).all()
+    assert len([f for f in (work / "model_save").iterdir() if "_mycode" in f.name]) == 2
+
+
+def test_mid_cycle_resume_on_the_card(cuda, tmp_path, monkeypatch):
+    """A mid-cycle resume_from on the card at the tiny config gives the
+    uninterrupted run's final parameters: bit-identical where every op
+    has a deterministic CUDA implementation (torch.use_deterministic_
+    algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8, cudnn.benchmark off);
+    where one has none (torch warns, naming it), to 1e-6 of each tensor's
+    max-abs."""
+    from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig
+    from aod_meh_hua_torch.engine import checkpoint
+    from aod_meh_hua_torch.utils.config import ALConfig, TrainConfig, tiny_test_config
+
+    voc = _fixture_voc(tmp_path)
+    cfg = tiny_test_config()
+    tcfg = TrainConfig(batch_size=2, outer_epoch=1, epoch_ratio=(2,), lr=0.01, ckpt_interval=1)
+    al = ALConfig(cycles=(0,), x_l_0_size=4, x_s_size=2, x_l_repeat=1, score_batch_size=4)
+    pipe = PipelineConfig(img_scale=(250, 120), canvas=cfg.canvas)
+
+    def driver(work):
+        return ALDriver(cfg, tcfg, al, ALPaths(voc07=voc, voc12=None, work_dir=str(work)),
+                        pipeline=pipe, validate=False, log=None, device=cuda)
+
+    real_save = checkpoint.save_train_state
+    calls = {"n": 0}
+
+    def killer(save_dir, state, progress):
+        out = real_save(save_dir, state, progress)
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise KeyboardInterrupt("simulated preemption")
+        return out
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            driver(tmp_path / "a").run()
+            with monkeypatch.context() as mp:
+                mp.setattr(checkpoint, "save_train_state", killer)
+                with pytest.raises(KeyboardInterrupt):
+                    driver(tmp_path / "b").run()
+            d = driver(tmp_path / "b")
+            d.run(resume_from=d.paths.save_dir)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    print("ops without a deterministic CUDA implementation:", nondeterministic)
+    pa, pb = (checkpoint.load_checkpoint(checkpoint.cycle_ckpt_path(
+        str(tmp_path / w / "model_save"), "retinanet_meh", 0, 2)) for w in ("a", "b"))
+    assert pa.keys() == pb.keys()
+    for k in pa:
+        if nondeterministic:
+            tol = 1e-6 * pa[k].abs().max().item()
+            assert (pa[k] - pb[k]).abs().max().item() <= tol, (k, nondeterministic)
+        else:
+            assert torch.equal(pa[k], pb[k]), k

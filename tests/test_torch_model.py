@@ -19,6 +19,7 @@ import torch
 from aod_meh_hua_tpu.engine.batch import prepare_images as jprepare
 from aod_meh_hua_tpu.models.detector import init_retinanet
 from aod_meh_hua_tpu.utils.config import tiny_test_config as jtiny
+from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
 from aod_meh_hua_torch.al.uncertainty import score_pool
 from aod_meh_hua_torch.engine.batch import prepare_images as tprepare
 from aod_meh_hua_torch.engine.eval import make_eval_step
@@ -28,7 +29,8 @@ from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.detector import MEHRetinaNet, build_retinanet
 from aod_meh_hua_torch.ops import fused_block
-from aod_meh_hua_torch.utils.config import TrainConfig
+from aod_meh_hua_torch.tools import train_retinanet
+from aod_meh_hua_torch.utils.config import ALConfig, TrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 
 TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32)
@@ -112,6 +114,11 @@ def test_entry_points_raise_without_a_card():
         make_eval_step(model, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(model, cfg, create_train_state(model, TrainConfig()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ALDriver(cfg, TrainConfig(), ALConfig(), ALPaths(voc07="VOC2007", voc12=None,
+                                                         work_dir="unused"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_retinanet.main(["--mini", "--voc07", "VOC2007", "--work-dir", "unused"])
 
 
 def test_backward_through_a_fused_block_raises():

@@ -97,6 +97,20 @@ def test_losses_match_jax(name, call):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7, err_msg=name)
 
 
+@pytest.mark.parametrize("name,call", LOSS_CASES[:5], ids=[n for n, _ in LOSS_CASES[:5]])
+def test_losses_labels_beyond_num_classes(name, call):
+    """GT labels past the model's classes (a 20-class VOC tree under the
+    6-class tiny model, as the --mini CLI trains) are rows of zeros, as
+    in jax.nn.one_hot; the port's one-hot raised on them."""
+    logits, _, weight, pred, target = _loss_inputs()
+    labels = np.random.RandomState(1).randint(0, 20, logits.shape[0]).astype(np.int32)
+    arrays = dict(logits=logits, labels=labels, weight=weight, pred=pred, target=target,
+                  avg=np.float32(17.0))
+    want = np.asarray(call(jlosses, {k: jnp.asarray(v) for k, v in arrays.items()}))
+    got = call(tlosses, {k: _t(v) for k, v in arrays.items()}).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7, err_msg=name)
+
+
 # --- boxes, anchor flags, targets -------------------------------------------
 
 def test_delta_encode_matches_jax():
