@@ -12,9 +12,15 @@ cycle resume of ResumeCycle (mmdet/utils/functions.py:478), load_cycle,
 and the mid-cycle resume of cfg.resume_from.
 
 The device work is the port's steps (engine/train.py, engine/eval.py,
-al/uncertainty.py score_pool); this loop is host Python and numpy. The
-modes of the JAX driver that the port does not have yet raise
-NotImplementedError with their ROADMAP item.
+al/uncertainty.py score_pool); this loop is host Python and numpy. It
+drives both families of the JAX driver's live path, MEH-RetinaNet and
+MEH-SSD (the family branch of JAX al/loop.py:141-152,282-285: SSD warps
+to its square canvas with std 1, augments its training images with
+data/ssd_augment.py and freezes nothing). --load-cycle and --resume-from
+read the port's checkpoints, the JAX package's flax-msgpack ones and the
+reference's mmdet .pth (engine/checkpoint.py). The modes of the JAX
+driver that the port does not have yet raise NotImplementedError with
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,13 +39,15 @@ import aod_meh_hua_torch
 from ..data.canvas_cache import open_canvas_cache
 from ..data.loader import EvalLoader, TrainLoader
 from ..data.pipeline import PipelineConfig
+from ..data.ssd_augment import ssd_train_augment
 from ..data.splits import init_split, load_cycle_state, save_cycle_state, update_labeled_set
 from ..data.voc import VOC_CLASSES, ConcatVOC, VOCDataset
 from ..engine import checkpoint
 from ..engine.batch import EvalBatch
 from ..engine.eval import detections_to_per_class, make_eval_step
 from ..engine.train import create_train_state, make_train_step, set_learning_rate
-from ..models.detector import MEHRetinaNet, build_retinanet
+from ..models.detector import build_retinanet
+from ..models.ssd_detector import build_ssd
 from ..utils.config import ALConfig, RetinaNetConfig, TrainConfig
 from ..utils.device import resolve_device
 from ..utils.env import collect_env, save_code
@@ -102,14 +110,25 @@ class ALDriver:
             _not_ported("fsdp > 1 (ZeRO-3)", "12")
         if baseline is not None:
             _not_ported(f"baseline={baseline!r}", "11")
-        if getattr(model_cfg, "family", "retinanet") != "retinanet":
-            _not_ported(f"the {model_cfg.family} family", "10")
+        family = getattr(model_cfg, "family", "retinanet")
+        if family not in ("retinanet", "ssd"):
+            _not_ported(f"the {family} family", "15")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.al = al_cfg
         self.paths = paths
-        if pipeline is None:
+        self.augment_fn = None
+        if family == "ssd":
+            # exact warp, caffe-style std 1 (Config_SSD.py:87,106); the
+            # augment chain hands over float images, which prepare_sample
+            # normalises on the host, so uint8 transport is eval/score only
+            self.augment_fn = ssd_train_augment
+            if pipeline is None:
+                pipeline = PipelineConfig(img_scale=model_cfg.canvas, canvas=model_cfg.canvas,
+                                          std=(1.0, 1.0, 1.0), keep_ratio=False,
+                                          device_normalize=True)
+        elif pipeline is None:
             pipeline = PipelineConfig(canvas=model_cfg.canvas, device_normalize=True)
         self.pipeline = pipeline
         self.validate = validate
@@ -130,7 +149,7 @@ class ALDriver:
 
         self._train_steps: Dict[str, callable] = {}
         self._eval_steps: Dict[str, callable] = {}
-        self.model: Optional[MEHRetinaNet] = None
+        self.model: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.SGD] = None
         self.step = 0  # train steps of the current cycle's model
         self.metrics: List[dict] = []
@@ -156,8 +175,9 @@ class ALDriver:
 
     # ----- phases -----
 
-    def _init_model(self, seed: int) -> MEHRetinaNet:
-        return build_retinanet(self.cfg, device=self.device, seed=seed)
+    def _init_model(self, seed: int) -> torch.nn.Module:
+        build = build_ssd if self.cfg.family == "ssd" else build_retinanet
+        return build(self.cfg, device=self.device, seed=seed)
 
     def _fresh_model(self, cycle: int) -> None:
         """A fresh model (seed tcfg.seed + cycle, driver :156-162) and a
@@ -165,11 +185,20 @@ class ALDriver:
         self.model = self._init_model(self.tcfg.seed + cycle)
         if self.pretrained_loader is not None:
             self.pretrained_loader(self.model)
-        self.optimizer = create_train_state(self.model, self.tcfg,
-                                            frozen_stages=self.cfg.frozen_stages)
+        self.optimizer = create_train_state(
+            self.model, self.tcfg, frozen_stages=getattr(self.cfg, "frozen_stages", 0))
         self.step = 0
         self._train_steps.clear()
         self._eval_steps.clear()
+
+    def _set_momentum(self, momentum: Dict[str, torch.Tensor]) -> None:
+        """SGD momentum buffers by parameter name (a JAX train state's
+        optax trace); frozen parameters, outside the optimizer, have none."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                self.optimizer.state[p]["momentum_buffer"] = \
+                    momentum[names[id(p)]].to(device=p.device, dtype=p.dtype).clone()
 
     def _train_state(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -180,7 +209,7 @@ class ALDriver:
         loader = TrainLoader(
             self.pool, x_l, self.cfg, self.pipeline,
             batch_size=self.tcfg.batch_size, repeat=self.al.x_l_repeat,
-            seed=run_seed,
+            seed=run_seed, augment_fn=self.augment_fn,
         )
         n_inner = self.tcfg.epoch_ratio[0]
         run_iter = 0  # warmup restarts per run (each run is a new runner)
@@ -321,7 +350,8 @@ class ALDriver:
             if load_cycle >= 0:
                 path = checkpoint.cycle_ckpt_path(self.paths.save_dir, self.name, load_cycle,
                                                   self.tcfg.epoch_ratio[0])
-                self.model.load_state_dict(checkpoint.load_checkpoint(path))
+                self.model.load_state_dict(
+                    checkpoint.load_model_state_dict(path, self.cfg.family))
                 self.log(f"  loaded params from {path}")
 
             # three training runs: outer 0 twice, final outer once
@@ -335,7 +365,10 @@ class ALDriver:
             if mid is not None and cycle == mid["cycle"]:
                 state, _ = checkpoint.load_train_state(mid["dir"])
                 self.model.load_state_dict(state["model"])
-                self.optimizer.load_state_dict(state["optimizer"])
+                if "optimizer" in state:
+                    self.optimizer.load_state_dict(state["optimizer"])
+                else:
+                    self._set_momentum(state["momentum"])
                 self.step = int(state["step"])
                 start_run, start_epoch = mid["run"], mid["epoch"] + 1
                 if start_epoch >= self.tcfg.epoch_ratio[0]:

@@ -119,11 +119,11 @@ class TrainLoader:
     ):
         """num_workers: decode/resize thread pool size (the host analog of
         the reference's worker processes, datasets/builder.py:104-147).
-        augment_fn (the SSD augment chain), with_masks (Mask R-CNN) and
-        proposal_source (Fast R-CNN) belong to families the port does not
-        have yet and raise."""
-        if augment_fn is not None:
-            _not_ported("augment_fn (the SSD augment chain)", "10")
+        augment_fn(img, ann, rng) -> (img, ann) runs before prepare_sample
+        with the sample's own RandomState (the SSD augment chain,
+        data/ssd_augment.py). with_masks (Mask R-CNN) and proposal_source
+        (Fast R-CNN) belong to families the port does not have yet and
+        raise."""
         if with_masks:
             _not_ported("with_masks (the Mask R-CNN family)", "15")
         if proposal_source is not None:
@@ -136,6 +136,7 @@ class TrainLoader:
         self.repeat = repeat
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
+        self.augment_fn = augment_fn
         self.num_workers = num_workers
         self._pool = _shared_pool(num_workers) if num_workers > 0 else None
         self._gen = model_cfg.build_anchor_generator()
@@ -170,6 +171,8 @@ class TrainLoader:
             r = np.random.RandomState(seed)
             img = load_image(self.dataset.img_path(int(i)))
             ann = self.dataset.get_ann_info(int(i))
+            if self.augment_fn is not None:
+                img, ann = self.augment_fn(img, ann, r)
             return prepare_sample(img, ann, self.pipeline, rng=r)
 
         if self._pool is not None:

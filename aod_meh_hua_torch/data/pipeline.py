@@ -7,7 +7,9 @@ Normalize -> Pad(/32) pipeline (Config_RetinaNet.py:101-125). The JAX
 package decodes and resizes with OpenCV; the machine with the card has no
 OpenCV, so here `load_image` calls data/jpeg.py and the resize is
 `resize_linear_u8`, both bit-equal to the OpenCV calls they replace
-(tests/test_torch_data.py).
+(tests/test_torch_data.py). The SSD augment chain hands over float32
+images, which `resize_linear_f32` resizes by OpenCV's float path
+(tests/test_torch_ssd_data.py holds it to cv2).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from .jpeg import imread
+from .ssd_augment import fma32
 
 
 @dataclass(frozen=True)
@@ -100,6 +103,37 @@ def resize_linear_u8(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def resize_linear_f32(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
+    """cv2.resize(img, (dst_w, dst_h), interpolation=cv2.INTER_LINEAR) for
+    a float32 HWC image, as OpenCV's float path computes it: per axis the
+    source index floor(x) and the weight f = x - floor(x) of x = (d + 0.5)
+    * scale - 0.5 in double, rounded to float; a horizontal pass
+    fma(S1 - S0, f, S0) in which a column before the first or past the
+    last source column takes that column alone; then the same vertical
+    pass, whose weights are not clamped at the borders (only the source
+    rows are)."""
+    if img.dtype != np.float32:
+        raise TypeError(f"resize_linear_f32 takes float32 images, got {img.dtype}")
+    src_h, src_w = img.shape[:2]
+    sx_scale, sy_scale = 1.0 / (dst_w / src_w), 1.0 / (dst_h / src_h)
+
+    def coeffs(dst, scale):
+        x = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+        s = np.floor(x)
+        return s.astype(np.int64), (x - s).astype(np.float32)
+
+    sx, fx = coeffs(dst_w, sx_scale)
+    fx = np.where((sx < 0) | (sx >= src_w - 1), np.float32(0), fx)
+    sx = np.clip(sx, 0, src_w - 1)
+    sx1 = np.minimum(sx + 1, src_w - 1)
+    sy, fy = coeffs(dst_h, sy_scale)
+    r0, r1 = np.clip(sy, 0, src_h - 1), np.clip(sy + 1, 0, src_h - 1)
+    tail = (None,) * (img.ndim - 2)
+    s0 = img[:, sx]
+    horiz = fma32(img[:, sx1] - s0, fx[(None, slice(None)) + tail], s0)
+    return fma32(horiz[r1] - horiz[r0], fy[(slice(None), None) + tail], horiz[r0])
+
+
 def prepare_sample(
     img: np.ndarray,
     ann: Optional[dict],
@@ -109,8 +143,9 @@ def prepare_sample(
 ) -> dict:
     """One sample -> canvas image + transformed GT + shape metadata.
 
-    Returns dict with: image [H, W, 3] float32 (canvas; uint8 with
-    device_normalize), img_shape (h, w) resized, pad_shape (h, w)
+    `img` is uint8 BGR (the decoder's) or float32 BGR (the SSD augment
+    chain's). Returns dict with: image [H, W, 3] float32 (canvas; uint8
+    with device_normalize and a uint8 image), img_shape (h, w) resized, pad_shape (h, w)
     /32-padded, scale_factor [4], flipped bool, and (when ann given)
     gt_bboxes [n, 4] / gt_labels [n] in resized coords.
     """
@@ -120,7 +155,8 @@ def prepare_sample(
         new_w, new_h, _ = rescale_size(w0, h0, cfg.img_scale)
     else:
         new_h, new_w = cfg.canvas  # exact warp
-    resized = resize_linear_u8(img, new_w, new_h)
+    resized = (resize_linear_u8 if img.dtype == np.uint8 else resize_linear_f32)(
+        img, new_w, new_h)
     w_scale, h_scale = new_w / w0, new_h / h0
     scale_factor = np.array([w_scale, h_scale, w_scale, h_scale], np.float32)
 
@@ -130,9 +166,10 @@ def prepare_sample(
         resized = resized[:, ::-1]
 
     ch, cw = cfg.canvas_for(orientation)
-    if cfg.device_normalize:
+    if cfg.device_normalize and resized.dtype == np.uint8:
         # raw BGR uint8 canvas; to_rgb/normalize/pad-zeroing happen on
-        # the device (cfg.img_mean/img_std/img_to_rgb must match)
+        # the device (cfg.img_mean/img_std/img_to_rgb must match). The
+        # SSD augment chain's float images are normalised here.
         canvas = np.zeros((ch, cw, 3), np.uint8)
         canvas[:new_h, :new_w] = resized
     else:

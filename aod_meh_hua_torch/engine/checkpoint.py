@@ -11,21 +11,33 @@ snapshot (tools/train_RetinaNet.py:213-219), the epoch checkpoints and
 cfg.resume_from (apis/train_Lambda.py:72-75).
 
 The file names, the train_state.json progress keys and the meta json are
-the JAX package's; the format is torch's own: `torch.save` of the model
-state_dict, and for the train state also the SGD state_dict (its momentum
-buffers) and the step. The port cannot read the JAX package's
-flax-msgpack checkpoints (the machine with the card has neither flax nor
-msgpack), nor the reference's mmdet-named .pth files: loading those is
-ROADMAP Queue 1 item f.
+the JAX package's; the format the port writes is torch's own:
+`torch.save` of the model state_dict, and for the train state also the
+SGD state_dict (its momentum buffers) and the step.
+
+It reads three formats, told apart by their first bytes (`sniff_format`):
+torch's zip and legacy pickle files (its own, or the reference's mmdet
+.pth, raw or in mmcv's {"state_dict", "meta"} wrapper), and the JAX
+package's flax-msgpack files, decoded by engine/flax_msgpack.py (the
+machine with the card has neither flax nor msgpack) and carried over by
+models/convert.py. So `load_model_state_dict` takes a cycle checkpoint
+of either package or of the reference, and `load_train_state` a JAX
+train_state.ckpt, whose optax SGD trace is torch's momentum_buffer.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+from ..models.convert import from_jax_variables
+from ..models.reference_convert import (convert_reference_retinanet,
+                                         convert_reference_ssd, is_reference_retinanet)
+from .flax_msgpack import msgpack_restore
 
 
 def save_checkpoint(path: str, obj: Any) -> str:
@@ -34,8 +46,71 @@ def save_checkpoint(path: str, obj: Any) -> str:
     return path
 
 
+def sniff_format(path: str) -> str:
+    """"torch_zip", "torch_legacy" or "msgpack" by the file's first bytes:
+    PK\\x03\\x04 (torch's zip), 0x80 then a protocol byte 2-5 (a pickle,
+    torch's legacy format writes protocol 2), or a msgpack map (0x80-0x8f,
+    0xde, 0xdf; 0x80 alone is an empty map, and nothing may follow it, so
+    the second byte tells it from a pickle). Anything else raises."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "torch_zip"
+    if head[:1] == b"\x80" and head[1:2] in (b"\x02", b"\x03", b"\x04", b"\x05"):
+        return "torch_legacy"
+    if head[:1] and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf)):
+        return "msgpack"
+    raise ValueError(f"{path}: not a torch or flax-msgpack checkpoint (starts {head!r})")
+
+
 def load_checkpoint(path: str, map_location="cpu") -> Any:
+    """A torch file's object, or a msgpack file's state dict (numpy leaves)."""
+    if sniff_format(path) == "msgpack":
+        with open(path, "rb") as f:
+            return msgpack_restore(f.read())
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def to_model_state_dict(obj: Any, family: str) -> Dict[str, torch.Tensor]:
+    """A loaded checkpoint -> the family's port state_dict: a JAX
+    variables tree ({"params", "batch_stats"}, or bare params), mmcv's
+    {"state_dict", "meta"} wrapper, an mmdet state_dict, or the port's
+    own. Unknown keys of an mmdet file raise."""
+    if isinstance(obj, dict) and "params" in obj:
+        return from_jax_variables(obj)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if family == "ssd":
+        sd, rest = convert_reference_ssd(obj)
+    elif is_reference_retinanet(obj):
+        sd, rest = convert_reference_retinanet(obj)
+    else:
+        return dict(obj)
+    if rest:
+        raise KeyError(f"checkpoint keys with no port counterpart: {rest[:5]}")
+    return sd
+
+
+def load_model_state_dict(path: str, family: str) -> Dict[str, torch.Tensor]:
+    """Model weights from any checkpoint the port reads (see the module
+    docstring), as the family's port state_dict."""
+    obj = load_checkpoint(path)
+    if sniff_format(path) == "msgpack":
+        obj = obj if "params" in obj else {"params": obj}
+    return to_model_state_dict(obj, family)
+
+
+def _find_trace(tree: Any) -> Optional[dict]:
+    """optax.trace's momentum tree inside a serialized opt_state."""
+    if not isinstance(tree, dict):
+        return None
+    if "trace" in tree and isinstance(tree["trace"], dict):
+        return tree["trace"]
+    for v in tree.values():
+        found = _find_trace(v)
+        if found is not None:
+            return found
+    return None
 
 
 def train_state_path(save_dir: str) -> str:
@@ -59,10 +134,25 @@ def save_train_state(save_dir: str, state: dict, progress: dict) -> str:
 
 
 def load_train_state(path_or_dir: str, map_location="cpu"):
-    """Returns (state, progress dict). Accepts the save_dir or the .ckpt."""
+    """Returns (state, progress dict). Accepts the save_dir or the .ckpt.
+
+    The port's own file gives {"model", "optimizer", "step"}. A JAX
+    TrainState (step, params, batch_stats, opt_state; flax writes the
+    namedtuple as a map of its fields) gives {"model", "momentum",
+    "step"}: "momentum" maps each parameter's name to the optax trace,
+    which is torch SGD's momentum_buffer (both keep buf = mu * buf +
+    (g + wd * p))."""
     d = path_or_dir if os.path.isdir(path_or_dir) else os.path.dirname(path_or_dir)
     path = path_or_dir if path_or_dir.endswith(".ckpt") else train_state_path(d)
     state = load_checkpoint(path, map_location)
+    if sniff_format(path) == "msgpack":
+        variables = {"params": state["params"], "batch_stats": state.get("batch_stats") or {}}
+        trace = _find_trace(state["opt_state"])
+        if trace is None:
+            raise KeyError(f"{path}: no optax trace (SGD momentum) in the opt_state")
+        state = {"model": from_jax_variables(variables),
+                 "momentum": from_jax_variables({"params": trace}),
+                 "step": int(np.asarray(state["step"]))}
     with open(os.path.join(d, "train_state.json")) as f:
         progress = json.load(f)
     return state, progress

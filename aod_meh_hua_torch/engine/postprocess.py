@@ -4,8 +4,10 @@ decoding.
 Port of aod_meh_hua_tpu/engine/postprocess.py:26-132, which mirrors the
 reference's Lambda_L2.py:264-304 ('relu' activation: alphas =
 softmax(cls_score); S = sum(alphas) + 1e-20; scores = alphas / (S + 1e-9);
-top-k by max foreground score). Level l contributes min(nms_pre, A_l)
-candidates.
+top-k by max foreground score) and My_L_ssd_head.py:320-356 ('softmax'
+activation, SSD: scores = softmax over the C+1 columns, background
+included; top-k by the max over the foreground columns only). Level l
+contributes min(nms_pre, A_l) candidates.
 
 Ties: jax.lax.top_k puts the lower index first among equal keys, and the
 zeroed pad region of a canvas gives many anchors identical logits. The
@@ -30,9 +32,12 @@ class Candidates(NamedTuple):
     max_prob: Optional[torch.Tensor] = None  # [B] max softmax prob over ALL anchors
 
 
-def transform_scores(cls_scores: torch.Tensor) -> torch.Tensor:
-    """The retina 'relu' transform: alphas / ((sum(alphas) + 1e-20) + 1e-9)."""
+def transform_scores(cls_scores: torch.Tensor, family: str = "retinanet") -> torch.Tensor:
+    """The retina 'relu' transform: alphas / ((sum(alphas) + 1e-20) + 1e-9);
+    for SSD the softmax over every column, background included."""
     alphas = torch.softmax(cls_scores, dim=-1)
+    if family == "ssd":
+        return alphas
     s = alphas.sum(dim=-1, keepdim=True) + 1e-20
     return alphas / (s + 1e-9)
 
@@ -56,6 +61,7 @@ def make_candidate_selector(cfg):
     topk_bounds = tuple(cfg.topk_level_bounds())
     nms_pre = cfg.test.nms_pre
     num_fg = cfg.num_fg_classes
+    family = cfg.family
 
     def select(all_anchors, cls_scores, bbox_preds, lambdas, img_shapes,
                use_topk: bool = True) -> Candidates:
@@ -78,9 +84,9 @@ def make_candidate_selector(cfg):
                 anchors = anchors[idx]  # [B, k, 4]
                 if lam is not None:
                     lam = torch.gather(lam, 1, idx)
-                scores = transform_scores(logits)
+                scores = transform_scores(logits, family)
             else:
-                scores = transform_scores(logits)
+                scores = transform_scores(logits, family)
                 lvl_max = scores.reshape(bsz, -1).amax(dim=-1)
                 anchors = anchors[None].expand(bsz, -1, -1)
             max_prob = lvl_max if max_prob is None else torch.maximum(max_prob, lvl_max)

@@ -2,13 +2,16 @@
 
 Port of aod_meh_hua_tpu/engine/train.py (`frozen_mask`, `make_optimizer`,
 `set_learning_rate`, `schedule_lr`, `create_train_state` :52-124,
-`_meh_regression` :126-136, `make_retina_loss_fn` :161-219,
+`_meh_regression` :126-136, `make_loss_fn` :154-158,
+`make_retina_loss_fn` :161-219, `make_ssd_loss_fn` :221-275,
 `make_train_step` :277-335), which mirrors the reference's
 Epoch_Based_Runner_Lambda.py:20-38 (per iteration: the main loss's
 backward and SGD step on the trunk, then the MEH loss on the pre-update
 per-anchor cls loss, backward and SGD step on the lambda branch),
 train_Lambda.py:41-48 (two SGDs with the same lr, momentum and wd),
-Lambda_L2.py:106-121, :235-252 and L_anchor_head.py:290-320.
+Lambda_L2.py:106-121, :235-252 and L_anchor_head.py:290-320, and for
+SSD My_L_ssd_head.py:182-233 (per-image OHEM cross-entropy, smooth L1,
+the unweighted MEH regression).
 
 The MEH branch reads detached FPN features (models/detector.py) and
 regresses the detached per-anchor loss `loss_noR`, so the gradient of
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from ..ops.assigner import anchor_targets
-from ..ops.losses import pseudo_logits, sigmoid_focal_loss_elementwise
+from ..ops.losses import (pseudo_logits, sigmoid_focal_loss_elementwise,
+                          softmax_cross_entropy)
 from ..utils.config import RetinaNetConfig, TrainConfig
 from ..utils.device import resolve_device
 from .batch import AnchorTable, Batch, as_tensor, prepare_images
@@ -126,12 +130,7 @@ def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
     def loss_fn(batch: Batch, anchors: torch.Tensor):
         cls_scores, bbox_preds, lambdas = model(
             prepare_images(batch.images, batch.img_shapes, cfg))
-        t = anchor_targets(anchors, batch.anchor_valid, batch.gt_boxes, batch.gt_labels,
-                           batch.gt_valid, num_classes=cfg.num_classes,
-                           target_means=cfg.target_means, target_stds=cfg.target_stds,
-                           pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
-                           min_pos_iou=cfg.min_pos_iou,
-                           gt_max_assign_all=cfg.gt_max_assign_all)
+        t = _targets(cfg, batch, anchors)
         num_total = t.num_pos.sum().float()
         elem = sigmoid_focal_loss_elementwise(pseudo_logits(cls_scores, cfg.cls_loss),
                                               t.labels, gamma=cfg.focal_gamma,
@@ -154,6 +153,78 @@ def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
     return loss_fn, anchors_host
 
 
+def _targets(cfg, batch: Batch, anchors: torch.Tensor):
+    return anchor_targets(anchors, batch.anchor_valid, batch.gt_boxes, batch.gt_labels,
+                          batch.gt_valid, num_classes=cfg.num_classes,
+                          target_means=cfg.target_means, target_stds=cfg.target_stds,
+                          pos_iou_thr=cfg.pos_iou_thr, neg_iou_thr=cfg.neg_iou_thr,
+                          min_pos_iou=cfg.min_pos_iou,
+                          gt_max_assign_all=cfg.gt_max_assign_all)
+
+
+def ohem_negatives(ce: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+                   neg_pos_ratio: int) -> torch.Tensor:
+    """The negatives OHEM keeps, [B, A] bool: per image the
+    min(neg_pos_ratio * #pos, #neg) negatives of largest CE. Ties go to
+    the lower anchor index, as the JAX package's stable
+    jnp.argsort(-masked) gives them."""
+    num_neg = torch.minimum(neg_pos_ratio * pos.sum(dim=1), neg.sum(dim=1))  # [B]
+    masked = torch.where(neg, ce, torch.full_like(ce, -float("inf")))
+    order = torch.argsort(-masked, dim=1, stable=True)  # hardest negatives first
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(order.shape[1], device=ce.device).expand_as(order))
+    return neg & (rank < num_neg[:, None])
+
+
+def make_ssd_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]:
+    """The SSD loss (make_retina_loss_fn's signature): OHEM softmax CE
+    (neg:pos = cfg.neg_pos_ratio) and smooth L1 over the positives, each
+    over the total positives; the MEH term regresses lambda onto the
+    weighted CE of every anchor (loss_noR, detached): per image the mean
+    over all anchors of |lambda + 1e-9 - loss_noR|^2, summed over the
+    batch, times cfg.meh_loss_weight, unweighted (the runner never passes
+    mineW)."""
+    gen = cfg.build_anchor_generator()
+    anchors_host = np.concatenate(gen.grid_anchors(cfg.featmap_sizes())).astype(np.float32)
+    c = cfg.num_classes
+
+    def loss_fn(batch: Batch, anchors: torch.Tensor):
+        cls_scores, bbox_preds, lambdas = model(
+            prepare_images(batch.images, batch.img_shapes, cfg))
+        t = _targets(cfg, batch, anchors)
+        num_total = t.num_pos.sum().float()
+        ce = softmax_cross_entropy(cls_scores, t.labels, reduction="none") * t.label_weights
+        pos = (t.labels < c) & (t.label_weights > 0)
+        neg = (t.labels == c) & (t.label_weights > 0)
+        sel_neg = ohem_negatives(ce.detach(), pos, neg, cfg.neg_pos_ratio)
+        zero = torch.zeros_like(ce)
+        loss_cls = (torch.where(pos, ce, zero).sum() + torch.where(sel_neg, ce, zero).sum()) \
+            / num_total
+        diff = torch.abs(bbox_preds - t.bbox_targets)
+        beta = cfg.smoothl1_beta
+        sl1 = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+        loss_bbox = (sl1 * t.bbox_weights).sum() / num_total
+        loss_meh = torch.zeros((), dtype=torch.float32, device=cls_scores.device)
+        if lambdas is not None:
+            err = torch.abs(lambdas + 1e-9 - ce.detach())  # SSD's loss_noR: the weighted CE
+            if cfg.meh_weighted:
+                err = err * t.bbox_weights[..., 0]
+            loss_meh = (err ** 2).mean(dim=1).sum() * cfg.meh_loss_weight
+        total = loss_cls + loss_bbox + loss_meh
+        aux = {"loss": total, "loss_cls": loss_cls, "loss_bbox": loss_bbox,
+               "loss_meh": loss_meh, "num_pos": num_total}
+        return total, aux
+
+    return loss_fn, anchors_host
+
+
+def make_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]:
+    """Family dispatch: the EDL-focal Retina loss or the OHEM-CE SSD loss."""
+    if cfg.family == "ssd":
+        return make_ssd_loss_fn(model, cfg)
+    return make_retina_loss_fn(model, cfg)
+
+
 def _clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> None:
     """optax.clip_by_global_norm on .grad in place: g * max_norm / norm
     when the global norm exceeds max_norm, g unchanged otherwise."""
@@ -163,7 +234,7 @@ def _clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> Non
     torch._foreach_mul_(grads, scale)
 
 
-def make_train_step(model: torch.nn.Module, cfg: RetinaNetConfig,
+def make_train_step(model: torch.nn.Module, cfg,
                     optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
     """Returns step(batch: Batch) -> aux (detached scalar tensors on
     `device`): one forward, one backward and one optimizer step on
@@ -173,14 +244,14 @@ def make_train_step(model: torch.nn.Module, cfg: RetinaNetConfig,
     by their global norm over every parameter that has one, the frozen
     ones included, before the optimizer sees them."""
     dev = resolve_device(device)
-    if cfg.fused_blocks:
+    if getattr(cfg, "fused_blocks", False):
         raise ValueError("the fused bottleneck kernel has no backward; train with "
                          "fused_blocks=False")
     param = next(model.parameters())
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, the step on {dev}")
     grad_clip = optimizer.defaults.get("grad_clip")
-    loss_fn, anchors_host = make_retina_loss_fn(model, cfg)
+    loss_fn, anchors_host = make_loss_fn(model, cfg)
     anchors = AnchorTable(anchors_host)
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,13 @@
 """JAX variables -> the port's state_dict.
 
-Takes the JAX package's MEH-RetinaNet variables, {"params": ...,
-"batch_stats": ...} as nested dicts of numpy arrays (the tree of
-aod_meh_hua_tpu/models/detector.py), and returns a state_dict for
-models/detector.py's MEHRetinaNet. Conv kernels go HWIO -> OIHW; BN
-scale/bias/mean/var go to weight/bias/running_mean/running_var. The JAX
+Takes the JAX package's MEH-RetinaNet or MEH-SSD variables, {"params":
+..., "batch_stats": ...} as nested dicts of numpy arrays (the trees of
+aod_meh_hua_tpu/models/detector.py and ssd_detector.py), and returns a
+state_dict for models/detector.py's MEHRetinaNet or
+models/ssd_detector.py's MEHSSD (mmdet's names, the mapping of
+aod_meh_hua_tpu/models/reference_convert.py:107-140). Conv kernels go
+HWIO -> OIHW; BN scale/bias/mean/var and L2Norm's scale go to
+weight/bias/running_mean/running_var and weight. The JAX
 package keeps one tree whether fused_blocks is on or off
 (models/resnet.py:93-122), and so does the port: the same tree loads
 into either.
@@ -17,6 +20,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .vgg import MMCV_VGG16_CONV_IDX
 
 # JAX module name -> the port's, applied to each component of the path
 _NAME_RULES = (
@@ -47,8 +52,34 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+# the JAX SSD's module names -> mmdet's (reference_convert.py:107-140)
+_VGG_CONVS = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3",
+              "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3", "conv6",
+              "conv7")
+_SSD_RULES = (
+    (re.compile(r"^backbone\.(conv\d_\d|conv6|conv7)$"),
+     lambda m: f"backbone.features.{MMCV_VGG16_CONV_IDX[_VGG_CONVS.index(m[1])]}"),
+    (re.compile(r"^neck\.extra_(\d+)_reduce$"), lambda m: f"neck.extra_layers.{m[1]}.0.conv"),
+    (re.compile(r"^neck\.extra_(\d+)_conv$"), lambda m: f"neck.extra_layers.{m[1]}.1.conv"),
+    (re.compile(r"^neck\.l2_norm$"), lambda m: "neck.l2_norm"),
+    (re.compile(r"^head\.(cls|reg|L)_(\d+)$"), lambda m: f"bbox_head.{m[1]}_convs.{m[2]}.0"),
+)
+
+
+def _ssd_module(mods) -> str:
+    path = ".".join(mods)
+    for pat, rep in _SSD_RULES:
+        m = pat.match(path)
+        if m:
+            return rep(m)
+    raise KeyError(f"no port module for the JAX SSD's {path!r}")
+
+
 def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} numpy tree -> MEHRetinaNet state_dict."""
+    """{"params", "batch_stats"} numpy tree -> the state_dict of the port
+    model of its family (MEHRetinaNet, or MEHSSD for a tree with VGG
+    convs). SSD has no batch_stats."""
+    ssd = "conv1_1" in tree.get("params", {}).get("backbone", {})
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(tree.get(collection, {})):
@@ -56,6 +87,6 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf, dtype=np.float32)
             if name == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            key = ".".join([_module_name(m) for m in mods] + [_LEAF[name]])
-            out[key] = torch.from_numpy(np.array(arr, order="C"))  # an owned copy
+            module = _ssd_module(mods) if ssd else ".".join(_module_name(m) for m in mods)
+            out[f"{module}.{_LEAF[name]}"] = torch.from_numpy(np.array(arr, order="C"))
     return out

@@ -2,11 +2,13 @@
 (numpy).
 
 A copy of `AnchorGenerator` (:25-156, without its `scales`/`base_sizes`
-overrides, other families' anchors), `_valid_flags` (:71-93) and
-`anchor_valid_flags` (:244-262) from aod_meh_hua_tpu/ops/anchors.py. It
-mirrors the reference's mmdet/core/anchor/anchor_generator.py:12 (octave
-scales, center_offset=0, ratio-major base anchors, row-major grid,
-single_level_valid_flags). The port keeps its own copy because the JAX
+overrides, other families' anchors), `_valid_flags` (:71-93),
+`SSDAnchorGenerator` (:160-247) and `anchor_valid_flags` (:244-262) from
+aod_meh_hua_tpu/ops/anchors.py. It mirrors the reference's
+mmdet/core/anchor/anchor_generator.py:12 (octave scales, center_offset=0,
+ratio-major base anchors, row-major grid, single_level_valid_flags) and
+its SSDAnchorGenerator (the min/max size schedule, scale-minor base
+anchors). The port keeps its own copy because the JAX
 package's `ops/__init__.py` imports jax; tests/test_torch_ops.py and
 tests/test_torch_train.py hold the two copies bit-equal.
 """
@@ -115,6 +117,84 @@ class AnchorGenerator:
             self.base_anchors.append(
                 _base_anchors(base_size, self.scales, self._ratios, center, self.scale_major)
             )
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.strides)
+
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [b.shape[0] for b in self.base_anchors]
+
+    def grid_anchors(self, featmap_sizes: Sequence[Tuple[int, int]]) -> List[np.ndarray]:
+        return [
+            _grid_anchors(self.base_anchors[i], featmap_sizes[i], self.strides[i])
+            for i in range(self.num_levels)
+        ]
+
+    def valid_flags(
+        self, featmap_sizes: Sequence[Tuple[int, int]], pad_shape: Tuple[int, int]
+    ) -> List[np.ndarray]:
+        return [
+            _valid_flags(featmap_sizes[i], self.strides[i], pad_shape, self.num_base_anchors[i])
+            for i in range(self.num_levels)
+        ]
+
+
+@dataclass
+class SSDAnchorGenerator:
+    """SSD anchor generator (heterogeneous anchors per level).
+
+    The min/max size schedule follows the reference: ratio range scanned in
+    integer percent steps over (num_levels - 2) intervals, with the first
+    level's sizes special-cased by (input_size, basesize_ratio_range[0]).
+    Per level: [min-square, sqrt(min*max)-square, ratio anchors at scale 1].
+    """
+
+    strides: Sequence[int] = (8, 16, 32, 64, 100, 300)
+    ratios: Sequence[Sequence[float]] = ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))
+    basesize_ratio_range: Tuple[float, float] = (0.15, 0.9)
+    input_size: int = 300
+    scale_major: bool = False
+
+    # (input_size, basesize_ratio_range[0]) -> the first level's (min, max) percent
+    _FIRST_LEVEL = {(300, 0.15): (7, 15), (300, 0.2): (10, 20),
+                    (512, 0.1): (4, 10), (512, 0.15): (7, 15)}
+
+    def __post_init__(self):
+        self.strides = [(s, s) if isinstance(s, int) else tuple(s) for s in self.strides]
+        self.centers = [(sw / 2.0, sh / 2.0) for (sw, sh) in self.strides]
+
+        min_ratio = int(self.basesize_ratio_range[0] * 100)
+        max_ratio = int(self.basesize_ratio_range[1] * 100)
+        step = int(np.floor(max_ratio - min_ratio) / (self.num_levels - 2))
+        min_sizes, max_sizes = [], []
+        for ratio in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(int(self.input_size * ratio / 100))
+            max_sizes.append(int(self.input_size * (ratio + step) / 100))
+        if self.input_size not in (300, 512):
+            raise ValueError("input_size must be 300 or 512")
+        first = self._FIRST_LEVEL.get((self.input_size, self.basesize_ratio_range[0]))
+        if first is None:
+            raise ValueError(f"basesize_ratio_range[0] = {self.basesize_ratio_range[0]} "
+                             f"is not supported for input {self.input_size}")
+        min_sizes.insert(0, int(self.input_size * first[0] / 100))
+        max_sizes.insert(0, int(self.input_size * first[1] / 100))
+
+        self.base_sizes = min_sizes
+        self.base_anchors: List[np.ndarray] = []
+        for k in range(self.num_levels):
+            scales = np.array([1.0, np.sqrt(max_sizes[k] / min_sizes[k])], dtype=np.float32)
+            anchor_ratio = [1.0]
+            for r in self.ratios[k]:
+                anchor_ratio += [1.0 / r, float(r)]
+            anchor_ratio = np.asarray(anchor_ratio, dtype=np.float32)
+            base = _base_anchors(min_sizes[k], scales, anchor_ratio, self.centers[k],
+                                 self.scale_major)
+            # keep [scale0/ratio1, scale1/ratio1, scale0/other-ratios...]
+            indices = list(range(len(anchor_ratio)))
+            indices.insert(1, len(indices))
+            self.base_anchors.append(base[np.asarray(indices)])
 
     @property
     def num_levels(self) -> int:

@@ -1,12 +1,13 @@
-"""Classification and regression losses of MEH-RetinaNet (torch): focal,
-the EDL variants, L1.
+"""Classification and regression losses of MEH-RetinaNet and MEH-SSD
+(torch): focal, the EDL variants, L1, softmax cross-entropy.
 
-Port of aod_meh_hua_tpu/ops/losses.py:25-162, which mirrors the
+Port of aod_meh_hua_tpu/ops/losses.py:25-162 and :238-254, which mirrors the
 reference's mmdet/models/losses/EDL_Softmax_FocalLoss.py:31-68 (the live
 cls loss: softmax -> pseudo-logit -> sigmoid focal loss),
 EDL_FocalLoss.py, EDL_ReLU.py, mmcv's sigmoid_focal_loss kernel (per
 (anchor, class) terms with integer targets), smooth_l1_loss.py (L1Loss,
-the live bbox loss) and utils.py weight_reduce_loss. Labels run over
+the live bbox loss), cross_entropy_loss.py (SSD's CE over C+1 columns)
+and utils.py weight_reduce_loss. Labels run over
 [0, C], where C is background.
 """
 
@@ -114,3 +115,18 @@ def l1_loss(pred, target, weight=None, reduction: str = "mean", avg_factor=None,
             loss_weight: float = 1.0) -> torch.Tensor:
     loss = torch.abs(pred - target)
     return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weight=None,
+                          reduction: str = "mean", avg_factor=None) -> torch.Tensor:
+    """Per-anchor softmax CE with integer labels, for heads with an
+    explicit background column C (SSD). [..., C+1] logits -> [...] before
+    the reduction. A label outside [0, C] is read as jnp's
+    take_along_axis(mode="clip") reads it in the JAX package: a negative
+    one counts from the end, then the index clamps into range."""
+    log_p = torch.log_softmax(logits, dim=-1)
+    n = logits.shape[-1]
+    idx = labels.long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    loss = -torch.gather(log_p, -1, idx[..., None])[..., 0]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)

@@ -44,6 +44,17 @@ def _compact_keep(keep: torch.Tensor, max_out: int):
     return slots[:, :max_out], ok
 
 
+# map applications between two convergence checks (each check reads a
+# flag back from the device)
+CHECK_INTERVAL = 8
+
+
+def _converged(prev: torch.Tensor, keep: torch.Tensor) -> bool:
+    """True when one more application of the map left the mask as it was:
+    the loop's only host sync."""
+    return torch.equal(prev, keep)
+
+
 def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
                         iou_thr: float) -> torch.Tensor:
     """Exact greedy-NMS keep mask [B, k] for candidates sorted by
@@ -52,8 +63,10 @@ def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
     Greedy NMS is the unique fixpoint of
         keep[i] = ok[i] and not exists j < i: keep[j] and IoU(i, j) > thr;
     iterating the map from keep = ok reaches it within the suppression
-    chain's depth. The loop runs until every image has reached it; an
-    image at its fixpoint does not change.
+    chain's depth d. The loop applies the map CHECK_INTERVAL times between
+    two checks; past the fixpoint the map leaves every mask unchanged, so
+    the extra applications are exact, and the host reads a flag back
+    ceil((d + 1) / CHECK_INTERVAL) times instead of d + 1.
     """
     k = off_boxes.shape[1]
     ar = torch.arange(k, device=off_boxes.device)
@@ -61,10 +74,10 @@ def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
     sup = (bbox_overlaps(off_boxes, off_boxes) > iou_thr) & earlier  # [B, j, i]
     keep = cand_ok
     while True:
-        new = cand_ok & ~(keep[:, :, None] & sup).any(dim=1)
-        if torch.equal(new, keep):
+        for _ in range(CHECK_INTERVAL):
+            prev, keep = keep, cand_ok & ~(keep[:, :, None] & sup).any(dim=1)
+        if _converged(prev, keep):
             return keep
-        keep = new
 
 
 def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, score_thr: float,

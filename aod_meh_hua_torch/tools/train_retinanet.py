@@ -6,6 +6,8 @@ Mirrors tools/train_retinanet.py:24-190 of the JAX package flag for flag
 zeroRate/score_thr/iou_thr knobs, the batch sizes, --cycles, the cycle,
 load and mid-cycle resume flags, --no-validate, --canvas-cache-dir and
 the --mini smoke mode. It runs on the card; --cpu runs it on the CPU.
+main pins the numerics process-wide (utils/device.py pin_numerics): no
+TF32, deterministic cuDNN.
 The flags of modes the port does not have yet raise NotImplementedError
 with their ROADMAP item.
 
@@ -24,6 +26,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from aod_meh_hua_torch.utils.device import pin_numerics
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -84,23 +88,41 @@ STR2UNC = {"SACA": "scaleAvg_classAvg", "SSCS": "scaleSum_classSum",
            "SACS": "scaleAvg_classSum", "SSCA": "scaleSum_classAvg"}
 
 
-def _refuse_unported(args) -> None:
+def refuse_unported(args) -> None:
+    """Raise for a flag of a mode the port does not have yet (both CLIs;
+    a flag one of them lacks counts as not given)."""
+    get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     refused = [
         (args.config, "--config (reference-style config files)", "13"),
-        (args.baseline, "--baseline", "11"),
-        (args.ensemble_size is not None, "--ensemble-size", "11"),
+        (get("baseline"), "--baseline", "11"),
+        (get("ensemble_size") is not None, "--ensemble-size", "11"),
         (args.distributed, "--distributed", "12"),
         (args.coordinator is not None, "--coordinator", "12"),
         (args.num_processes is not None, "--num-processes", "12"),
         (args.process_id is not None, "--process-id", "12"),
         (args.fsdp > 1, "--fsdp", "12"),
         (args.num_devices is not None and args.num_devices > 1, "--num-devices", "12"),
-        (args.int8_scoring, "--int8-scoring", "16"),
+        (get("int8_scoring", False), "--int8-scoring", "16"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
     for given, flag, item in refused:
         if given:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def hua_from_args(hua, args):
+    """The HUA config with the CLI's pool and aggregation flags applied."""
+    if args.uncertainty:
+        hua = dataclasses.replace(hua, pool=args.uncertainty)
+    if args.unc_type:
+        hua = dataclasses.replace(hua, agg=STR2UNC[args.unc_type])
+    if args.agg:
+        hua = dataclasses.replace(hua, agg=args.agg)
+    if args.agg_order:
+        hua = dataclasses.replace(hua, agg_order=args.agg_order)
+    if args.cls_weight:
+        hua = dataclasses.replace(hua, cls_weight=True)
+    return dataclasses.replace(hua, obj_score_thr=args.score_thr, memb_iou_thr=args.iou_thr)
 
 
 def attach_pretrained_backbone(model, path: str) -> None:
@@ -120,7 +142,8 @@ def attach_pretrained_backbone(model, path: str) -> None:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
+    pin_numerics()
     from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
     from aod_meh_hua_torch.data.pipeline import PipelineConfig
     from aod_meh_hua_torch.utils.config import (
@@ -138,19 +161,8 @@ def main(argv: Optional[Sequence[str]] = None):
         pipeline = PipelineConfig(img_scale=(250, 120), canvas=model_cfg.canvas,
                                   device_normalize=True)
 
-    hua = model_cfg.hua
-    if args.uncertainty:
-        hua = dataclasses.replace(hua, pool=args.uncertainty)
-    if args.unc_type:
-        hua = dataclasses.replace(hua, agg=STR2UNC[args.unc_type])
-    if args.agg:
-        hua = dataclasses.replace(hua, agg=args.agg)
-    if args.agg_order:
-        hua = dataclasses.replace(hua, agg_order=args.agg_order)
-    if args.cls_weight:
-        hua = dataclasses.replace(hua, cls_weight=True)
-    hua = dataclasses.replace(hua, obj_score_thr=args.score_thr, memb_iou_thr=args.iou_thr)
-    model_cfg = dataclasses.replace(model_cfg, hua=hua, compute_dtype=args.dtype)
+    model_cfg = dataclasses.replace(model_cfg, hua=hua_from_args(model_cfg.hua, args),
+                                    compute_dtype=args.dtype)
     train_cfg = dataclasses.replace(
         train_cfg, seed=args.seed,
         **({"batch_size": args.batch_size} if args.batch_size else {}),

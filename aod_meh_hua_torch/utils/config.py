@@ -1,8 +1,9 @@
 """Config dataclasses of the MEH-RetinaNet path.
 
 A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
-`TrainConfig`, `ALConfig` and `tiny_test_config` from
-aod_meh_hua_tpu/utils/config.py (:18-198, :2246-2294, :3545).
+`SSDAnchorCfg`, `SSDConfig`, `TrainConfig`, `ALConfig` and
+`tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-298,
+:2246-2294, :3545).
 The port keeps its own copy because it imports nothing of the JAX
 package; tests/test_torch_ops.py holds the two copies equal field by
 field.
@@ -178,6 +179,106 @@ class RetinaNetConfig:
         a = self.anchor.num_anchors
         bounds, off = [], 0
         for (h, w) in self.featmap_sizes():
+            n = min(h * w * a, self.test.nms_pre)
+            bounds.append((off, off + n))
+            off += n
+        return bounds
+
+
+@dataclass(frozen=True)
+class SSDAnchorCfg:
+    strides: Tuple[int, ...] = (8, 16, 32, 64, 100, 300)
+    ratios: Tuple[Tuple[float, ...], ...] = ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))
+    basesize_ratio_range: Tuple[float, float] = (0.15, 0.9)
+    input_size: int = 300
+
+
+@dataclass(frozen=True)
+class SSDConfig:
+    """MEH-SSD300-VGG16 (reference Config_SSD.py model dict).
+
+    One fixed square canvas (the reference warps with keep_ratio=False,
+    Config_SSD.py:106), so no orientation bucketing.
+    """
+
+    num_classes: int = 20
+    input_size: int = 300
+    # backbone: VGG16; width_mult shrinks channels for unit tests
+    width_mult: float = 1.0
+    neck_out_channels: Tuple[int, ...] = (512, 1024, 512, 256, 256, 256)
+    level_strides: Tuple[int, ...] = (2, 2, 1, 1)
+    level_paddings: Tuple[int, ...] = (1, 1, 0, 0)
+    l2_norm_scale: float = 20.0
+    anchor: SSDAnchorCfg = field(default_factory=SSDAnchorCfg)
+    # bbox coder
+    target_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
+    target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+    # assigner (train_cfg): neg threshold 0.5, single-anchor low-quality
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.0
+    gt_max_assign_all: bool = False
+    # losses: OHEM CE (neg:pos = 3) + smooth L1
+    neg_pos_ratio: int = 3
+    smoothl1_beta: float = 1.0
+    meh_loss: str = "l2"
+    meh_loss_weight: float = 2.0        # My_L_ssd_head.py:224 final *2
+    meh_weighted: bool = False          # loss_single_L without mineW kwarg
+    use_meh: bool = True
+    max_gt: int = 64
+    # img_norm_cfg (Config_SSD.py:87): caffe-style std = 1
+    img_mean: Tuple[float, ...] = (123.675, 116.28, 103.53)
+    img_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    img_to_rgb: bool = True
+    compute_dtype: str = "float32"
+    test: TestCfg = field(default_factory=lambda: TestCfg(
+        nms_pre=1000, score_thr=0.02, nms_iou_thr=0.5, max_per_img=200))
+    hua: HUACfg = field(default_factory=HUACfg)
+
+    family = "ssd"
+
+    @property
+    def canvas(self) -> Tuple[int, int]:
+        return (self.input_size, self.input_size)
+
+    @property
+    def cls_out_channels(self) -> int:
+        return self.num_classes + 1  # explicit background class
+
+    @property
+    def num_fg_classes(self) -> int:
+        return self.num_classes
+
+    def for_orientation(self, orientation: str) -> "SSDConfig":
+        return self  # square warp: one canvas for both orientations
+
+    def build_anchor_generator(self):
+        from ..ops.anchors import SSDAnchorGenerator
+
+        return SSDAnchorGenerator(
+            strides=self.anchor.strides, ratios=self.anchor.ratios,
+            basesize_ratio_range=self.anchor.basesize_ratio_range,
+            input_size=self.anchor.input_size,
+        )
+
+    def featmap_sizes(self):
+        sizes = {300: [(38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1)],
+                 512: [(64, 64), (32, 32), (16, 16), (8, 8), (6, 6), (4, 4), (1, 1)]}
+        return sizes[self.input_size]
+
+    def level_bounds(self):
+        gen = self.build_anchor_generator()
+        bounds, off = [], 0
+        for (h, w), a in zip(self.featmap_sizes(), gen.num_base_anchors):
+            n = h * w * a
+            bounds.append((off, off + n))
+            off += n
+        return bounds
+
+    def topk_level_bounds(self):
+        gen = self.build_anchor_generator()
+        bounds, off = [], 0
+        for (h, w), a in zip(self.featmap_sizes(), gen.num_base_anchors):
             n = min(h * w * a, self.test.nms_pre)
             bounds.append((off, off + n))
             off += n

@@ -16,3 +16,14 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def pin_numerics() -> None:
+    """The numerics the CLIs run under, process-wide: f32 convolutions and
+    matmuls in full f32 (no TF32), and deterministic cuDNN algorithms, as
+    the reference pins them (its tools/train_RetinaNet.py:80-87). TF32
+    flips NMS survivors near the threshold."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -56,7 +56,25 @@
    training epoch. Neither kernel lies on this path (fused_blocks is off
    where the model trains): their launches there are counted and
    reported, and must be 0.
-10. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+   Its CLI must pin the numerics (TF32 off, deterministic cuDNN): the
+   flags are set to torch's defaults just before it and read just after.
+10. Batch 64, the CLIs' default sweep batch: the full-width RetinaNet's
+   Entropy_NMS sweep and eval step at batch 64 and at batch 8 over the
+   same 128 canvases, fused and unfused, peak memory and img/s; the
+   batch-64 scores held to the batch-8 ones.
+11. NMS fixpoint: one score step profiled with the convergence checked
+   after every map application and every CHECK_INTERVAL of them: host
+   syncs, wall and device time.
+12. SSD300 (SSDConfig(): VGG16, 8732 anchors, 21 columns): 2 + 10 train
+   steps at batch 8 with the SSD CLI's warmup, a tiny SSD's two steps on
+   the card against the CPU, Entropy_NMS through score_pool at batch 64
+   over 128 canvases with the foreground logits sharpened, Entropy_ALL
+   and NoNMS on one batch, eval with its mAP; the host cost of the
+   augment chain; and last the SSD CLI in process on the fixture tree for
+   two cycles (cut in data size only), its numerics flags checked as the
+   RetinaNet CLI's. No hand-written kernel lies on the SSD paths: their
+   launches there must be 0.
+13. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -65,7 +83,6 @@ of the repository. Every failed check raises.
 
 from __future__ import annotations
 
-import functools
 import hashlib
 import json
 import shutil
@@ -302,15 +319,16 @@ def read_launches() -> dict:
 
 # --- scoring path -------------------------------------------------------------
 
-def synthetic_pool(cfg, seed: int = 0):
+def synthetic_pool(cfg, seed: int = 0, pool=None, batch: int = BATCH):
     """(orientation, EvalBatch, indices) triples of seeded uint8 canvases:
     32-pixel cells of random colour plus noise, varied img_shapes and
-    scale_factors, the last batch of each orientation padded."""
+    scale_factors, the last batch of each orientation padded. pool: the
+    images per orientation (POOL by default)."""
     from aod_meh_hua_torch.engine.batch import EvalBatch
 
     rng = np.random.RandomState(seed)
     triples, start = [], 0
-    for orientation, n in POOL.items():
+    for orientation, n in (pool or POOL).items():
         h, w = cfg.for_orientation(orientation).canvas
         coarse = rng.randint(0, 256, (n, h // 32, w // 32, 3)).astype(np.uint8)
         imgs = coarse.repeat(32, axis=1).repeat(32, axis=2)
@@ -319,11 +337,11 @@ def synthetic_pool(cfg, seed: int = 0):
         shapes = np.array([[rng.randint(h * 3 // 4, h + 1), rng.randint(w * 3 // 4, w + 1)]
                            for _ in range(n)], np.int32)
         sfs = np.repeat(rng.uniform(0.8, 1.7, (n, 1)), 4, axis=1).astype(np.float32)
-        for i in range(0, n, BATCH):
-            k = min(BATCH, n - i)
-            rows = np.r_[np.arange(i, i + k), np.full(BATCH - k, i + k - 1)]
+        for i in range(0, n, batch):
+            k = min(batch, n - i)
+            rows = np.r_[np.arange(i, i + k), np.full(batch - k, i + k - 1)]
             triples.append((orientation,
-                            EvalBatch(imgs[rows], shapes[rows], sfs[rows], np.arange(BATCH) < k),
+                            EvalBatch(imgs[rows], shapes[rows], sfs[rows], np.arange(batch) < k),
                             np.arange(start + i, start + i + k)))
         start += n
     return triples, start
@@ -875,6 +893,15 @@ AL_TRAINVAL, AL_TEST = 32, 8
 AL_TRAIN = dict(outer_epoch=1, epoch_ratio=(1,), ckpt_interval=1)
 AL_AL = dict(cycles=(0, 1), x_l_0_size=8, x_s_size=4, x_l_repeat=1, score_batch_size=8,
              zero_rate=0.15)
+
+
+def with_cuts(cls, cuts):
+    """cls(...) with `cuts` applied over whatever the caller passed."""
+    import dataclasses
+
+    return lambda *a, **k: dataclasses.replace(cls(*a, **k), **cuts)
+
+
 VOC_XML = """<annotation>
   <size><width>{w}</width><height>{h}</height><depth>3</depth></size>
   {objects}
@@ -951,6 +978,62 @@ AL_CACHE_RTOL = 1e-4
 AL_MIN_NONZERO = AL_AL["x_s_size"]
 
 
+TORCH_DEFAULT_FLAGS = {"cudnn.allow_tf32": True, "cuda.matmul.allow_tf32": False,
+                       "cudnn.deterministic": False, "cudnn.benchmark": False}
+PINNED = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+          "cudnn.deterministic": True, "cudnn.benchmark": False}
+
+
+def numerics_flags() -> dict:
+    import torch
+
+    b = torch.backends
+    return {"cudnn.allow_tf32": b.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": b.cuda.matmul.allow_tf32,
+            "cudnn.deterministic": b.cudnn.deterministic, "cudnn.benchmark": b.cudnn.benchmark}
+
+
+def set_numerics_flags(flags: dict) -> None:
+    import torch
+
+    b = torch.backends
+    b.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    b.cuda.matmul.allow_tf32 = flags["cuda.matmul.allow_tf32"]
+    b.cudnn.deterministic = flags["cudnn.deterministic"]
+    b.cudnn.benchmark = flags["cudnn.benchmark"]
+
+
+def run_cli(main, argv) -> tuple:
+    """main(argv) with torch's default numerics flags set just before;
+    fails unless the CLI pinned them (PINNED). Returns (driver, the
+    flags it left)."""
+    set_numerics_flags(TORCH_DEFAULT_FLAGS)
+    driver = main(argv)
+    flags = numerics_flags()
+    if flags != PINNED:
+        fail(f"the CLI left the numerics flags at {flags}, not {PINNED}")
+    return driver, flags
+
+
+def epoch_rate_by_determinism(driver, x_l) -> dict:
+    """One more training epoch of the driver's model over x_l with
+    deterministic cuDNN off, on, on, off (TF32 off throughout): img/s
+    through the loader of each, the mean per setting."""
+    import torch
+
+    rates = {False: [], True: []}
+    for det in (False, True, True, False):
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.synchronize()
+        t0 = time.time()
+        driver._train_run(x_l, 777, False, cycle=9, run_idx=0)
+        torch.cuda.synchronize()
+        rates[det].append(len(x_l) * driver.al.x_l_repeat / (time.time() - t0))
+    torch.backends.cudnn.deterministic = True
+    return {"deterministic_off_img_per_s": rates[False], "deterministic_on_img_per_s": rates[True],
+            "on_over_off": float(np.mean(rates[True]) / np.mean(rates[False]))}
+
+
 def al_path(device, bare_img_per_s: float) -> dict:
     """The port's CLI (`main`, in process, on the card, no --mini) on the
     synthetic tree: RetinaNetConfig() at 608x1024, the default pipeline,
@@ -994,11 +1077,11 @@ def al_path(device, bare_img_per_s: float) -> dict:
     reset_launches()
     t0 = time.time()
     with mock.patch.object(config_module, "TrainConfig",
-                           functools.partial(config_module.TrainConfig, **AL_TRAIN)), \
+                           with_cuts(config_module.TrainConfig, AL_TRAIN)), \
             mock.patch.object(config_module, "ALConfig",
-                              functools.partial(config_module.ALConfig, **AL_AL)), \
+                              with_cuts(config_module.ALConfig, AL_AL)), \
             mock.patch.object(loop_module, "score_pool", sharpened_score_pool):
-        driver = train_retinanet.main(argv)
+        driver, flags = run_cli(train_retinanet.main, argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
@@ -1047,7 +1130,7 @@ def al_path(device, bare_img_per_s: float) -> dict:
         return {"images": n, "seconds": sec, "img_per_s": n / sec if sec else None}
 
     result = dict(
-        argv=argv, configs={"train": AL_TRAIN, "al": AL_AL}, wall_s=wall,
+        argv=argv, configs={"train": AL_TRAIN, "al": AL_AL}, wall_s=wall, numerics_flags=flags,
         cycles=[{"cycle": t["cycle"], "seconds": t["seconds"]} for t in driver.timings
                 if t["phase"] == "cycle"],
         metrics=metrics, mean_losses=losses, x_l_0=x_l0.tolist(), x_l_1=x_l1.tolist(),
@@ -1062,6 +1145,7 @@ def al_path(device, bare_img_per_s: float) -> dict:
     # one more training epoch of the cycle-1 model over X_L_1, profiled
     result["profile_of_one_train_epoch"] = profile_device(
         lambda: driver._train_run(x_l1, 12345, False, cycle=9, run_idx=0))
+    result["train_epoch_by_determinism"] = epoch_rate_by_determinism(driver, x_l1)
 
     # a second sweep of the pool by cycle 0's model, sharpened as before,
     # from the canvas cache the first one filled: the same scores
@@ -1084,6 +1168,633 @@ def al_path(device, bare_img_per_s: float) -> dict:
                                  "max_rel_diff": float(np.max(np.abs(unc_cached - unc)
                                                               / np.maximum(unc, 1e-30)))}
     return result
+
+
+# --- SSD AL phase: the SSD CLI on the fixture tree ------------------------------------
+
+# the SSD CLI's configs (tools/train_ssd.py) but for the cuts of the data size
+SSD_AL_TRAIN = dict(outer_epoch=1, epoch_ratio=(1,), ckpt_interval=1)
+SSD_AL_AL = dict(cycles=(0, 1), x_l_0_size=8, x_s_size=4, x_l_repeat=2, zero_rate=0.15)
+
+
+def augment_check() -> dict:
+    """Host ms per image of the SSD train chain (ssd_train_augment +
+    prepare_sample, float resize) on the decoded fixtures."""
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig, prepare_sample
+    from aod_meh_hua_torch.data.ssd_augment import ssd_train_augment
+
+    pipe = PipelineConfig(img_scale=(300, 300), canvas=(300, 300), std=(1.0, 1.0, 1.0),
+                          keep_ratio=False, device_normalize=True)
+    ms = []
+    for i, path in enumerate(sorted(FIXTURES.glob("*.jpg")) * 4):
+        img = imread(str(path))
+        ann = {"bboxes": np.array([[20, 30, 200, 250]], np.float32),
+               "labels": np.array([3])}
+        rng = np.random.RandomState(i)
+        t0 = time.perf_counter()
+        aug, ann2 = ssd_train_augment(img, ann, rng)
+        s = prepare_sample(aug, ann2, pipe, rng=rng)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if s["image"].shape != (300, 300, 3) or s["image"].dtype != np.float32:
+            fail(f"SSD augment: canvas {s['image'].shape} {s['image'].dtype}")
+    return {"images": len(ms), "ms_per_image_mean": float(np.mean(ms)),
+            "ms_per_image_max": float(np.max(ms))}
+
+
+def ssd_al_path(device, bare_img_per_s: float) -> dict:
+    """The SSD CLI (`tools/train_ssd.py` main, in process, on the card, no
+    --mini) on the fixture tree: SSDConfig() at 300x300, its pipeline and
+    augment chain, the CLI's TrainConfig and ALConfig but for SSD_AL_TRAIN
+    and SSD_AL_AL, the sweeps at the CLI's batch of 64. The pool sweep's
+    model has its foreground logits sharpened (sharpen_ssd_fg); training
+    runs from the random weights."""
+    import torch
+    from aod_meh_hua_torch.al import loop as loop_module
+    from aod_meh_hua_torch.data.loader import EvalLoader
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.tools import train_ssd
+    from aod_meh_hua_torch.utils import config as config_module
+
+    root = REPO / "build" / "chip_smoke_ssd_al"
+    shutil.rmtree(root, ignore_errors=True)
+    voc07 = synthetic_voc(root)
+    work = root / "work"
+    argv = ["--voc07", str(voc07), "--work-dir", str(work), "--cycles", "2"]
+    real_score_pool, sharpened = loop_module.score_pool, []
+
+    def sharpened_score_pool(model, cfg, loader, n_images, **kwargs):
+        _, batch, _ = next(iter(EvalLoader(loader.dataset, loader.indices[:8], loader.pipeline,
+                                           batch_size=8, prefetch=False)))
+        sharpen_ssd_fg(model, prepare_images(torch.from_numpy(batch.images).to(device),
+                                             torch.from_numpy(batch.img_shapes), cfg))
+        sharpened.append(n_images)
+        return real_score_pool(model, cfg, loader, n_images, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.time()
+    with mock.patch.object(config_module, "TrainConfig",
+                           with_cuts(config_module.TrainConfig, SSD_AL_TRAIN)), \
+            mock.patch.object(config_module, "ALConfig",
+                              with_cuts(config_module.ALConfig, SSD_AL_AL)), \
+            mock.patch.object(loop_module, "score_pool", sharpened_score_pool):
+        driver, flags = run_cli(train_ssd.main, argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    if driver.cfg.family != "ssd" or driver.cfg.width_mult != 1.0 or driver.cfg.canvas != (300, 300):
+        fail(f"SSD AL: not the full-width SSD300: {driver.cfg}")
+    cuts = ({k: getattr(driver.tcfg, k) for k in SSD_AL_TRAIN},
+            {k: getattr(driver.al, k) for k in SSD_AL_AL})
+    if cuts != (SSD_AL_TRAIN, SSD_AL_AL):
+        fail(f"SSD AL: the driver ran with {cuts}, not the cuts")
+    if (driver.tcfg.batch_size, driver.tcfg.warmup_iters, driver.al.score_batch_size) != (8, 500, 64):
+        fail(f"SSD AL: not the SSD CLI's batch/warmup/sweep batch: {driver.tcfg}, {driver.al}")
+    if sharpened != [AL_TRAINVAL]:
+        fail(f"SSD AL: the pool sweeps that went through the sharpened head: {sharpened}")
+    metrics = driver.metrics
+    if [m["cycle"] for m in metrics] != [0, 1]:
+        fail(f"SSD AL: the cycles that ran: {metrics}")
+    log = [json.loads(line) for line in (work / "train_log.jsonl").read_text().splitlines()]
+    losses = [e["mean_loss"] for e in log]
+    if not losses or not np.isfinite(losses).all() or \
+            not np.isfinite([m["mAP"] for m in metrics]).all():
+        fail(f"SSD AL: a loss or mAP is not finite: {losses}, {metrics}")
+    x_l0, x_l1 = np.load(work / "X_L_0.npy"), np.load(work / "X_L_1.npy")
+    if not (set(x_l0) <= set(x_l1) and len(x_l1) == len(x_l0) + SSD_AL_AL["x_s_size"]):
+        fail(f"SSD AL: X_L_0 {x_l0} -> X_L_1 {x_l1}")
+    unc = np.load(work / "Unc_1.npy")
+    if unc.shape != (AL_TRAINVAL,) or not np.isfinite(unc).all():
+        fail(f"SSD AL: Unc_1 has shape {unc.shape} or is not finite")
+    unlabeled = np.setdiff1d(np.arange(AL_TRAINVAL), x_l0)
+    nonzero = int((unc[unlabeled] > 0).sum())
+    if nonzero < SSD_AL_AL["x_s_size"]:
+        fail(f"SSD AL: {nonzero} unlabeled images scored above 0")
+    picked = np.sort(unc[np.setdiff1d(x_l1, x_l0)])
+    if not np.array_equal(picked, np.sort(unc[unlabeled])[-SSD_AL_AL["x_s_size"]:]):
+        fail(f"SSD AL: acquired scores {picked} are not the top of {np.sort(unc[unlabeled])}")
+    ckpts = [f for f in (work / "model_save").iterdir() if "_mycode" in f.name]
+    if len(ckpts) != 2:
+        fail(f"SSD AL: checkpoints {ckpts}")
+    if any(launches.values()):
+        fail(f"SSD AL: a hand-written kernel launched on the SSD AL path: {launches}")
+    rows = [t for t in driver.timings if t["phase"] == "train_epoch"]
+    n_img, sec = sum(t["images"] for t in rows), sum(t["seconds"] for t in rows)
+    result = dict(argv=argv, configs={"train": SSD_AL_TRAIN, "al": SSD_AL_AL}, wall_s=wall,
+                  numerics_flags=flags,
+                  cycles=[{"cycle": t["cycle"], "seconds": t["seconds"]}
+                          for t in driver.timings if t["phase"] == "cycle"],
+                  metrics=metrics, mean_losses=losses, x_l_0=x_l0.tolist(),
+                  x_l_1=x_l1.tolist(), unc_1_nonzero_unlabeled=nonzero,
+                  train_through_loader_img_per_s=n_img / sec, bare_step_img_per_s=bare_img_per_s,
+                  sweeps={p: [t["images"] / t["seconds"] for t in driver.timings
+                              if t["phase"] == p] for p in ("eval", "score")},
+                  peak_mem_bytes=peak, launches=launches)
+    result["train_epoch_by_determinism"] = epoch_rate_by_determinism(driver, x_l1)
+    return result
+
+
+# --- batch 64: the CLIs' default sweep batch (ALConfig.score_batch_size) ----------
+
+B64 = 64
+B64_POOL = {"landscape": 64, "portrait": 64}
+B64_RTOL = 1e-4  # batch-64 scores against batch-8 scores of the same canvases
+# ... but for images where one of the score's discrete decisions (the top-k
+# candidates, an NMS survivor, an object member, an anchor past the FG
+# gate) flips between the two batch sizes, whose cuDNN algorithms differ:
+# a score is discontinuous there, and the head outputs that feed it must
+# still agree to F32_TOL of their scale. At most this many such images.
+B64_MAX_FLIPS = 2
+
+
+def decision_flip(model, cfg, t8, t64, image, device) -> dict:
+    """Why `image`'s batch-64 score is off its batch-8 score: its head
+    outputs at either batch size (within F32_TOL of their scale, or
+    fail) and the discrete decisions of the Entropy_NMS core on each
+    (or fail when none differs)."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.engine.postprocess import make_candidate_selector
+    from aod_meh_hua_torch.ops.hua import object_membership
+    from aod_meh_hua_torch.ops.nms import batched_multiclass_nms
+
+    def outputs(triples):
+        o, batch, idx = next(t for t in triples if image in t[2])
+        r = int(np.nonzero(idx == image)[0][0])
+        ocfg = cfg.for_orientation(o)
+        shapes = torch.from_numpy(batch.img_shapes).to(device)
+        with torch.no_grad():
+            heads = model(prepare_images(torch.from_numpy(batch.images).to(device), shapes, ocfg))
+        return ocfg, [h[r:r + 1] for h in heads], shapes[r:r + 1], \
+            torch.from_numpy(batch.scale_factors[r:r + 1]).to(device)
+
+    def decisions(ocfg, heads, shapes, sfs):
+        select, anchors = make_candidate_selector(ocfg)
+        t, h = ocfg.test, ocfg.hua
+        with torch.no_grad():
+            cand = select(torch.from_numpy(anchors).to(device), *heads, shapes)
+            boxes = cand.boxes / sfs[:, None, :]
+            dets = batched_multiclass_nms(boxes, cand.scores[..., :ocfg.num_fg_classes],
+                                          t.score_thr, t.nms_iou_thr, t.max_per_img,
+                                          t.pre_nms_cands)
+            member = object_membership(boxes, dets.boxes, dets.scores, dets.valid,
+                                       score_thr=h.obj_score_thr, iou_thr=h.memb_iou_thr)
+            fg = cand.scores[..., :ocfg.num_fg_classes].amax(dim=-1) > h.fg_score_thr
+        return {"candidates": cand.boxes, "survivors": dets.anchor_idx[dets.valid],
+                "members": member, "fg_gate": fg}
+
+    (ocfg, h8, s8, f8), (_, h64, s64, f64) = outputs(t8), outputs(t64)
+    head_err = {}
+    for name, x, y in zip(("cls", "reg", "lambda"), h8, h64):
+        head_err[name] = (x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+        if head_err[name] > F32_TOL:
+            fail(f"batch 64: image {image}'s {name} head output is {head_err[name]} of its "
+                 f"scale off batch 8's")
+    d8, d64 = decisions(ocfg, h8, s8, f8), decisions(ocfg, h64, s64, f64)
+    flipped = []
+    for k, x in d8.items():
+        y = d64[k]
+        same = x.shape == y.shape and (torch.allclose(x, y, rtol=1e-4, atol=1e-2)
+                                       if k == "candidates" else torch.equal(x, y))
+        if not same:
+            flipped.append(k)
+    if not flipped:
+        fail(f"batch 64: image {image}'s score is off batch 8's with no decision flipped")
+    return {"image": image, "flipped": flipped, "head_err_of_scale": head_err}
+
+
+def rebatch(triples, b):
+    """The same canvases in batches of b (padding rows dropped, the last
+    batch of each orientation padded again)."""
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+
+    out = []
+    for orientation in ("landscape", "portrait"):
+        rows = [(t[1], r, int(t[2][r])) for t in triples if t[0] == orientation
+                for r in range(len(t[2]))]
+        for i in range(0, len(rows), b):
+            chunk = rows[i:i + b]
+            k = len(chunk)
+            chunk = chunk + [chunk[-1]] * (b - k)
+            arrays = [np.stack([bt[f][r] for bt, r, _ in chunk]) for f in range(3)]
+            out.append((orientation, EvalBatch(*arrays, np.arange(b) < k),
+                        np.array([j for *_, j in chunk[:k]])))
+    return out
+
+
+def batch64_path(device, card):
+    """The full-width RetinaNet Entropy_NMS sweep and eval step at batch 64
+    and at batch 8 over the same 128 canvases, fused_blocks on and off:
+    img/s and peak memory of each; the batch-64 scores held to the
+    batch-8 scores (B64_RTOL, the same zero set), and the detections'
+    count and mAP to batch 8's."""
+    import dataclasses
+
+    import torch
+    from aod_meh_hua_torch.al.uncertainty import score_pool
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class, make_eval_step
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+    from aod_meh_hua_torch.utils.voc_eval import eval_map
+
+    cfg = RetinaNetConfig(fused_blocks=True)
+    t64, n = synthetic_pool(cfg, seed=11, pool=B64_POOL, batch=B64)
+    t8 = rebatch(t64, BATCH)
+    gts = synthetic_gts(t8, cfg.num_classes)
+    out, launches = {}, 0
+    for fused in (True, False):
+        fcfg = dataclasses.replace(cfg, fused_blocks=fused)
+        model = build_retinanet(fcfg, device=device, seed=0)
+        first = t8[0][1]
+        sharpen_cls_head(model, prepare_images(torch.from_numpy(first.images).to(device),
+                                               torch.from_numpy(first.img_shapes), fcfg))
+        scores, row = {}, {}
+        for b, triples in ((BATCH, t8), (B64, t64)):
+            score_pool(model, fcfg, triples[:1], n, device=device)  # warm-up at this shape
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            t0 = time.time()
+            unc, _ = score_pool(model, fcfg, triples, n, device=device)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches += read_launches()["fused_bottleneck"]
+            peak = torch.cuda.max_memory_allocated(device)
+            if not np.isfinite(unc).all() or not (unc > 0).any():
+                fail(f"batch {b}, fused {fused}: scores not finite or all 0")
+            scores[b] = unc
+            steps = {o: make_eval_step(model, fcfg.for_orientation(o), device=device)
+                     for o in ("landscape", "portrait")}
+            steps["landscape"](upload(triples[0][1], device))  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            t0 = time.time()
+            results = []
+            for o, bt, _ in triples:
+                results += detections_to_per_class(steps[o](upload(bt, device)),
+                                                   cfg.num_classes, batch_valid=bt.valid)
+            ewall = time.time() - t0
+            launches += read_launches()["fused_bottleneck"]
+            epeak = torch.cuda.max_memory_allocated(device)
+            order = np.concatenate([i for *_, i in triples])
+            by_image = [results[j] for j in np.argsort(order)]
+            row[b] = dict(pool_img_per_s=n / wall, pool_peak_mem_bytes=peak,
+                          eval_img_per_s=n / ewall, eval_peak_mem_bytes=epeak,
+                          detections=sum(len(a) for img in by_image for a in img),
+                          mAP_synthetic_gt=eval_map(by_image, gts)["mAP"])
+            print(f"batch {b}, fused {fused}:", json.dumps(row[b]), f"[{card}]", flush=True)
+        a, b8 = scores[B64], scores[BATCH]
+        off = np.nonzero(((a == 0) != (b8 == 0)) | ~np.isclose(a, b8, rtol=B64_RTOL, atol=0))[0]
+        flips = [decision_flip(model, fcfg, t8, t64, int(i), device) for i in off]
+        if len(flips) > B64_MAX_FLIPS:
+            fail(f"fused {fused}: {len(flips)} images off batch 8's scores by more than "
+                 f"rtol {B64_RTOL}: {flips}")
+        out["fused" if fused else "unfused"] = dict(
+            batch_8=row[BATCH], batch_64=row[B64], nonzero=int((a > 0).sum()),
+            max_rel_diff_b64_vs_b8=float(np.max(np.abs(a - b8) / np.maximum(b8, 1e-30))),
+            mAP_diff_b64_vs_b8=row[B64]["mAP_synthetic_gt"] - row[BATCH]["mAP_synthetic_gt"],
+            images_off_by_a_decision_flip=flips)
+        del model
+        torch.cuda.empty_cache()
+    return dict(images=n, **out), launches
+
+
+# --- the NMS fixpoint's host syncs (ops/nms.py CHECK_INTERVAL) -----------------------
+
+def nms_sync_path(model, cfg, triple, device):
+    """One landscape Entropy_NMS score step, profiled, with the fixpoint
+    checked after every map application (the loop before CHECK_INTERVAL)
+    and every CHECK_INTERVAL applications: wall against device time, and
+    the host syncs the loop made; the two steps' scores must be equal."""
+    from aod_meh_hua_torch.engine.score import make_score_step
+    from aod_meh_hua_torch.ops import nms
+
+    orientation, batch, _ = triple
+    step = make_score_step(model, cfg.for_orientation(orientation), device=device)
+    up = upload(batch, device)
+    real_check, interval = nms._converged, nms.CHECK_INTERVAL
+    out, scores = {}, {}
+    for name, k in (("every_application", 1), ("interval", interval),
+                    ("interval_again", interval), ("every_application_again", 1)):
+        checks = []
+
+        def counted(prev, keep):
+            checks.append(1)
+            return real_check(prev, keep)
+
+        nms.CHECK_INTERVAL = k
+        with mock.patch.object(nms, "_converged", counted):
+            step(up)[0].cpu()
+            checks.clear()
+            scores[name] = step(up)[0].cpu().numpy()
+            syncs = len(checks)
+            prof = profile_device(lambda: step(up)[0].cpu())
+        nms.CHECK_INTERVAL = interval
+        out[name] = dict(check_interval=k, host_syncs_in_the_fixpoint=syncs,
+                         wall_ms=prof.get("wall_ms"), device_busy_ms=prof.get("device_busy_ms"),
+                         device_busy_share=prof.get("device_busy_share"))
+    if not all(np.array_equal(v, scores["interval"]) for v in scores.values()):
+        fail(f"NMS: the scores depend on the check interval: {scores}")
+    return out
+
+
+# --- SSD300: training, scoring, eval at full width -------------------------------
+
+SSD_POOL, SSD_BATCH = 128, 64
+SSD_FG_LOGIT_STD = 3.0
+
+
+def sharpen_ssd_fg(model, images) -> None:
+    """Scale the foreground rows of every level's cls conv (channel
+    a * (C + 1) + c, c < C) so that the foreground logits on `images`
+    have a std of SSD_FG_LOGIT_STD; the background column stays as it
+    is. Random weights give a near-uniform softmax over the 21 columns
+    (0.048), under the 0.3 gates; scaling every column alike would leave
+    the background's share as it is."""
+    import torch
+
+    c1 = model.cfg.num_classes + 1
+    with torch.no_grad():
+        cls = model(images)[0]
+        scale = SSD_FG_LOGIT_STD / cls[..., :-1].std().item()
+        for seq in model.bbox_head.cls_convs:
+            conv = seq[0]
+            fg = (torch.arange(conv.out_channels, device=conv.weight.device) % c1) < c1 - 1
+            conv.weight[fg] *= scale
+            conv.bias[fg] *= scale
+
+
+def synthetic_ssd_pool(n, b, seed=0):
+    """(orientation, EvalBatch, indices) triples of n seeded uint8 300x300
+    canvases (30-pixel cells of random colour plus noise; the exact warp
+    fills the canvas) with the scale factors of 500x375 and 375x500
+    originals, in batches of b, the last one padded."""
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+
+    rng = np.random.RandomState(seed)
+    coarse = rng.randint(0, 256, (n, 10, 10, 3)).astype(np.uint8)
+    imgs = coarse.repeat(30, axis=1).repeat(30, axis=2)
+    imgs = np.clip(imgs.astype(np.int16) + rng.randint(-20, 21, imgs.shape), 0, 255)
+    imgs = imgs.astype(np.uint8)
+    shapes = np.full((n, 2), 300, np.int32)
+    sfs = np.array([[0.6, 0.8, 0.6, 0.8] if i % 2 else [0.8, 0.6, 0.8, 0.6] for i in range(n)],
+                   np.float32)
+    triples = []
+    for i in range(0, n, b):
+        k = min(b, n - i)
+        rows = np.r_[np.arange(i, i + k), np.full(b - k, i + k - 1)]
+        triples.append(("landscape", EvalBatch(imgs[rows], shapes[rows], sfs[rows],
+                                               np.arange(b) < k), np.arange(i, i + k)))
+    return triples
+
+
+def ssd_train_batch(cfg, b, seed):
+    """A Batch of b seeded normalised float 300x300 images (as the augment
+    chain's output reaches the step) with 1..5 boxes each."""
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
+
+    rng = np.random.RandomState(seed)
+    s = cfg.input_size
+    coarse = rng.uniform(-120, 130, (b, 10, 10, 3)).astype(np.float32)
+    imgs = coarse.repeat(s // 10, axis=1).repeat(s // 10, axis=2)
+    g = cfg.max_gt
+    boxes = np.zeros((b, g, 4), np.float32)
+    labels = np.zeros((b, g), np.int64)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(rng.randint(1, 6)):
+            bw, bh = rng.uniform(0.1, 0.6, 2) * s
+            x1, y1 = rng.uniform(0, s - bw), rng.uniform(0, s - bh)
+            boxes[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            labels[i, j] = rng.randint(0, cfg.num_classes)
+            valid[i, j] = True
+    shapes = np.full((b, 2), s, np.int32)
+    av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
+    return Batch(imgs, boxes, labels, valid, av, shapes)
+
+
+def ssd_tcfg():
+    """The SSD CLI's TrainConfig (tools/train_ssd.py)."""
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    return TrainConfig(batch_size=8, outer_epoch=2, epoch_ratio=(5, 1), lr_step_epoch=1,
+                       warmup_iters=500, warmup_ratio=1e-3)
+
+
+def warmup_lr(tcfg, k):
+    """The driver's linear warmup at iteration k (al/loop.py)."""
+    if k >= tcfg.warmup_iters:
+        return tcfg.lr
+    return tcfg.lr * (1 - (1 - k / tcfg.warmup_iters) * (1 - tcfg.warmup_ratio))
+
+
+def ssd_train_path(device):
+    """SSDConfig() (VGG16, 8732 anchors) with the SSD CLI's TrainConfig:
+    2 warm-up and 10 timed steps at batch 8 on one seeded batch, the lr
+    following the CLI's warmup; losses finite and falling, and some
+    parameter of the backbone, the neck and each head branch moved (SSD
+    freezes nothing; a level without a positive anchor or with its ReLUs
+    all off gets no gradient, and the warmup's small steps may round
+    away)."""
+    import torch
+    from aod_meh_hua_torch.engine.train import (create_train_state, make_train_step,
+                                                set_learning_rate)
+    from aod_meh_hua_torch.models.ssd_detector import build_ssd
+    from aod_meh_hua_torch.utils.config import SSDConfig
+
+    cfg, tcfg = SSDConfig(), ssd_tcfg()
+    model = build_ssd(cfg, device=device, seed=0)
+    opt = create_train_state(model, tcfg, frozen_stages=0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = ssd_train_batch(cfg, tcfg.batch_size, seed=5)
+    batch = type(batch)(*(torch.from_numpy(a).to(device) for a in batch))
+    step = make_train_step(model, cfg, opt, device=device)
+
+    def run(k):
+        set_learning_rate(opt, warmup_lr(tcfg, k))
+        return step(batch)
+
+    auxes = [run(k) for k in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    auxes += [run(TRAIN_WARMUP + k) for k in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(device)
+    traj = {k: [float(a[k]) for a in auxes] for k in LOSS_KEYS}
+    for k, v in traj.items():
+        if not np.isfinite(v).all():
+            fail(f"SSD training: {k} is not finite: {v}")
+    if not traj["loss"][-1] < traj["loss"][0]:
+        fail(f"SSD training: the loss did not fall: {traj['loss']}")
+    unmoved = [n for n, p in model.named_parameters() if torch.equal(p.detach(), before[n])]
+    groups = ("backbone.", "neck.", "bbox_head.cls_convs", "bbox_head.reg_convs",
+              "bbox_head.L_convs")
+    still = [g for g in groups if all(n in unmoved for n in before if n.startswith(g))]
+    if still:
+        fail(f"SSD training: no parameter of {still} moved")
+    prof = profile_device(lambda: float(run(TRAIN_WARMUP + TRAIN_STEPS)["loss"]))
+    return dict(batch=tcfg.batch_size, input=cfg.input_size, warmup=TRAIN_WARMUP,
+                steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+                peak_mem_bytes=peak, loss_trajectory=traj,
+                num_pos=[float(a["num_pos"]) for a in auxes], unmoved_params=unmoved,
+                profile_of_one_step=prof)
+
+
+def ssd_card_vs_cpu(device):
+    """Two steps of SSDConfig(width_mult=0.125, max_gt=8) from the same
+    weights and batch on the card and on the CPU, held together as
+    train_card_vs_cpu holds the RetinaNet's. The conv biases start small
+    but not zero (as tests/torch_parity.py jax_ssd draws them): from
+    zero, a bias's max after two steps is its update alone, and the
+    parameter check would read the first conv's bias gradient, a sum
+    over 360,000 pixels of +-128, at 1e-4 instead of the update
+    check's 1e-3."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
+    from aod_meh_hua_torch.models.ssd_detector import build_ssd
+    from aod_meh_hua_torch.utils.config import SSDConfig
+
+    cfg, tcfg = SSDConfig(width_mult=0.125, max_gt=8), ssd_tcfg()
+    batch = ssd_train_batch(cfg, 4, seed=7)
+    gen = torch.Generator().manual_seed(2)
+    biases = {n: torch.randn(p.shape, generator=gen) * 0.02
+              for n, p in build_ssd(cfg, device="cpu").named_parameters() if n.endswith("bias")}
+
+    def two_steps(dev):
+        model = build_ssd(cfg, device=dev, seed=1)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in biases:
+                    p.copy_(biases[n])
+        initial = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        step = make_train_step(model, cfg, create_train_state(model, tcfg, frozen_stages=0),
+                               device=dev)
+        losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(2)]
+        return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
+
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = two_steps("cpu"), two_steps(device)
+    loss_err = max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(cpu_l, gpu_l) for k in LOSS_KEYS)
+    if not loss_err <= TRAIN_RTOL:
+        fail(f"SSD training card vs CPU: losses {gpu_l} vs {cpu_l}")
+    param_err = update_err = 0.0
+    for name, (c0, c) in cpu_p.items():
+        g0, g = gpu_p[name]
+        scale = max(c.abs().max().item(), 1e-30)
+        err = (g - c).abs().max().item() / scale
+        param_err = max(param_err, err)
+        if err > TRAIN_RTOL:
+            fail(f"SSD training card vs CPU: {name} differs by {err} of its max")
+        dc, dg = c - c0, g - g0
+        tol = UPDATE_RTOL * dc.abs().max().item() + 2 * float(np.finfo(np.float32).eps) * scale
+        uerr = (dg - dc).abs().max().item() / tol
+        update_err = max(update_err, uerr)
+        if uerr > 1.0:
+            fail(f"SSD training card vs CPU: the update of {name} is {uerr} of its tolerance off")
+    return dict(steps=2, max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
+                max_update_err_over_tol=update_err, losses_card=gpu_l, losses_cpu=cpu_l)
+
+
+def ssd_score_path(device):
+    """SSDConfig() with its cls head's foreground sharpened: Entropy_NMS
+    through score_pool at batch 64 over SSD_POOL canvases (most must score
+    above 0), Entropy_ALL and Entropy_NoNMS on one batch each, and the
+    eval step over the pool with its VOC mAP."""
+    import dataclasses
+
+    import torch
+    from aod_meh_hua_torch.al.uncertainty import score_pool
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class, make_eval_step
+    from aod_meh_hua_torch.models.ssd_detector import build_ssd
+    from aod_meh_hua_torch.utils.config import SSDConfig
+    from aod_meh_hua_torch.utils.voc_eval import eval_map
+
+    cfg = SSDConfig()
+    model = build_ssd(cfg, device=device, seed=0)
+    triples = synthetic_ssd_pool(SSD_POOL, SSD_BATCH)
+    first = triples[0][1]
+    sharpen_ssd_fg(model, prepare_images(torch.from_numpy(first.images[:8]).to(device),
+                                         torch.from_numpy(first.img_shapes[:8]), cfg))
+    out = {}
+    reset_launches()
+    score_pool(model, cfg, triples[:1], SSD_POOL, device=device)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    unc, mconf = score_pool(model, cfg, triples, SSD_POOL, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if not (np.isfinite(unc).all() and np.isfinite(mconf).all()):
+        fail("SSD Entropy_NMS: scores not finite")
+    nonzero = int((unc > 0).sum())
+    if nonzero < SSD_POOL // 2:
+        fail(f"SSD Entropy_NMS: only {nonzero} of {SSD_POOL} images scored above 0")
+    out["Entropy_NMS"] = dict(batch=SSD_BATCH, images=SSD_POOL, img_per_s=SSD_POOL / wall,
+                              peak_mem_bytes=torch.cuda.max_memory_allocated(device),
+                              nonzero=nonzero, unc_min=float(unc.min()),
+                              unc_max=float(unc.max()))
+    for pool in ("Entropy_ALL", "Entropy_NoNMS"):
+        pcfg = dataclasses.replace(cfg, hua=dataclasses.replace(cfg.hua, pool=pool,
+                                                                agg=SCALE_AGG))
+        score_pool(model, pcfg, triples[:1], SSD_POOL, device=device)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        u, _ = score_pool(model, pcfg, triples[:1], SSD_POOL, device=device)
+        torch.cuda.synchronize()
+        pwall = time.time() - t0
+        u = u[triples[0][2]]
+        if not np.isfinite(u).all() or not (u > 0).any():
+            fail(f"SSD {pool}: scores not finite or all 0")
+        out[pool] = dict(batch=SSD_BATCH, img_per_s=len(u) / pwall,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(device),
+                         nonzero=int((u > 0).sum()))
+
+    step = make_eval_step(model, cfg, device=device)
+    step(upload(triples[0][1], device))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    results = []
+    for _, b, _ in triples:
+        results += detections_to_per_class(step(upload(b, device)), cfg.num_classes,
+                                           batch_valid=b.valid)
+    ewall = time.time() - t0
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"SSD scoring and eval: a hand-written kernel launched: {launches}")
+    n_dets = sum(len(a) for img in results for a in img)
+    if n_dets == 0 or not all(np.isfinite(a).all() for img in results for a in img):
+        fail(f"SSD eval: {n_dets} detections, or not finite")
+    gts = []
+    rng = np.random.RandomState(3)
+    for _ in results:
+        k = rng.randint(1, 6)
+        xy = rng.uniform(0, 300, (k, 2))
+        gts.append({"bboxes": np.concatenate([xy, xy + rng.uniform(20, 150, (k, 2))], 1)
+                    .astype(np.float32), "labels": rng.randint(0, cfg.num_classes, k)})
+    m = eval_map(results, gts)["mAP"]
+    kept = [[a[(a[:, 2] > a[:, 0]) & (a[:, 3] > a[:, 1])] for a in img] for img in results]
+    as_gt = [{"bboxes": np.concatenate([a[:, :4] for a in img]),
+              "labels": np.concatenate([np.full(len(a), c) for c, a in enumerate(img)])}
+             for img in kept]
+    m_self = eval_map(kept, as_gt)["mAP"]
+    if not (0.0 <= m <= 1.0) or m_self != 1.0:
+        fail(f"SSD eval: mAP {m}, with the detections as ground truth {m_self}")
+    out["eval"] = dict(batch=SSD_BATCH, img_per_s=SSD_POOL / ewall, detections=n_dets,
+                       mAP_synthetic_gt=m, mAP_detections_as_gt=m_self)
+    return out, launches
 
 
 def main() -> int:
@@ -1118,11 +1829,18 @@ def main() -> int:
     path, prof, model, triples, unc = main_path(device, cfg, per_forward=5)
     print("main path:", json.dumps(path), f"[{card}]", flush=True)
     print("profile of one score step:", json.dumps(prof), f"[{card}]", flush=True)
+    reset_launches()
+    nms_sync = nms_sync_path(model, cfg, triples[0], device)
+    nms_launches = read_launches()["fused_bottleneck"]
+    print("NMS fixpoint syncs:", json.dumps(nms_sync), f"[{card}]", flush=True)
     pools, pool_launches = pools_path(device, model, cfg, triples, unc, per_forward=5)
     print("pools path:", json.dumps(pools), f"[{card}]", flush=True)
     ev, eval_launches = eval_path(device, model, cfg, triples, per_forward=5)
     print("eval path:", json.dumps(ev), f"[{card}]", flush=True)
     del model
+    torch.cuda.empty_cache()
+    b64, b64_launches = batch64_path(device, card)
+    print("batch 64:", json.dumps(b64), f"[{card}]", flush=True)
     torch.cuda.empty_cache()
     train = train_path(device)
     print("training path:", json.dumps(train), f"[{card}]", flush=True)
@@ -1133,12 +1851,31 @@ def main() -> int:
     c11 = conv1x1_matmul_check(device, RetinaNetConfig())
     print("conv1x1_matmul:", json.dumps(c11), f"[{card}]", flush=True)
     torch.cuda.empty_cache()
+    reset_launches()
+    ssd_train = ssd_train_path(device)
+    ssd_train_launches = read_launches()
+    if any(ssd_train_launches.values()):
+        fail(f"SSD training: a hand-written kernel launched: {ssd_train_launches}")
+    print("SSD training path:", json.dumps(ssd_train), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print("SSD training card vs CPU:", json.dumps(ssd_card_vs_cpu(device)), f"[{card}]",
+          flush=True)
+    ssd_score, ssd_score_launches = ssd_score_path(device)
+    print("SSD scoring and eval path:", json.dumps(ssd_score), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
     dec = decoder_check()
     print("decoder (host):", json.dumps(dec), f"[{card}]", flush=True)
+    print("SSD augment chain (host):", json.dumps(augment_check()), f"[{card}]", flush=True)
+    # the CLI phases last: each pins deterministic cuDNN process-wide
     t0 = time.time()
     al = al_path(device, train["img_per_s"])
     print("AL path:", json.dumps(al), f"[{card}]", flush=True)
     print(f"AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ssd_al = ssd_al_path(device, ssd_train["img_per_s"])
+    print("SSD AL path:", json.dumps(ssd_al), f"[{card}]", flush=True)
+    print(f"SSD AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
 
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
@@ -1155,7 +1892,12 @@ def main() -> int:
         # the scoring, extra-pool and eval runs, each counted from 0
         "launches": path["launches"] + pool_launches + eval_launches,
         "launches_by_path": {"score_pool": path["launches"], "other_pools": pool_launches,
-                             "eval": eval_launches, "al_cli": al["launches"]["fused_bottleneck"]},
+                             "eval": eval_launches, "nms_sync_check": nms_launches,
+                             "batch64_pool_and_eval": b64_launches,
+                             "al_cli": al["launches"]["fused_bottleneck"],
+                             "ssd_train": ssd_train_launches["fused_bottleneck"],
+                             "ssd_score": ssd_score_launches["fused_bottleneck"],
+                             "ssd_al_cli": ssd_al["launches"]["fused_bottleneck"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),
@@ -1171,7 +1913,10 @@ def main() -> int:
         "replaces": "tools/analysis/pallas_probe.py:232",
         "launches": probe_launches["transposed_matmul"],
         "launches_by_path": {"probe": probe_launches["transposed_matmul"],
-                             "al_cli": al["launches"]["transposed_matmul"]},
+                             "al_cli": al["launches"]["transposed_matmul"],
+                             "ssd_train": ssd_train_launches["transposed_matmul"],
+                             "ssd_score": ssd_score_launches["transposed_matmul"],
+                             "ssd_al_cli": ssd_al["launches"]["transposed_matmul"]},
         "max_abs_err": mm["max_abs_err"], "ms": mm["ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
     })

@@ -77,7 +77,7 @@ from aod_meh_hua_torch.utils.config import TrainConfig as TTrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 
 from test_data import make_voc
-from torch_parity import jax_retinanet
+from torch_parity import jax_retinanet, numerics_flags_kept
 
 CLS_SHARPEN = 150.0
 
@@ -157,7 +157,8 @@ def runs(mini_voc, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tloop.ALDriver, "_init_model", port_init)
         _record_schedule(mp, tloop, tevents)
-        tdriver = tcli.main(["--mini", "--cpu", "--voc07", mini_voc, "--work-dir", twork])
+        with numerics_flags_kept():
+            tdriver = tcli.main(["--mini", "--cpu", "--voc07", mini_voc, "--work-dir", twork])
     return SimpleNamespace(jwork=jwork, jmetrics=jmetrics, jdriver=jdriver, jevents=jevents,
                            twork=twork, tdriver=tdriver, tevents=tevents)
 
@@ -321,8 +322,9 @@ def test_al_resume_cycle(runs, tmp_path):
     work2 = str(tmp_path / "work2")
     shutil.copytree(work, work2)
     x_l1 = _npy(work2, "X_L_1")
-    d2 = tcli.main(["--mini", "--cpu", "--voc07", runs.tdriver.paths.voc07, "--work-dir", work2,
-                    "--resume-cycle", "1", "--no-validate"])
+    with numerics_flags_kept():
+        d2 = tcli.main(["--mini", "--cpu", "--voc07", runs.tdriver.paths.voc07, "--work-dir",
+                        work2, "--resume-cycle", "1", "--no-validate"])
     assert {t["cycle"] for t in d2.timings} == {1}
     np.testing.assert_array_equal(_npy(work2, "X_L_1"), x_l1)
     assert len(x_l1) > 4

@@ -29,9 +29,12 @@ from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.detector import MEHRetinaNet, build_retinanet
 from aod_meh_hua_torch.ops import fused_block
-from aod_meh_hua_torch.tools import train_retinanet
-from aod_meh_hua_torch.utils.config import ALConfig, TrainConfig
+from aod_meh_hua_torch.models.ssd_detector import build_ssd
+from aod_meh_hua_torch.tools import train_retinanet, train_ssd
+from aod_meh_hua_torch.utils.config import ALConfig, SSDConfig, TrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
+
+from torch_parity import numerics_flags_kept
 
 TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32)
 
@@ -117,8 +120,16 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ALDriver(cfg, TrainConfig(), ALConfig(), ALPaths(voc07="VOC2007", voc12=None,
                                                          work_dir="unused"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
+    with pytest.raises(RuntimeError, match="no CUDA device"), numerics_flags_kept():
         train_retinanet.main(["--mini", "--voc07", "VOC2007", "--work-dir", "unused"])
+    scfg = SSDConfig(width_mult=0.125)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_ssd(scfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ALDriver(scfg, TrainConfig(), ALConfig(), ALPaths(voc07="VOC2007", voc12=None,
+                                                          work_dir="unused"))
+    with pytest.raises(RuntimeError, match="no CUDA device"), numerics_flags_kept():
+        train_ssd.main(["--mini", "--voc07", "VOC2007", "--work-dir", "unused"])
 
 
 def test_backward_through_a_fused_block_raises():

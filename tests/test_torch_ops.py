@@ -48,7 +48,7 @@ def _boxes(rng, n, size=100.0):
 # --- config and anchors ------------------------------------------------
 
 @pytest.mark.parametrize("name", ["AnchorConfig", "TestCfg", "HUACfg", "RetinaNetConfig",
-                                  "TrainConfig", "ALConfig"])
+                                  "TrainConfig", "ALConfig", "SSDAnchorCfg", "SSDConfig"])
 def test_config_fields_equal(name):
     j, t = getattr(jcfg, name), getattr(tcfg, name)
     jf = [(f.name, f.default if f.default is not dataclasses.MISSING else f.default_factory())
@@ -163,6 +163,50 @@ def test_multiclass_nms_single_image_and_empty():
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     empty = tnms.multiclass_nms(_t(boxes[0]), _t(scores[0] * 0.0), 0.05, 0.5, 30)
     assert not empty.valid.any() and float(empty.scores.abs().sum()) == 0.0
+
+
+def _chain_inputs(n=40):
+    """One class, n boxes in a row, each overlapping the next by IoU > 0.5
+    and the one after by less, scores falling along the row: greedy NMS
+    keeps every other box, and the suppression chain is n deep."""
+    x = np.arange(n, dtype=np.float32) * 3.0
+    boxes = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], -1).astype(np.float32)
+    scores = np.linspace(0.9, 0.1, n, dtype=np.float32)[:, None]
+    return boxes[None], scores[None]
+
+
+def _nms_counting_syncs(monkeypatch, interval, boxes, scores, pre_nms_cands, max_out):
+    """batched_multiclass_nms with CHECK_INTERVAL = interval; returns the
+    result and the number of convergence checks (host syncs) it made."""
+    checks = []
+    real = tnms._converged
+    monkeypatch.setattr(tnms, "CHECK_INTERVAL", interval)
+    monkeypatch.setattr(tnms, "_converged", lambda a, b: checks.append(1) or real(a, b))
+    out = tnms.batched_multiclass_nms(_t(boxes), _t(scores), 0.05, 0.5, max_out, pre_nms_cands)
+    return out, len(checks)
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "seed5", "chain"])
+@pytest.mark.parametrize("pre_nms_cands,max_out", [(1000, 100), (64, 20)])
+def test_nms_fixpoint_checked_every_interval(monkeypatch, case, pre_nms_cands, max_out):
+    """Checking convergence every CHECK_INTERVAL map applications keeps the
+    masks bit-equal to checking after each one (the loop before), with at
+    most ceil(depth / interval) + 1 host syncs where that loop made
+    depth + 1; the chain case is deeper than one interval."""
+    boxes, scores = _chain_inputs() if case == "chain" else _nms_inputs(int(case[4:]))
+    every, syncs_every = _nms_counting_syncs(monkeypatch, 1, boxes, scores, pre_nms_cands,
+                                             max_out)
+    interval = 8
+    got, syncs = _nms_counting_syncs(monkeypatch, interval, boxes, scores, pre_nms_cands,
+                                     max_out)
+    for a, b in zip(got, every):
+        assert torch.equal(a, b)
+    depth = syncs_every - 1
+    assert syncs <= -(-depth // interval) + 1
+    if case == "chain":
+        kept = min(20, (min(pre_nms_cands, 40) + 1) // 2, max_out)
+        assert depth > interval and int(got.valid.sum()) == kept
+        assert got.anchor_idx[0, :kept].tolist() == list(range(0, 2 * kept, 2))
 
 
 # --- Dirichlet MI ------------------------------------------------------
@@ -286,7 +330,7 @@ def test_port_imports_no_jax():
     what the machine with the card lacks (OpenCV, PIL, torchvision,
     msgpack)."""
     files = sorted((REPO / "aod_meh_hua_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 45
+    assert len(files) > 53
     refused = ("jax", "jaxlib", "flax", "aod_meh_hua_tpu", "cv2", "PIL", "torchvision",
                "msgpack",
                # the root `tools` too: the port copies from tools/analysis, it does not import it

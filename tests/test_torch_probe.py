@@ -111,6 +111,7 @@ def _not_measured(values):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_census_on_the_cpu(dtype):
+    tf32_before = torch.backends.cudnn.allow_tf32
     rows = probe.census(batch=1, iters=1, dtype=dtype, device="cpu", canvas=probe.CPU_CANVAS)
     assert [r["op"] for r in rows[:-1]] == [s[0] for s in probe.resnet50_conv_shapes(64, 128)]
     _not_measured([r["ms"] for r in rows] + [r["pct_peak"] for r in rows])
@@ -123,7 +124,7 @@ def test_census_on_the_cpu(dtype):
     nbytes = dtype.itemsize * (256 * 8 * 16 + 512 * 256 + 512 * 8 * 16)
     assert down["bound_ms"] == pytest.approx(
         max(nbytes / probe.HBM_BYTES_PER_S * 1e3, down["ideal_ms"]))
-    assert torch.backends.cudnn.allow_tf32  # restored
+    assert torch.backends.cudnn.allow_tf32 == tf32_before  # restored
 
 
 def test_matmul_probe_on_the_cpu():

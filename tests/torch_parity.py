@@ -1,22 +1,28 @@
 """Inputs shared by the port's parity tests (tests/test_torch_*.py):
-seeded variables of a tiny JAX MEH-RetinaNet, and seeded synthetic
-training batches, as numpy arrays.
+seeded variables of a tiny JAX MEH-RetinaNet and of a thin JAX MEH-SSD,
+and seeded synthetic training batches, as numpy arrays.
 
 TINY is tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32,
 num_classes=20): layer1.1 (Cin 128) and layer2.1 (Cin 256) pass the
 fused gate, and layer1, which training freezes, has two blocks.
 """
 
+import contextlib
 import functools
 
 import jax
 import numpy as np
+import torch
 
 from aod_meh_hua_tpu.models.detector import build_retinanet
+from aod_meh_hua_tpu.models.ssd_detector import build_ssd
 from aod_meh_hua_tpu.ops import anchor_valid_flags
-from aod_meh_hua_tpu.utils.config import tiny_test_config
+from aod_meh_hua_tpu.utils.config import SSDConfig, tiny_test_config
 
 TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32, num_classes=20)
+# the thin SSD of the tests (the JAX SSD CLI's --mini model): the real
+# 300 geometry, 8732 anchors, 21 columns, VGG16 at 1/8 of its width
+THIN_SSD = dict(width_mult=0.125, max_gt=8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,6 +62,38 @@ def jax_retinanet(seed=0, **overrides):
     return model, jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+@functools.lru_cache(maxsize=None)
+def _ssd_tree(overrides):
+    cfg = SSDConfig(**dict(overrides))
+    model = build_ssd(cfg)
+    s = cfg.input_size
+    return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                 jax.ShapeDtypeStruct((1, s, s, 3), np.float32))
+
+
+def jax_ssd(seed=0, **overrides):
+    """(Flax model, variables) of SSDConfig(**THIN_SSD, **overrides), a
+    seeded numpy draw in the tree model.init makes: backbone and neck
+    convs N(0, 1/fan_in) with small biases, head convs Xavier-uniform
+    with small biases, L2Norm scales around 20."""
+    model, shapes = _ssd_tree(tuple(sorted({**THIN_SSD, **overrides}.items())))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        keys = [getattr(k, "key", str(k)) for k in path]
+        shape, name = leaf.shape, keys[-1]
+        if name == "kernel":
+            if keys[1] == "head":
+                bound = (6.0 / (np.prod(shape[:-2]) * (shape[-2] + shape[-1]))) ** 0.5
+                return rng.uniform(-bound, bound, shape).astype(np.float32)
+            return (rng.randn(*shape) * float(np.prod(shape[:-1])) ** -0.5).astype(np.float32)
+        if name == "scale":
+            return rng.uniform(15.0, 25.0, shape).astype(np.float32)
+        return (rng.randn(*shape) * 0.02).astype(np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def train_batch(cfg, seed=0, b=2, max_boxes=3):
     """(images, gt_boxes, gt_labels, gt_valid, anchor_valid, img_shapes):
     normalised float32 canvases, 1..max_boxes boxes per image padded to
@@ -79,3 +117,27 @@ def train_batch(cfg, seed=0, b=2, max_boxes=3):
             gt_valid[i, j] = True
     av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
     return images, gt_boxes, gt_labels, gt_valid, av, shapes
+
+
+@contextlib.contextmanager
+def numerics_flags_kept():
+    """Restore torch's cuDNN and matmul flags on exit: the port's CLIs pin
+    them process-wide (utils/device.py pin_numerics), and the flags of
+    one test must not leak into the next in the same worker."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+             b.cudnn.benchmark)
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark) = saved
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for the block (the parity tests' setting), restored after."""
+    with numerics_flags_kept():
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
