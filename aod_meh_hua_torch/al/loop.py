@@ -18,9 +18,12 @@ MEH-SSD (the family branch of JAX al/loop.py:141-152,282-285: SSD warps
 to its square canvas with std 1, augments its training images with
 data/ssd_augment.py and freezes nothing). --load-cycle and --resume-from
 read the port's checkpoints, the JAX package's flax-msgpack ones and the
-reference's mmdet .pth (engine/checkpoint.py). The modes of the JAX
-driver that the port does not have yet raise NotImplementedError with
-their ROADMAP item.
+reference's mmdet .pth (engine/checkpoint.py). baseline="ensemble" is
+the deep-ensemble experiment (JAX al/loop.py:126-138, :387-436,
+:646-661): each cycle also trains ensemble_size - 1 more members and
+scores the pool with the ensemble MI (al/baselines.py) in place of HUA.
+The modes of the JAX driver that the port does not have yet raise
+NotImplementedError with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from ..utils.config import ALConfig, RetinaNetConfig, TrainConfig
 from ..utils.device import resolve_device
 from ..utils.env import collect_env, save_code
 from ..utils.voc_eval import eval_map
+from .baselines import score_pool_ensemble
 from .uncertainty import _upload, score_pool
 
 
@@ -96,20 +100,34 @@ class ALDriver:
         distributed: bool = False,
         fsdp: int = 1,
         baseline: Optional[str] = None,
+        ensemble_size: int = 3,
         device="cuda",
     ):
         """cache_dir: decoded-canvas cache root ("auto" = <work_dir>/
         canvas_cache, None = off): eval/score sweeps decode each JPEG once
         per experiment and read the prepared canvas back on every later
-        sweep."""
+        sweep.
+
+        baseline="ensemble": the reference's deep-ensemble experiment
+        (apis/CalEnsembleUnc.py:86-181) as a driver mode. Each cycle
+        trains ensemble_size - 1 more independently seeded members on the
+        same X_L with the same run schedule (the cycle's model is member
+        0) and scores the pool with their sigmoid MI. The members are
+        cycle-local and never snapshotted; they live on the driver's
+        device and are freed once the pool is scored."""
         if num_devices is not None and num_devices > 1:
             _not_ported("num_devices > 1 (data parallel)", "12")
         if distributed:
             _not_ported("distributed (multi-host)", "12")
         if fsdp > 1:
             _not_ported("fsdp > 1 (ZeRO-3)", "12")
-        if baseline is not None:
-            _not_ported(f"baseline={baseline!r}", "11")
+        if baseline not in (None, "ensemble"):
+            raise ValueError(f"unknown baseline {baseline!r}")
+        if baseline == "ensemble" and al_cfg.use_max_conf != "False":
+            raise ValueError("ensemble baseline emits no maxconf; "
+                             "use_max_conf must stay 'False'")
+        self.baseline = baseline
+        self.ensemble_size = int(ensemble_size)
         family = getattr(model_cfg, "family", "retinanet")
         if family not in ("retinanet", "ssd"):
             _not_ported(f"the {family} family", "15")
@@ -179,10 +197,11 @@ class ALDriver:
         build = build_ssd if self.cfg.family == "ssd" else build_retinanet
         return build(self.cfg, device=self.device, seed=seed)
 
-    def _fresh_model(self, cycle: int) -> None:
-        """A fresh model (seed tcfg.seed + cycle, driver :156-162) and a
-        fresh optimizer; the steps are rebuilt around them."""
-        self.model = self._init_model(self.tcfg.seed + cycle)
+    def _fresh_model(self, cycle: int, seed: Optional[int] = None) -> None:
+        """A fresh model (seed tcfg.seed + cycle, driver :156-162, unless
+        `seed` is given) and a fresh optimizer; the steps are rebuilt
+        around them."""
+        self.model = self._init_model(self.tcfg.seed + cycle if seed is None else seed)
         if self.pretrained_loader is not None:
             self.pretrained_loader(self.model)
         self.optimizer = create_train_state(
@@ -205,7 +224,8 @@ class ALDriver:
                 "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     def _train_run(self, x_l, run_seed: int, is_final_run: bool,
-                   cycle: int = 0, run_idx: int = 0, start_epoch: int = 0) -> None:
+                   cycle: int = 0, run_idx: int = 0, start_epoch: int = 0,
+                   snapshot: bool = True) -> None:
         loader = TrainLoader(
             self.pool, x_l, self.cfg, self.pipeline,
             batch_size=self.tcfg.batch_size, repeat=self.al.x_l_repeat,
@@ -260,13 +280,54 @@ class ALDriver:
             })
             self.timings.append({"cycle": cycle, "phase": "train_epoch", "seconds": dt,
                                  "images": n_iter * self.tcfg.batch_size})
-            ival = self.tcfg.ckpt_interval
+            ival = self.tcfg.ckpt_interval if snapshot else 0
             if ival and ((inner + 1) % ival == 0 or inner + 1 == n_inner):
                 checkpoint.save_train_state(
                     self.paths.save_dir, self._train_state(),
                     {"cycle": cycle, "run": run_idx, "epoch": inner,
                      "run_iter": run_iter, "name": self.name},
                 )
+
+    def _train_ensemble_members(self, x_l, cycle: int, runs) -> List[torch.nn.Module]:
+        """Train ensemble_size - 1 more members (the cycle's model is
+        member 0): a fresh init per member from its own seed stream
+        (seed + cycle + 10_000 m), the cycle's run schedule on the same
+        X_L with run seeds seed + cycle * 100 + ri + 10_000 m, no
+        snapshots. The cycle's model, optimizer and step count are put
+        back afterwards."""
+        primary = (self.model, self.optimizer, self.step, dict(self._train_steps))
+        members = []
+        try:
+            for m in range(1, self.ensemble_size):
+                t0 = time.time()
+                self._fresh_model(cycle, seed=self.tcfg.seed + cycle + 10_000 * m)
+                for ri in range(len(runs)):
+                    self.log(f"  ensemble member {m + 1}/{self.ensemble_size}: "
+                             f"train run {ri + 1}/{len(runs)}")
+                    self._train_run(x_l, self.tcfg.seed + cycle * 100 + ri + 10_000 * m,
+                                    ri == len(runs) - 1, cycle=cycle, run_idx=ri,
+                                    snapshot=False)
+                members.append(self.model)
+                self.timings.append({"cycle": cycle, "phase": "ensemble_member", "member": m,
+                                     "seconds": time.time() - t0, "images": 0})
+        finally:
+            self.model, self.optimizer, self.step, steps = primary
+            self._train_steps.clear()
+            self._train_steps.update(steps)
+            self._eval_steps.clear()
+        return members
+
+    def _score_pool_ensemble(self, x_l, cycle: int, runs):
+        """The deep-ensemble sweep (CalEnsembleUnc.py:137-180) over the
+        whole pool (one device: no rank slice). Returns (unc, zeros as
+        maxconf)."""
+        members = [self.model] + self._train_ensemble_members(x_l, cycle, runs)
+        loader = EvalLoader(self.pool, np.arange(len(self.pool)), self.pipeline,
+                            batch_size=self.al.score_batch_size,
+                            cache=self._canvas_cache("pool", self.pool))
+        unc = score_pool_ensemble(members, self.cfg, loader, len(self.pool),
+                                  device=self.device)
+        return unc, np.zeros_like(unc)
 
     def _log_train_entry(self, entry: dict):
         """Append a jsonl train-log record (the TextLoggerHook analog)."""
@@ -410,12 +471,15 @@ class ALDriver:
             if cycle != self.al.cycles[-1]:
                 self.log("  scoring pool ...")
                 t0 = time.time()
-                loader = EvalLoader(
-                    self.pool, np.arange(len(self.pool)), self.pipeline,
-                    batch_size=self.al.score_batch_size,
-                    cache=self._canvas_cache("pool", self.pool))
-                unc, mconf = score_pool(self.model, self.cfg, loader, len(self.pool),
-                                        rng=self.rng, device=self.device)
+                if self.baseline == "ensemble":
+                    unc, mconf = self._score_pool_ensemble(x_l, cycle, runs)
+                else:
+                    loader = EvalLoader(
+                        self.pool, np.arange(len(self.pool)), self.pipeline,
+                        batch_size=self.al.score_batch_size,
+                        cache=self._canvas_cache("pool", self.pool))
+                    unc, mconf = score_pool(self.model, self.cfg, loader, len(self.pool),
+                                            rng=self.rng, device=self.device)
                 dt = time.time() - t0
                 self.timings.append({"cycle": cycle, "phase": "score",
                                      "seconds": dt, "images": len(self.pool)})

@@ -1,7 +1,8 @@
 """Pool scoring: run the score step over the whole pool.
 
-Port of aod_meh_hua_tpu/al/uncertainty.py:33-104, which mirrors the
-reference's apis/test.py:19-70 (Random = a permutation; Entropy_* = a
+Port of aod_meh_hua_tpu/al/uncertainty.py:26-104 (`score_num_objects`, a
+numpy copy of :26-31, and `score_pool`), which mirrors the reference's
+apis/test.py:19-70 (Random = a permutation; Entropy_* = a
 sweep of the pool) and :90-135 (single_gpu_uncertainty). Scores scatter
 back to dataset order, so the result indexes like the reference's
 uncertainty vector.
@@ -18,6 +19,14 @@ from ..engine.batch import EvalBatch
 from ..engine.score import make_score_step
 from ..utils.config import RetinaNetConfig
 from ..utils.device import resolve_device
+
+
+def score_num_objects(dataset, indices) -> np.ndarray:
+    """cal_numObj (reference apis/test.py:73-88): each image's GT object
+    count as its acquisition score (an oracle scorer). A copy of
+    aod_meh_hua_tpu/al/uncertainty.py:26-31."""
+    return np.array([len(dataset.get_ann_info(int(i))["labels"]) for i in indices],
+                    dtype=np.float64)
 
 
 def _upload(a, device: torch.device) -> torch.Tensor:

@@ -243,6 +243,13 @@ def make_train_step(model: torch.nn.Module, cfg,
     (make_optimizer's TrainConfig.grad_clip), the gradients are clipped
     by their global norm over every parameter that has one, the frozen
     ones included, before the optimizer sees them."""
+    return make_step_of_loss(model, cfg, optimizer, make_loss_fn, device)
+
+
+def make_step_of_loss(model: torch.nn.Module, cfg, optimizer: torch.optim.Optimizer,
+                      make_loss: Callable, device="cuda") -> Callable:
+    """make_train_step around the loss that make_loss(model, cfg) returns,
+    a (loss_fn, anchors_host) pair of make_retina_loss_fn's contract."""
     dev = resolve_device(device)
     if getattr(cfg, "fused_blocks", False):
         raise ValueError("the fused bottleneck kernel has no backward; train with "
@@ -251,7 +258,7 @@ def make_train_step(model: torch.nn.Module, cfg,
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, the step on {dev}")
     grad_clip = optimizer.defaults.get("grad_clip")
-    loss_fn, anchors_host = make_loss_fn(model, cfg)
+    loss_fn, anchors_host = make_loss(model, cfg)
     anchors = AnchorTable(anchors_host)
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:

@@ -6,7 +6,9 @@ branch consumes detached FPN features, :43).
 
 Public layouts are the JAX package's: images [B, H, W, 3] in, flattened
 f32 outputs [B, A, C], [B, A, 4] and [B, A] out. Inside, the model runs
-NCHW tensors in channels_last memory.
+NCHW tensors in channels_last memory. With cfg.mc_dropout > 0 (the
+MC-dropout baseline) every forward is stochastic and takes a
+torch.Generator on the model's device for its dropout masks.
 """
 
 from __future__ import annotations
@@ -43,13 +45,14 @@ class MEHRetinaNet(nn.Module):
                 "(ROADMAP Queue 1 item 16)")
         self.cfg = cfg
         self.backbone = ResNet(cfg.block_counts, cfg.stem_width, cfg.fused_blocks,
-                               cfg.fused_stages, cfg.conv1x1_matmul)
+                               cfg.fused_stages, cfg.conv1x1_matmul, cfg.mc_dropout)
         self.neck = FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=1,
                         num_outs=len(cfg.anchor.strides))
         self.head = RetinaMEHHead(cfg.num_classes, cfg.fpn_channels,
                                   num_anchors=cfg.anchor.num_anchors,
                                   feat_channels=cfg.feat_channels,
-                                  stacked_convs=cfg.stacked_convs)
+                                  stacked_convs=cfg.stacked_convs,
+                                  with_lambda=cfg.use_meh, mc_dropout=cfg.mc_dropout)
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -64,18 +67,20 @@ class MEHRetinaNet(nn.Module):
                     m.bias.zero_()
         self.head.init_weights(gen)
 
-    def forward(self, images: torch.Tensor, with_meh: bool = True
+    def forward(self, images: torch.Tensor, with_meh: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """images [B, H, W, 3] -> (cls_scores [B, A, C], bbox_preds [B, A, 4],
-        lambdas [B, A] or None), float32."""
+        lambdas [B, A] or None), float32. `generator` draws the dropout
+        masks when cfg.mc_dropout > 0 (the JAX apply's "dropout" rng)."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats = self.neck(self.backbone(x))
-        cls_maps, reg_maps = self.head(feats)
+        feats = self.neck(self.backbone(x, generator))
+        cls_maps, reg_maps = self.head(feats, generator)
         cls_scores = flatten_levels(cls_maps, self.cfg.num_classes).float()
         bbox_preds = flatten_levels(reg_maps, 4).float()
         lambdas = None
         if with_meh and self.cfg.use_meh:
-            lam_maps = self.head.forward_L(tuple(f.detach() for f in feats))
+            lam_maps = self.head.forward_L(tuple(f.detach() for f in feats), generator)
             lambdas = flatten_levels(lam_maps, 1)[..., 0].float()
         return cls_scores, bbox_preds, lambdas
 

@@ -12,7 +12,9 @@ the JAX package's gate, so the same blocks fuse in both packages. The
 kernel has no backward: a backward through a fused block raises, so a
 model is trained with fused_blocks off, as in the JAX package. With
 `conv1x1_matmul`, the 1x1 convs of the other blocks run as matrix
-products (`Conv1x1Matmul`).
+products (`Conv1x1Matmul`). With `mc_dropout` > 0, `channel_dropout`
+follows every ReLU (the stem's and the three of each block), drawing its
+masks from the generator the caller passes to the forward.
 """
 
 from __future__ import annotations
@@ -25,6 +27,27 @@ from torch import nn
 from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck_block
 
 _NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
+
+
+def channel_dropout(x: torch.Tensor, rate: float,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout2d on NCHW `x`: each (image, channel) map is zeroed with
+    probability `rate`, the survivors scaled by 1 / (1 - rate). Always
+    active when rate > 0: the MC-dropout baseline's stochastic passes
+    (aod_meh_hua_tpu/models/resnet.py:31-36, flax Dropout with the H and
+    W axes broadcast; the reference's Dropout2d after every ReLU,
+    functions.py:492-505). The masks come from `generator`, on x's
+    device, never from the global RNG; torch's and JAX's generators give
+    other masks from one seed, so the two packages agree in distribution
+    only."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("mc_dropout > 0 needs a torch.Generator in the forward")
+    keep_prob = 1.0 - rate
+    keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -77,10 +100,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, fused: bool = False,
-                 conv1x1_matmul: bool = False):
+                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0):
         super().__init__()
         self.stride = stride
         self.fused = fused
+        self.mc_dropout = mc_dropout
         self.conv1 = _conv(inplanes, planes, 1, as_matmul=conv1x1_matmul)
         self.bn1 = FrozenBatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride, 1)
@@ -113,11 +137,15 @@ class Bottleneck(nn.Module):
         return self._folded
 
     def fused_eligible(self, cin: int) -> bool:
-        """The JAX package's gate (models/resnet.py:145-156): stride 1 and
-        128-aligned input channels."""
-        return self.fused and self.stride == 1 and cin % 128 == 0
+        """The JAX package's gate (models/resnet.py:145-156): stride 1,
+        128-aligned input channels and no dropout. A block with dropout
+        takes the unfused path: that is the JAX model's rule (the kernel
+        has no dropout inside), not a fallback."""
+        return (self.fused and self.stride == 1 and cin % 128 == 0
+                and self.mc_dropout == 0.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # fused blocks take precedence over conv1x1_matmul, as in the JAX package
         if self.fused_eligible(x.shape[1]):
             nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
@@ -125,13 +153,14 @@ class Bottleneck(nn.Module):
             out = fused_bottleneck_block(nhwc.contiguous(), self.folded(x.dtype),
                                          tuple(self.parameters()))
             return out.permute(0, 3, 1, 2)
+        drop = lambda v: channel_dropout(v, self.mc_dropout, generator)  # noqa: E731
         identity = x
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
+        y = drop(torch.relu(self.bn1(self.conv1(x))))
+        y = drop(torch.relu(self.bn2(self.conv2(y))))
         y = self.bn3(self.conv3(y))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return torch.relu(y + identity)
+        return drop(torch.relu(y + identity))
 
 
 class ResNet(nn.Module):
@@ -140,8 +169,9 @@ class ResNet(nn.Module):
     def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), stem_width: int = 64,
                  fused_blocks: bool = False,
                  stage_fused: Sequence[bool] = (True, True, False, False),
-                 conv1x1_matmul: bool = False):
+                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0):
         super().__init__()
+        self.mc_dropout = mc_dropout
         self.conv1 = _conv(3, stem_width, 7, 2, 3)
         self.bn1 = FrozenBatchNorm2d(stem_width)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -154,17 +184,21 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0),
                                          fused=fused_blocks and stage_fused[stage],
-                                         conv1x1_matmul=conv1x1_matmul))
+                                         conv1x1_matmul=conv1x1_matmul,
+                                         mc_dropout=mc_dropout))
                 inplanes = planes * 4
             name = f"layer{stage + 1}"
             self.add_module(name, nn.Sequential(*blocks))
             self.stages.append(name)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        x = channel_dropout(torch.relu(self.bn1(self.conv1(x))), self.mc_dropout, generator)
+        x = self.maxpool(x)
         outs = []
         for name in self.stages:
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = block(x, generator)
             outs.append(x)
         return tuple(outs)
 
@@ -174,5 +208,3 @@ def check_backbone_options(cfg) -> None:
     for flag in ("stem_s2d", "backbone_int8", "remat"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag}: " + _NOT_PORTED.format(16))
-    if cfg.mc_dropout:
-        raise NotImplementedError("mc_dropout: " + _NOT_PORTED.format(11))

@@ -4,8 +4,9 @@ Mirrors tools/train_retinanet.py:24-190 of the JAX package flag for flag
 (itself the reference's tools/train_RetinaNet.py:49-74 CLI): --voc07/
 --voc12 data roots, --work-dir, the HUA pool and aggregation flags, the
 zeroRate/score_thr/iou_thr knobs, the batch sizes, --cycles, the cycle,
-load and mid-cycle resume flags, --no-validate, --canvas-cache-dir and
-the --mini smoke mode. It runs on the card; --cpu runs it on the CPU.
+load and mid-cycle resume flags, --no-validate, --canvas-cache-dir, the
+deep-ensemble baseline (--baseline ensemble, --ensemble-size) and the
+--mini smoke mode. It runs on the card; --cpu runs it on the CPU.
 main pins the numerics process-wide (utils/device.py pin_numerics): no
 TF32, deterministic cuDNN.
 The flags of modes the port does not have yet raise NotImplementedError
@@ -46,9 +47,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--cls-weight", action="store_true",
                    help="clsW: weight image scores by distinct-class count")
     p.add_argument("--baseline", default=None, choices=["ensemble"],
-                   help="the deep-ensemble baseline (not ported)")
-    p.add_argument("--ensemble-size", type=int, default=None,
-                   help="ensemble members (not ported; the JAX CLI's default is 3)")
+                   help="replace HUA scoring with a baseline: 'ensemble' trains N seeds "
+                        "per cycle and scores with the deep-ensemble sigmoid MI "
+                        "(CalEnsembleUnc.py:86-181)")
+    p.add_argument("--ensemble-size", type=int, default=3,
+                   help="members for --baseline ensemble (the reference uses 3)")
     p.add_argument("--no-validate", action="store_true")
     p.add_argument("--resume-cycle", type=int, default=-1)
     p.add_argument("--load-cycle", type=int, default=-1)
@@ -94,8 +97,6 @@ def refuse_unported(args) -> None:
     get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     refused = [
         (args.config, "--config (reference-style config files)", "13"),
-        (get("baseline"), "--baseline", "11"),
-        (get("ensemble_size") is not None, "--ensemble-size", "11"),
         (args.distributed, "--distributed", "12"),
         (args.coordinator is not None, "--coordinator", "12"),
         (args.num_processes is not None, "--num-processes", "12"),
@@ -179,6 +180,7 @@ def main(argv: Optional[Sequence[str]] = None):
     driver = ALDriver(model_cfg, train_cfg, al_cfg, paths, pipeline=pipeline,
                       validate=not args.no_validate,
                       cache_dir=None if args.canvas_cache_dir == "none" else args.canvas_cache_dir,
+                      baseline=args.baseline, ensemble_size=args.ensemble_size,
                       device="cpu" if args.cpu else "cuda")
     if args.pretrained:
         if not os.path.exists(args.pretrained):

@@ -74,7 +74,29 @@
    two cycles (cut in data size only), its numerics flags checked as the
    RetinaNet CLI's. No hand-written kernel lies on the SSD paths: their
    launches there must be 0.
-13. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+13. Baselines (al/baselines.py): three full-width fused members (seeds
+   0-2, cls heads sharpened) score the synthetic pool through
+   score_pool_ensemble at batch 8, 5 fused launches per member forward,
+   one batch held to the unfused members; score_pool_mc_dropout (rate
+   0.1, 25 passes, one batch of each orientation) launches no kernel (a
+   block with dropout does not fuse), is bit-reproducible from one CUDA
+   generator seed and gives 0 at rate 0; the tiny config's ensemble and
+   MC steps on the card against the CPU.
+14. Semi-supervised steps: make_pseudo_train_step at full width, batch
+   2, its cls head sharpened so that pseudo boxes exist: the cR1 check
+   per level, 2 + 5 timed steps; the tiny config's two pseudo steps on
+   the card against the CPU; one self-SSL forward and backward, timed.
+15. Inference API: init_detector(RetinaNetConfig(fused_blocks=True)) and
+   a Detector on the fixture JPEGs (the port's decoder): __call__ per
+   image, predict_batch(max_batch=8) held to the single calls, the six
+   columns of with_uncertainty, 5 fused launches per forward.
+16. Last, after the AL phases, on their fixture tree: the score_pool CLI
+   (`python -m aod_meh_hua_torch.tools.score_pool`'s main, in process)
+   with each method (hua, random, numobj, ensemble from three seeded
+   checkpoints, mcdropout with 25 passes), and the RetinaNet CLI with
+   --baseline ensemble --ensemble-size 3 for two cycles under the AL
+   phase's cuts; neither launches a kernel, and both pin the numerics.
+17. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -306,6 +328,11 @@ def kernel_wrappers():
     from aod_meh_hua_torch.ops.transposed_matmul import transposed_matmul
 
     return {"fused_bottleneck": fused_bottleneck, "transposed_matmul": transposed_matmul}
+
+
+def add_launches(*counts: dict) -> dict:
+    """Launch counts of several runs added up, kernel by kernel."""
+    return {name: sum(c[name] for c in counts) for name in kernel_wrappers()}
 
 
 def reset_launches() -> None:
@@ -768,28 +795,32 @@ def train_path(device):
                 profile_of_one_step=prof)
 
 
-def train_card_vs_cpu(device):
+def train_card_vs_cpu(device, make_step=None):
     """Two steps of tiny_test_config() from the same weights and batch on
-    the card and on the CPU: losses to TRAIN_RTOL, parameters to
-    TRAIN_RTOL of each tensor's max|p|, and the updates (new - old) to
-    UPDATE_RTOL of each tensor's max|update| plus two ulps of max|p|."""
+    the card and on the CPU: losses to TRAIN_RTOL (exactly where the
+    CPU's is 0), parameters to TRAIN_RTOL of each tensor's max|p|, and the
+    updates (new - old) to UPDATE_RTOL of each tensor's max|update| plus
+    two ulps of max|p|. make_step: make_train_step's signature
+    (make_train_step by default)."""
     import torch
     from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
     from aod_meh_hua_torch.models.detector import build_retinanet
     from aod_meh_hua_torch.utils.config import TrainConfig, tiny_test_config
 
+    make_step = make_step or make_train_step
     cfg, tcfg = tiny_test_config(), TrainConfig()
     _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
 
     def two_steps(dev):
         model = build_retinanet(cfg, device=dev, seed=1)
         initial = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-        step = make_train_step(model, cfg, create_train_state(model, tcfg), device=dev)
+        step = make_step(model, cfg, create_train_state(model, tcfg), device=dev)
         losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(2)]
         return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
 
     (cpu_l, cpu_p), (gpu_l, gpu_p) = two_steps("cpu"), two_steps(device)
-    loss_err = max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(cpu_l, gpu_l) for k in LOSS_KEYS)
+    loss_err = max(abs(g[k] - c[k]) / abs(c[k]) if c[k] else (0.0 if g[k] == 0 else np.inf)
+                   for c, g in zip(cpu_l, gpu_l) for k in LOSS_KEYS)
     if not loss_err <= TRAIN_RTOL:
         fail(f"training card vs CPU: losses {gpu_l} vs {cpu_l}")
     param_err = update_err = 0.0
@@ -1310,11 +1341,11 @@ B64_RTOL = 1e-4  # batch-64 scores against batch-8 scores of the same canvases
 B64_MAX_FLIPS = 2
 
 
-def decision_flip(model, cfg, t8, t64, image, device) -> dict:
-    """Why `image`'s batch-64 score is off its batch-8 score: its head
-    outputs at either batch size (within F32_TOL of their scale, or
-    fail) and the discrete decisions of the Entropy_NMS core on each
-    (or fail when none differs)."""
+def decision_flip(model, cfg, t8, t64, image, device, what="batch 64") -> dict:
+    """Why `image`'s batch-64 score is off its batch-8 score (or, per
+    `what`, another pair of batchings): its head outputs in either batch
+    (within F32_TOL of their scale, or fail) and the discrete decisions
+    of the Entropy_NMS core on each (or fail when none differs)."""
     import torch
     from aod_meh_hua_torch.engine.batch import prepare_images
     from aod_meh_hua_torch.engine.postprocess import make_candidate_selector
@@ -1351,8 +1382,8 @@ def decision_flip(model, cfg, t8, t64, image, device) -> dict:
     for name, x, y in zip(("cls", "reg", "lambda"), h8, h64):
         head_err[name] = (x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
         if head_err[name] > F32_TOL:
-            fail(f"batch 64: image {image}'s {name} head output is {head_err[name]} of its "
-                 f"scale off batch 8's")
+            fail(f"{what}: image {image}'s {name} head output is {head_err[name]} of its "
+                 f"scale off the other batching's")
     d8, d64 = decisions(ocfg, h8, s8, f8), decisions(ocfg, h64, s64, f64)
     flipped = []
     for k, x in d8.items():
@@ -1362,7 +1393,7 @@ def decision_flip(model, cfg, t8, t64, image, device) -> dict:
         if not same:
             flipped.append(k)
     if not flipped:
-        fail(f"batch 64: image {image}'s score is off batch 8's with no decision flipped")
+        fail(f"{what}: image {image}'s result is off with no decision flipped")
     return {"image": image, "flipped": flipped, "head_err_of_scale": head_err}
 
 
@@ -1797,6 +1828,538 @@ def ssd_score_path(device):
     return out, launches
 
 
+# --- baselines: the deep ensemble and MC dropout (al/baselines.py) --------------------
+
+ENSEMBLE_SEEDS = (0, 1, 2)
+ENS_RTOL = 1e-4  # fused members against unfused ones; the card against the CPU
+MC_RATE, MC_PASSES = 0.1, 25
+FUSED_PER_FORWARD = 5  # R50: layer1_1, layer1_2 (C2) and layer2_1..layer2_3 (C3) fuse
+
+
+def baselines_path(device):
+    """Three full-width RetinaNetConfig(fused_blocks=True) members, seeded
+    0, 1 and 2, their cls heads sharpened, score the synthetic pool through
+    score_pool_ensemble at batch 8 (FUSED_PER_FORWARD launches per member
+    forward); one batch through the same members unfused gives the same
+    scores to ENS_RTOL. Then score_pool_mc_dropout (MC_RATE, MC_PASSES) on
+    one batch of each orientation: no block fuses (a block with dropout
+    is not eligible, the JAX model's rule), the same CUDA generator seed
+    gives the same scores bit for bit (deterministic cuDNN), and rate 0
+    gives 0. Returns (result, ensemble launches, MC launches)."""
+    import dataclasses
+
+    import torch
+    from aod_meh_hua_torch.al.baselines import (make_ensemble_score_step,
+                                                make_mc_dropout_score_step,
+                                                score_pool_ensemble, score_pool_mc_dropout)
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    cfg = RetinaNetConfig(fused_blocks=True)
+    triples, n = synthetic_pool(cfg)
+    o0, b0, idx0 = triples[0]
+    images0 = prepare_images(torch.from_numpy(b0.images).to(device),
+                             torch.from_numpy(b0.img_shapes).to(device), cfg)
+    members = []
+    for seed in ENSEMBLE_SEEDS:
+        m = build_retinanet(cfg, device=device, seed=seed)
+        sharpen_cls_head(m, images0)
+        members.append(m)
+    score_pool_ensemble(members, cfg, triples[:1], n, device=device)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.time()
+    unc = score_pool_ensemble(members, cfg, triples, n, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ens_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    forwards = len(triples) * len(members)
+    if ens_launches != {"fused_bottleneck": FUSED_PER_FORWARD * forwards, "transposed_matmul": 0}:
+        fail(f"ensemble: launches {ens_launches} for {forwards} member forwards")
+    if unc.shape != (n,) or not np.isfinite(unc).all() or not (unc > 0).all():
+        fail(f"ensemble: scores not finite and positive: {unc}")
+
+    plain_cfg = dataclasses.replace(cfg, fused_blocks=False)
+    plain = []
+    for m in members:
+        p = build_retinanet(plain_cfg, device=device)
+        p.load_state_dict(m.state_dict())
+        plain.append(p)
+    want = make_ensemble_score_step(plain, plain_cfg.for_orientation(o0), device=device)(
+        upload(b0, device)).cpu().numpy()[: len(idx0)]
+    del plain
+    got = unc[idx0]
+    ens_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not np.allclose(got, want, rtol=ENS_RTOL, atol=0):
+        fail(f"ensemble: fused scores {got} vs unfused {want}")
+
+    # rate 0: identical passes, MI 0
+    gen = torch.Generator(device=device).manual_seed(0)
+    zero = make_mc_dropout_score_step(members[0], cfg.for_orientation(o0), 4, device=device)(
+        upload(b0, device), gen).cpu().numpy()
+    if not np.abs(zero).max() <= 1e-5:
+        fail(f"MC dropout at rate 0 scored {zero}, not 0")
+
+    mc_cfg = dataclasses.replace(cfg, mc_dropout=MC_RATE)
+    mc = build_retinanet(mc_cfg, device=device)
+    mc.load_state_dict(members[0].state_dict())
+    del members
+    torch.cuda.empty_cache()
+    two = [next(t for t in triples if t[0] == o) for o in ("landscape", "portrait")]
+    idx = np.concatenate([i for *_, i in two])
+    runs, walls, mc_launches = [], [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            gen = torch.Generator(device=device).manual_seed(0)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            u = score_pool_mc_dropout(mc, mc_cfg, two, n, gen, MC_PASSES, device=device)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            mc_launches.append(read_launches())
+            runs.append(u[idx])
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    mc_launches = add_launches(*mc_launches)
+    if any(mc_launches.values()):
+        fail(f"MC dropout: launches {mc_launches}; no block with dropout fuses")
+    if not np.array_equal(runs[0], runs[1]):
+        fail(f"MC dropout: one generator seed gave {runs[0]} and {runs[1]}")
+    if not (np.isfinite(runs[0]).all() and (runs[0] > 0).all()):
+        fail(f"MC dropout: scores not finite and positive: {runs[0]}")
+    del mc
+    torch.cuda.empty_cache()
+    result = dict(
+        ensemble=dict(members=len(ENSEMBLE_SEEDS), images=n, batch=BATCH,
+                      member_forwards=forwards, launches=ens_launches, seconds=wall,
+                      img_per_s=n / wall, peak_mem_bytes=peak, unc_min=float(unc.min()),
+                      unc_max=float(unc.max()),
+                      max_rel_err_fused_vs_unfused_first_batch=ens_rel),
+        mc_dropout=dict(rate=MC_RATE, passes=MC_PASSES, images=len(idx), batches=len(two),
+                        forwards=len(two) * MC_PASSES, launches=mc_launches,
+                        seconds=walls, img_per_s=len(idx) / min(walls),
+                        unc_min=float(runs[0].min()), unc_max=float(runs[0].max()),
+                        bit_reproducible=True, rate_0_max_abs=float(np.abs(zero).max())))
+    return result, ens_launches, mc_launches
+
+
+def baselines_card_vs_cpu(device):
+    """tiny_test_config()'s ensemble step (three seeded members, heads
+    sharpened on the CPU) and MC step at rate 0, on the card and on the
+    CPU from the same weights and batch: the ensemble to ENS_RTOL, the MC
+    step (0 up to rounding) to 1e-6."""
+    import torch
+    from aod_meh_hua_torch.al.baselines import make_ensemble_score_step, make_mc_dropout_score_step
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    triples, _ = synthetic_pool(cfg, seed=5, pool={"landscape": 2}, batch=2)
+    batch = triples[0][1]
+    cpu_members = [build_retinanet(cfg, device="cpu", seed=s) for s in (1, 2, 3)]
+    images = prepare_images(torch.from_numpy(batch.images), torch.from_numpy(batch.img_shapes),
+                            cfg)
+    for m in cpu_members:
+        sharpen_cls_head(m, images)
+    out = {}
+    for dev in ("cpu", device):
+        members = cpu_members if dev == "cpu" else [
+            build_retinanet(cfg, device=dev).requires_grad_(False) for _ in cpu_members]
+        if dev != "cpu":
+            for m, src in zip(members, cpu_members):
+                m.load_state_dict(src.state_dict())
+        ens = make_ensemble_score_step(members, cfg, device=dev)(upload(batch, dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        mc0 = make_mc_dropout_score_step(members[0], cfg, 3, device=dev)(upload(batch, dev), gen)
+        out[str(dev)] = (ens.cpu().numpy(), mc0.cpu().numpy())
+    (e_cpu, m_cpu), (e_gpu, m_gpu) = out["cpu"], out[str(device)]
+    if not (e_cpu > 0).all() or not np.allclose(e_gpu, e_cpu, rtol=ENS_RTOL, atol=0):
+        fail(f"ensemble card vs CPU: {e_gpu} vs {e_cpu}")
+    if not np.allclose(m_gpu, m_cpu, rtol=0, atol=1e-6):
+        fail(f"MC step at rate 0, card vs CPU: {m_gpu} vs {m_cpu}")
+    return dict(ensemble_cpu=e_cpu.tolist(), ensemble_card=e_gpu.tolist(),
+                ensemble_max_rel_err=float(np.max(np.abs(e_gpu - e_cpu) / e_cpu)),
+                mc_rate_0_cpu=m_cpu.tolist(), mc_rate_0_card=m_gpu.tolist())
+
+
+# --- the semi-supervised steps (engine/ssl.py, engine/self_ssl.py) -------------------
+
+SSL_WARMUP, SSL_STEPS = 2, 5
+SSL_R1_RTOL = 1e-5  # the step's loss_cls against the levels' cR1-pinned values
+
+
+def ssl_path(device):
+    """make_pseudo_train_step on a full-width RetinaNetConfig() (unfused, as
+    training needs) at batch 2, its cls head sharpened so that anchors pass
+    the 0.5 softmax gate and propose pseudo boxes: the cR1 check first
+    (the loss's loss_cls is the sum over levels of loss_bbox's value where
+    both terms are > 0, of the cls value elsewhere, and loss_bbox the sum
+    of the levels'), then 2 + SSL_STEPS timed steps with finite losses,
+    each from the sharpened weights (restored before it: one SGD step
+    takes the head below the gate, and the steps are timed with pseudo
+    boxes in play; the restore, a device copy of the weights, is inside
+    the timing); then one make_self_ssl_loss_fn forward and backward,
+    timed. Returns (result, launches)."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import Batch, prepare_images
+    from aod_meh_hua_torch.engine.self_ssl import make_self_ssl_loss_fn
+    from aod_meh_hua_torch.engine.ssl import (make_pseudo_loss_fn, make_pseudo_train_step,
+                                             pseudo_level_loss)
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig, TrainConfig
+
+    cfg, tcfg = RetinaNetConfig(), TrainConfig()
+    model = build_retinanet(cfg, device=device, seed=0)
+    lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
+    batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
+    images = prepare_images(batch.images, batch.img_shapes, lcfg)
+    sharpen_cls_head(model, images)
+
+    loss_fn, anchors_host = make_pseudo_loss_fn(model, lcfg)
+    anchors = torch.from_numpy(anchors_host).to(device)
+    with torch.no_grad():
+        _, aux = loss_fn(batch, anchors)
+        cls, reg, _ = model(images)
+        num = aux["num_pos"]
+        levels = []
+        for s0, s1 in lcfg.level_bounds():
+            lc, lb, _ = pseudo_level_loss(lcfg, cls[:, s0:s1], reg[:, s0:s1], anchors[s0:s1],
+                                          batch.anchor_valid[:, s0:s1], 0.5, 0.5, 100)
+            levels.append((float(lc / num), float(lb / num)))
+    pinned = [c > 0 and b > 0 for c, b in levels]
+    want_cls = sum(b if p else c for (c, b), p in zip(levels, pinned))
+    want_bbox = sum(b for _, b in levels)
+    got_cls, got_bbox = float(aux["loss_cls"]), float(aux["loss_bbox"])
+    if not any(pinned):
+        fail(f"SSL: no level has both pseudo terms > 0: {levels}")
+    if not (abs(got_cls - want_cls) <= SSL_R1_RTOL * want_cls
+            and abs(got_bbox - want_bbox) <= SSL_R1_RTOL * want_bbox):
+        fail(f"SSL cR1: loss_cls {got_cls} / loss_bbox {got_bbox} against the levels' "
+             f"{want_cls} / {want_bbox} ({levels})")
+
+    step = make_pseudo_train_step(model, lcfg, create_train_state(model, tcfg), device=device)
+    sharpened = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def restored_step():
+        model.load_state_dict(sharpened)
+        return step(batch)
+
+    reset_launches()
+    auxes = [restored_step() for _ in range(SSL_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    auxes += [restored_step() for _ in range(SSL_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SSL_STEPS
+    peak = torch.cuda.max_memory_allocated(device)
+    traj = {k: [float(a[k]) for a in auxes] for k in LOSS_KEYS}
+    for k, v in traj.items():
+        if not np.isfinite(v).all():
+            fail(f"SSL: {k} is not finite: {v}")
+    if not all(b > 0 for b in traj["loss_bbox"]):
+        fail(f"SSL: a timed step had no pseudo box: {traj['loss_bbox']}")
+
+    model.zero_grad(set_to_none=True)
+    self_loss = make_self_ssl_loss_fn(model, lcfg)
+    self_loss(images[:1]).backward()  # warm-up
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    value = self_loss(images[:1])
+    value.backward()
+    torch.cuda.synchronize()
+    self_ms = (time.time() - t0) * 1e3
+    grad = model.head.retina_cls.weight.grad
+    if not (torch.isfinite(value) and grad is not None and torch.isfinite(grad).all()
+            and grad.abs().max() > 0):
+        fail(f"self-SSL: loss {float(value)} or its gradient is not finite and non-zero")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"SSL: a hand-written kernel launched on the training path: {launches}")
+    result = dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=SSL_WARMUP,
+                  steps=SSL_STEPS, ms_per_step=ms, peak_mem_bytes=peak, loss_trajectory=traj,
+                  levels_cls_bbox=levels, levels_pinned=pinned,
+                  self_ssl=dict(batch=1, loss=float(value), forward_backward_ms=self_ms),
+                  launches=launches)
+    del model, step
+    return result, launches
+
+
+# --- the inference API (api.py) on the fixture JPEGs ------------------------------
+
+API_RTOL = 1e-4  # predict_batch against single calls, but for a flipped decision
+
+
+def _chunks(samples, max_batch):
+    """Detector.predict_batch's chunks: (orientation, input indices)."""
+    by_orient = {}
+    for i, s in enumerate(samples):
+        by_orient.setdefault(s["orientation"], []).append(i)
+    return [(o, idxs[lo:lo + max_batch]) for o, idxs in by_orient.items()
+            for lo in range(0, len(idxs), max_batch)]
+
+
+def _same(a, b, rtol, atol=1e-4) -> bool:
+    return len(a) == len(b) and all(x.shape == y.shape and np.allclose(x, y, rtol=rtol, atol=atol)
+                                    for x, y in zip(a, b))
+
+
+def api_path(device):
+    """init_detector(RetinaNetConfig(fused_blocks=True)) and a Detector, its
+    cls head sharpened, on the fixture JPEGs decoded by the port's decoder:
+    __call__ per image, predict_batch(max_batch=8) held to the single calls
+    (API_RTOL, or a flipped decision as the batch-64 check allows), and the
+    six columns of with_uncertainty, whose first five are the five-column
+    results. Launches: FUSED_PER_FORWARD per forward of each run."""
+    import torch
+    from aod_meh_hua_torch.api import Detector, init_detector, inference_detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import prepare_sample
+    from aod_meh_hua_torch.engine.batch import EvalBatch, prepare_images
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    cfg = RetinaNetConfig(fused_blocks=True)
+    model = init_detector(cfg, seed=0, device=device)
+    det = Detector(cfg, model)
+    imgs = [imread(str(p)) for p in sorted(FIXTURES.glob("*.jpg"))]
+    samples = [prepare_sample(i, None, det.pipeline, flip=False) for i in imgs]
+    s0 = samples[0]
+    ocfg = cfg.for_orientation(s0["orientation"])
+    sharpen_cls_head(model, prepare_images(torch.from_numpy(s0["image"][None]).to(device),
+                                           torch.from_numpy(s0["img_shape"][None]).to(device),
+                                           ocfg))
+    for o in {s["orientation"] for s in samples}:  # warm-up per orientation
+        det(imgs[next(i for i, s in enumerate(samples) if s["orientation"] == o)])
+    torch.cuda.synchronize()
+    reset_launches()
+    singles, ms = [], []
+    for img in imgs:
+        t0 = time.time()
+        singles.append(det(img))  # host arrays: the call waits for the card
+        ms.append((time.time() - t0) * 1e3)
+    single_launches = read_launches()
+    if inference_detector(det, imgs[:1])[0][0].shape != singles[0][0].shape:
+        fail("inference_detector on a list differs from the single call")
+
+    chunks = _chunks(samples, 8)
+    det.predict_batch(imgs, max_batch=8)  # warm-up at batch 8
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    batched = det.predict_batch(imgs, max_batch=8)
+    batch_s = time.time() - t0
+    batch_launches = read_launches()
+    flips = []
+    for i, (a, b) in enumerate(zip(batched, singles)):
+        if _same(a, b, API_RTOL):
+            continue
+        o, chunk = next(c for c in chunks if i in c[1])
+        rows = chunk + [chunk[0]] * (8 - len(chunk))
+
+        def triple(ids, b):
+            st = lambda k: np.stack([samples[j][k] for j in ids])  # noqa: E731
+            return [(o, EvalBatch(st("image"), st("img_shape"), st("scale_factor"),
+                                  np.arange(len(ids)) < b), np.array(ids[:b]))]
+
+        flips.append(decision_flip(model, cfg, triple([i], 1), triple(rows, len(chunk)), i,
+                                   device, what="predict_batch"))
+    if len(flips) > B64_MAX_FLIPS:
+        fail(f"predict_batch: {len(flips)} images off the single calls: {flips}")
+
+    udet = Detector(cfg, model, with_uncertainty=True)
+    for o in {s["orientation"] for s in samples}:
+        udet(imgs[next(i for i, s in enumerate(samples) if s["orientation"] == o)])
+    torch.cuda.synchronize()
+    reset_launches()
+    unc = [udet(img) for img in imgs]
+    unc_launches = read_launches()
+    for u, s in zip(unc, singles):
+        if not all(x.shape[1] == 6 and np.isfinite(x).all() for x in u):
+            fail("with_uncertainty: not six finite columns")
+        if not _same([x[:, :5] for x in u], s, rtol=1e-5, atol=1e-5):
+            fail("with_uncertainty: the first five columns differ from the plain results")
+    n_dets = sum(len(a) for r in singles for a in r)
+    if n_dets == 0 or not all(np.isfinite(a).all() for r in singles for a in r):
+        fail(f"Detector: {n_dets} detections, or not finite")
+    forwards = {"call": len(imgs), "predict_batch": len(chunks), "with_uncertainty": len(imgs)}
+    for name, k in (("call", single_launches), ("predict_batch", batch_launches),
+                    ("with_uncertainty", unc_launches)):
+        if k != {"fused_bottleneck": FUSED_PER_FORWARD * forwards[name], "transposed_matmul": 0}:
+            fail(f"Detector {name}: launches {k} for {forwards[name]} forwards")
+    launches = add_launches(single_launches, batch_launches, unc_launches)
+    result = dict(images=len(imgs), orientations=sorted({s["orientation"] for s in samples}),
+                  call_ms=ms, call_ms_mean=float(np.mean(ms)),
+                  predict_batch=dict(max_batch=8, forwards=len(chunks), seconds=batch_s,
+                                     img_per_s=len(imgs) / batch_s),
+                  detections=n_dets, off_by_a_decision_flip=flips,
+                  unc_max=float(max((x[:, 5].max() for u in unc for x in u if len(x)),
+                                    default=0.0)),
+                  forwards=forwards, launches=launches)
+    del model, det, udet
+    return result, launches
+
+
+# --- the pool-scoring CLI and the ensemble AL CLI ---------------------------------
+
+SCORE_POOL_METHODS = ("hua", "random", "numobj", "ensemble", "mcdropout")
+
+
+def voc_object_counts(voc07: Path) -> np.ndarray:
+    """Non-difficult objects per trainval image, read from the XML (the
+    dataset puts difficult ones among the ignored)."""
+    import xml.etree.ElementTree as ET
+
+    ids = (voc07 / "ImageSets/Main/trainval.txt").read_text().split()
+    counts = []
+    for img_id in ids:
+        root = ET.parse(voc07 / "Annotations" / f"{img_id}.xml").getroot()
+        counts.append(sum(int(o.findtext("difficult", "0")) == 0 for o in root.iter("object")))
+    return np.array(counts, np.float64)
+
+
+def score_pool_cli_path(device, voc07: Path) -> dict:
+    """python -m aod_meh_hua_torch.tools.score_pool's main, in process, on
+    the AL phase's tree, with each method: three checkpoints written from
+    seeded full-width inits (cls heads sharpened) for ensemble, one for the
+    others, --passes MC_PASSES for mcdropout. numobj must equal the tree's
+    object counts and random the seeded permutation; the score sweeps must
+    be finite and not all 0. The CLI's numerics flags are checked as the
+    AL phases check them. No block fuses (the CLI's config, as JAX's, has
+    fused_blocks off)."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from aod_meh_hua_torch.api import _default_pipeline
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import prepare_sample
+    from aod_meh_hua_torch.engine import checkpoint
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.tools import score_pool
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    root = REPO / "build" / "chip_smoke_score_pool"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = RetinaNetConfig()
+    first = sorted((voc07 / "JPEGImages").glob("*.jpg"))[0]
+    s = prepare_sample(imread(str(first)), None, _default_pipeline(cfg), flip=False)
+    images = prepare_images(torch.from_numpy(s["image"][None]).to(device),
+                            torch.from_numpy(s["img_shape"][None]).to(device),
+                            cfg.for_orientation(s["orientation"]))
+    ckpts = []
+    for seed in ENSEMBLE_SEEDS:
+        m = build_retinanet(cfg, device=device, seed=seed)
+        sharpen_cls_head(m, images)
+        ckpts.append(checkpoint.save_checkpoint(str(root / f"member{seed}.pt"), m.state_dict()))
+    del m
+    counts = voc_object_counts(voc07)
+    n = len(counts)
+    out, launches = {}, []
+    for method in SCORE_POOL_METHODS:
+        argv = ["--voc07", str(voc07), "--method", method, "--out", str(root / f"{method}.npy"),
+                "--checkpoint", *(ckpts if method == "ensemble" else ckpts[:1]),
+                "--passes", str(MC_PASSES)]
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            unc, flags = run_cli(score_pool.main, argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k = read_launches()
+        launches.append(k)
+        lines = printed.getvalue().splitlines()
+        rate = re.search(r"\(([0-9.]+) img/s\)", lines[-2])
+        if not (lines[-2].startswith(f"scored {n} images with {method}") and rate
+                and lines[-1].startswith("stats: zeros=")):
+            fail(f"score_pool {method}: printed {lines[-2:]}")
+        if unc.shape != (n,) or not np.isfinite(unc).all():
+            fail(f"score_pool {method}: scores of shape {unc.shape}, or not finite")
+        if method == "numobj" and not np.array_equal(unc, counts):
+            fail(f"score_pool numobj: {unc} against the tree's counts {counts}")
+        if method == "random" and not np.array_equal(unc, np.random.RandomState(20).permutation(n)):
+            fail(f"score_pool random: {unc} is not the seeded permutation")
+        if method in ("hua", "ensemble", "mcdropout") and not (unc > 0).any():
+            fail(f"score_pool {method}: every image scored 0")
+        if any(k.values()):
+            fail(f"score_pool {method}: a hand-written kernel launched: {k}")
+        out[method] = dict(images=n, sweep_img_per_s=float(rate.group(1)), wall_s=wall,
+                           nonzero=int((unc > 0).sum()), launches=k)
+    return dict(argv_common=["--voc07", str(voc07)], passes=MC_PASSES, numerics_flags=flags,
+                methods=out), add_launches(*launches)
+
+
+def al_ensemble_path(device, voc07: Path) -> dict:
+    """The RetinaNet CLI with --baseline ensemble --ensemble-size 3, in
+    process, at full width, on the AL phase's tree and under its cuts, for
+    two cycles: the members train on the card, the pool is scored by their
+    MI, X_L grows by x_s_size and Unc_1 is finite and not all 0. Training
+    runs unfused: no kernel launches."""
+    import torch
+    from aod_meh_hua_torch.tools import train_retinanet
+    from aod_meh_hua_torch.utils import config as config_module
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    root = REPO / "build" / "chip_smoke_al_ensemble"
+    shutil.rmtree(root, ignore_errors=True)
+    work = root / "work"
+    argv = ["--voc07", str(voc07), "--work-dir", str(work), "--cycles", "2",
+            "--ckpt-interval", "1", "--score-batch-size", "8", "--zero-rate", "0.15",
+            "--baseline", "ensemble", "--ensemble-size", "3"]
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.time()
+    with mock.patch.object(config_module, "TrainConfig",
+                           with_cuts(config_module.TrainConfig, AL_TRAIN)), \
+            mock.patch.object(config_module, "ALConfig",
+                              with_cuts(config_module.ALConfig, AL_AL)):
+        driver, flags = run_cli(train_retinanet.main, argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    if (driver.baseline, driver.ensemble_size) != ("ensemble", 3):
+        fail(f"ensemble AL: the driver ran baseline {driver.baseline}, {driver.ensemble_size}")
+    full = RetinaNetConfig()
+    if (driver.cfg.canvas, driver.cfg.block_counts) != (full.canvas, full.block_counts) or \
+            [m["cycle"] for m in driver.metrics] != [0, 1]:
+        fail(f"ensemble AL: canvas {driver.cfg.canvas}, cycles {driver.metrics}")
+    x_l0, x_l1 = np.load(work / "X_L_0.npy"), np.load(work / "X_L_1.npy")
+    if not (set(x_l0) <= set(x_l1) and len(x_l1) == len(x_l0) + AL_AL["x_s_size"]):
+        fail(f"ensemble AL: X_L_0 {x_l0} -> X_L_1 {x_l1}")
+    unc = np.load(work / "Unc_1.npy")
+    if unc.shape != (AL_TRAINVAL,) or not np.isfinite(unc).all() or not (unc > 0).any():
+        fail(f"ensemble AL: Unc_1 {unc}")
+    members = [t for t in driver.timings if t["phase"] == "ensemble_member"]
+    if [(t["cycle"], t["member"]) for t in members] != [(0, 1), (0, 2)]:
+        fail(f"ensemble AL: members trained {members}")
+    if any(launches.values()):
+        fail(f"ensemble AL: a hand-written kernel launched: {launches}")
+    return dict(argv=argv, configs={"train": AL_TRAIN, "al": AL_AL}, wall_s=wall,
+                numerics_flags=flags,
+                cycles=[{"cycle": t["cycle"], "seconds": t["seconds"]}
+                        for t in driver.timings if t["phase"] == "cycle"],
+                member_train_s=[t["seconds"] for t in members],
+                score_phase_s=[t["seconds"] for t in driver.timings if t["phase"] == "score"],
+                metrics=driver.metrics, x_l_0=x_l0.tolist(), x_l_1=x_l1.tolist(),
+                unc_1_nonzero=int((unc > 0).sum()), peak_mem_bytes=peak, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -1851,6 +2414,21 @@ def main() -> int:
     c11 = conv1x1_matmul_check(device, RetinaNetConfig())
     print("conv1x1_matmul:", json.dumps(c11), f"[{card}]", flush=True)
     torch.cuda.empty_cache()
+    from aod_meh_hua_torch.engine.ssl import make_pseudo_train_step
+
+    base, ens_launches, mc_launches = baselines_path(device)
+    print("baselines path:", json.dumps(base), f"[{card}]", flush=True)
+    print("baselines card vs CPU:", json.dumps(baselines_card_vs_cpu(device)), f"[{card}]",
+          flush=True)
+    torch.cuda.empty_cache()
+    ssl, ssl_launches = ssl_path(device)
+    print("SSL path:", json.dumps(ssl), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print("SSL card vs CPU:", json.dumps(train_card_vs_cpu(device, make_pseudo_train_step)),
+          f"[{card}]", flush=True)
+    api, api_launches = api_path(device)
+    print("API path:", json.dumps(api), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
     reset_launches()
     ssd_train = ssd_train_path(device)
     ssd_train_launches = read_launches()
@@ -1876,7 +2454,21 @@ def main() -> int:
     ssd_al = ssd_al_path(device, ssd_train["img_per_s"])
     print("SSD AL path:", json.dumps(ssd_al), f"[{card}]", flush=True)
     print(f"SSD AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    voc07 = REPO / "build" / "chip_smoke_al" / "VOC2007"  # the AL phase's tree
+    t0 = time.time()
+    sp, sp_launches = score_pool_cli_path(device, voc07)
+    print("score_pool CLI:", json.dumps(sp), f"[{card}]", flush=True)
+    print(f"score_pool CLI phase: {time.time() - t0:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    al_ens = al_ensemble_path(device, voc07)
+    print("ensemble AL path:", json.dumps(al_ens), f"[{card}]", flush=True)
+    print(f"ensemble AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
 
+    new_paths = {"ensemble_sweep": ens_launches, "mc_dropout": mc_launches,
+                 "detector": api_launches, "ssl": ssl_launches, "score_pool_cli": sp_launches,
+                 "al_ensemble_cli": al_ens["launches"]}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731
@@ -1889,15 +2481,18 @@ def main() -> int:
         "name": "fused_bottleneck", "route": "cuda",
         "source": "aod_meh_hua_torch/csrc/fused_bottleneck.cu",
         "replaces": "aod_meh_hua_tpu/ops/fused_block.py:221",
-        # the scoring, extra-pool and eval runs, each counted from 0
-        "launches": path["launches"] + pool_launches + eval_launches,
+        # the scoring, extra-pool, eval, ensemble and Detector runs, each counted from 0
+        "launches": path["launches"] + pool_launches + eval_launches
+        + ens_launches["fused_bottleneck"] + api_launches["fused_bottleneck"],
         "launches_by_path": {"score_pool": path["launches"], "other_pools": pool_launches,
                              "eval": eval_launches, "nms_sync_check": nms_launches,
                              "batch64_pool_and_eval": b64_launches,
                              "al_cli": al["launches"]["fused_bottleneck"],
                              "ssd_train": ssd_train_launches["fused_bottleneck"],
                              "ssd_score": ssd_score_launches["fused_bottleneck"],
-                             "ssd_al_cli": ssd_al["launches"]["fused_bottleneck"]},
+                             "ssd_al_cli": ssd_al["launches"]["fused_bottleneck"],
+                             **{path_name: counts["fused_bottleneck"]
+                                for path_name, counts in new_paths.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": c2["bound_by"], "library_ms": total("library_ms"),
@@ -1916,7 +2511,9 @@ def main() -> int:
                              "al_cli": al["launches"]["transposed_matmul"],
                              "ssd_train": ssd_train_launches["transposed_matmul"],
                              "ssd_score": ssd_score_launches["transposed_matmul"],
-                             "ssd_al_cli": ssd_al["launches"]["transposed_matmul"]},
+                             "ssd_al_cli": ssd_al["launches"]["transposed_matmul"],
+                             **{path_name: counts["transposed_matmul"]
+                                for path_name, counts in new_paths.items()}},
         "max_abs_err": mm["max_abs_err"], "ms": mm["ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
     })

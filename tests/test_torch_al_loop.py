@@ -71,24 +71,24 @@ from aod_meh_hua_torch.engine import checkpoint as tckpt
 from aod_meh_hua_torch.data.pipeline import PipelineConfig as TPipelineConfig
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.detector import build_retinanet
+from aod_meh_hua_torch.tools import score_pool
 from aod_meh_hua_torch.tools import train_retinanet as tcli
 from aod_meh_hua_torch.utils.config import ALConfig as TALConfig
 from aod_meh_hua_torch.utils.config import TrainConfig as TTrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 
-from test_data import make_voc
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
 from torch_parity import jax_retinanet, numerics_flags_kept
+from torch_parity import mini_voc as mini_voc_tree
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 CLS_SHARPEN = 150.0
 
 
 @pytest.fixture(scope="module")
 def mini_voc(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("alvoc"))
-    base, _, ids = make_voc(root, "VOC2007", n=14, seed=3)
-    with open(os.path.join(base, "ImageSets/Main/test.txt"), "w") as f:
-        f.write("\n".join(ids[:4]))
-    return base
+    return mini_voc_tree(tmp_path_factory.mktemp("alvoc"))
 
 
 def _record_schedule(mp, loop_module, events):
@@ -160,7 +160,7 @@ def runs(mini_voc, tmp_path_factory):
         with numerics_flags_kept():
             tdriver = tcli.main(["--mini", "--cpu", "--voc07", mini_voc, "--work-dir", twork])
     return SimpleNamespace(jwork=jwork, jmetrics=jmetrics, jdriver=jdriver, jevents=jevents,
-                           twork=twork, tdriver=tdriver, tevents=tevents)
+                           twork=twork, tdriver=tdriver, tevents=tevents, port_init=port_init)
 
 
 def _npy(work, name):
@@ -330,51 +330,38 @@ def test_al_resume_cycle(runs, tmp_path):
     assert len(x_l1) > 4
 
 
-def test_mid_cycle_resume_bit_identical(mini_voc, tmp_path, monkeypatch):
+def test_mid_cycle_resume_bit_identical(runs, tmp_path, monkeypatch):
     """A port of tests/test_al_loop.py::test_mid_cycle_resume_bit_identical
-    (port against port): die right after the 3rd epoch snapshot (2 runs x
-    2 epochs: run 2, epoch 1), resume with resume_from, and the final
-    parameters are bit-identical to the uninterrupted run's. Two labeled
-    images where the JAX test has four, to keep the test short."""
-    cfg = ttiny()
-    tcfg = TTrainConfig(batch_size=2, outer_epoch=1, epoch_ratio=(2,), lr=0.01,
-                        ckpt_interval=1)
-    al = TALConfig(cycles=(0,), x_l_0_size=2, x_s_size=2, x_l_repeat=1, score_batch_size=4)
-    pipe = TPipelineConfig(img_scale=(250, 120), canvas=cfg.canvas)
-
-    def driver(work_dir):
-        return tloop.ALDriver(cfg, tcfg, al, tloop.ALPaths(voc07=mini_voc, voc12=None,
-                                                           work_dir=work_dir),
-                              pipeline=pipe, validate=False, log=None, device="cpu")
-
-    def final_params(work_dir):
-        d = driver(work_dir)
-        return tckpt.load_checkpoint(tckpt.cycle_ckpt_path(d.paths.save_dir, d.name, 0, 2))
-
-    wa, wb = str(tmp_path / "uninterrupted"), str(tmp_path / "interrupted")
-    driver(wa).run()
-
+    (port against port) on the `runs` fixture's uninterrupted CLI run: the
+    same CLI, for cycle 0 alone and from the same initial weights, dies
+    right after its first epoch snapshot (run 1 of 2), resumes with
+    --resume-from, trains the second run only, and its cycle-0 checkpoint
+    is bit-identical to the uninterrupted run's. A resume inside a run
+    (the loader's epochs replayed) is held on the card by
+    tests/test_torch_cuda.py::test_mid_cycle_resume_on_the_card, and the
+    replay itself by tests/test_torch_data.py::test_burn_epochs_replays_the_stream."""
+    work = str(tmp_path / "interrupted")
+    argv = ["--mini", "--cpu", "--voc07", runs.tdriver.paths.voc07, "--work-dir", work,
+            "--cycles", "1", "--no-validate"]
     real_save = tckpt.save_train_state
-    calls = {"n": 0}
 
     def killer(save_dir, state, progress):
-        out = real_save(save_dir, state, progress)
-        calls["n"] += 1
-        if calls["n"] == 3:
-            raise KeyboardInterrupt("simulated preemption")
-        return out
+        real_save(save_dir, state, progress)
+        raise KeyboardInterrupt("simulated preemption")
 
-    with monkeypatch.context() as mp:
+    monkeypatch.setattr(tloop.ALDriver, "_init_model", runs.port_init)
+    with monkeypatch.context() as mp, numerics_flags_kept():
         mp.setattr(tckpt, "save_train_state", killer)
         with pytest.raises(KeyboardInterrupt):
-            driver(wb).run()
-    with open(os.path.join(wb, "model_save", "train_state.json")) as f:
-        assert json.load(f)["run"] == 1
-    d2 = driver(wb)
-    d2.run(resume_from=d2.paths.save_dir)
+            tcli.main(argv)
+    with open(os.path.join(work, "model_save", "train_state.json")) as f:
+        assert json.load(f)["run"] == 0
+    with numerics_flags_kept():
+        d2 = tcli.main(argv + ["--resume-from", "auto"])
     assert [t["phase"] for t in d2.timings if t["phase"] == "train_epoch"] == ["train_epoch"]
 
-    pa, pb = final_params(wa), final_params(wb)
+    pa, pb = (tckpt.load_checkpoint(tckpt.cycle_ckpt_path(d.paths.save_dir, d.name, 0, 1))
+              for d in (runs.tdriver, d2))
     assert pa.keys() == pb.keys()
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
@@ -400,13 +387,19 @@ def test_pretrained_backbone_loads_torchvision_names(tmp_path):
         tcli.attach_pretrained_backbone(model, path)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--config", "c.py"], ["--baseline", "ensemble"], ["--ensemble-size", "3"],
-    ["--distributed"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-    ["--process-id", "0"], ["--fsdp", "2"], ["--num-devices", "2"], ["--int8-scoring"],
-    ["--dtype", "bfloat16"]])
-def test_unported_cli_flags_raise(flags):
-    """The JAX CLI's flags of modes the port does not have are parsed
-    and refused with their ROADMAP item, never ignored."""
+@pytest.mark.parametrize("cli,flags", [
+    ("train", ["--config", "c.py"]), ("train", ["--distributed"]),
+    ("train", ["--coordinator", "localhost:1234"]), ("train", ["--num-processes", "2"]),
+    ("train", ["--process-id", "0"]), ("train", ["--fsdp", "2"]),
+    ("train", ["--num-devices", "2"]), ("train", ["--int8-scoring"]),
+    ("train", ["--dtype", "bfloat16"]), ("score_pool", ["--num-devices", "2"]),
+    ("score_pool", ["--int8"]), ("score_pool", ["--dtype", "bfloat16"])])
+def test_unported_cli_flags_raise(cli, flags):
+    """The JAX CLIs' flags of modes the port does not have are parsed and
+    refused with their ROADMAP item, never ignored: the RetinaNet AL CLI's
+    and the pool scorer's."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tcli.main(flags + ["--cpu", "--voc07", "unused", "--work-dir", "unused"])
+        if cli == "train":
+            tcli.main(flags + ["--cpu", "--voc07", "unused", "--work-dir", "unused"])
+        else:
+            score_pool.main(flags + ["--cpu", "--voc07", "unused"])

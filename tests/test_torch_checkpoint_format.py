@@ -29,6 +29,9 @@ from aod_meh_hua_tpu.models.pretrained import (
 from aod_meh_hua_tpu.models.reference_convert import (
     convert_reference_retinanet, export_reference_retinanet)
 from aod_meh_hua_tpu.utils.config import tiny_test_config
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 CFG = tiny_test_config()
 

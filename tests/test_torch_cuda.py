@@ -3,8 +3,9 @@ and transposed matmul against their plain PyTorch versions, and the tiny
 model's fused path against its unfused one; the train step on the card
 against the CPU, a backward through a fused block on the card, and the
 sampled Dirichlet MI with a CUDA generator at small concentrations; the
-AL CLI's --mini run and a mid-cycle resume on the card. Skips, with the
-reason, where there is no card.
+AL CLI's --mini run and a mid-cycle resume on the card; the ensemble and
+MC-dropout steps on the card against the CPU, and a fused Detector's
+launches and results. Skips, with the reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -377,3 +378,99 @@ def test_mid_cycle_resume_on_the_card(cuda, tmp_path, monkeypatch):
             assert (pa[k] - pb[k]).abs().max().item() <= tol, (k, nondeterministic)
         else:
             assert torch.equal(pa[k], pb[k]), k
+
+
+# --- the baselines and the inference API on the card ----------------------------------
+
+def _sharpened_members(device, seeds=(1, 2, 3)):
+    """tiny_test_config() members with the cls head's weight x150 (logits
+    of std ~1.5), on `device`."""
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    members = []
+    for s in seeds:
+        m = build_retinanet(tiny_test_config(), device=device, seed=s)
+        with torch.no_grad():
+            m.head.retina_cls.weight.mul_(150.0)
+        members.append(m)
+    return members
+
+
+def test_baseline_steps_on_the_card_match_the_cpu(cuda):
+    """The ensemble step to rtol 1e-4 of the CPU's; the MC step at rate 0
+    (0 up to rounding) to 1e-6; at rate 0.1 the same CUDA generator seed
+    gives the same scores, and no block fuses."""
+    import dataclasses
+
+    from aod_meh_hua_torch.al.baselines import make_ensemble_score_step, make_mc_dropout_score_step
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    h, w = cfg.canvas
+    g = torch.Generator().manual_seed(4)
+    batch = EvalBatch(torch.randn((2, h, w, 3), generator=g) * 0.5,
+                      torch.tensor([[h, w], [h - 16, w - 40]], dtype=torch.int32),
+                      torch.ones((2, 4)), np.ones(2, bool))
+    out = {}
+    for dev in ("cpu", cuda):
+        members = _sharpened_members(dev)
+        ens = make_ensemble_score_step(members, cfg, device=dev)(batch)
+        mc0 = make_mc_dropout_score_step(members[0], cfg, 3, device=dev)(
+            batch, torch.Generator(device=dev).manual_seed(0))
+        out[str(dev)] = (ens.cpu(), mc0.cpu())
+    (e_cpu, m_cpu), (e_gpu, m_gpu) = out["cpu"], out[str(cuda)]
+    assert (e_cpu > 0).all()
+    torch.testing.assert_close(e_gpu, e_cpu, rtol=1e-4, atol=0)
+    torch.testing.assert_close(m_gpu, m_cpu, rtol=0, atol=1e-6)
+
+    mc_cfg = dataclasses.replace(cfg, mc_dropout=0.1, fused_blocks=True)
+    mc = build_retinanet(mc_cfg, device=cuda)
+    mc.load_state_dict(_sharpened_members(cuda, seeds=(1,))[0].state_dict())
+    step = make_mc_dropout_score_step(mc, mc_cfg, 4, device=cuda)
+    before = fb_mod.fused_bottleneck.launches
+    u = [step(batch, torch.Generator(device=cuda).manual_seed(7)) for _ in range(2)]
+    assert fb_mod.fused_bottleneck.launches == before
+    assert torch.isfinite(u[0]).all() and (u[0] > 0).all()
+    assert torch.equal(u[0], u[1])
+
+
+def test_detector_launches_the_fused_kernel(cuda):
+    """A fused Detector on the card: the fused kernel launches twice per
+    forward at this config (layer1.1 and layer2.1) in __call__,
+    predict_batch and with_uncertainty, and its results are the CPU
+    Detector's (same weights) to rtol 1e-4."""
+    from aod_meh_hua_torch.api import Detector, init_detector
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    cfg = tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32, fused_blocks=True)
+    h, w = cfg.canvas
+    pipe = PipelineConfig(img_scale=(w, h), canvas=cfg.canvas, device_normalize=True)
+    cpu_model = init_detector(cfg, seed=2, device="cpu")
+    with torch.no_grad():
+        cpu_model.head.retina_cls.weight.mul_(150.0)
+    model = init_detector(cfg, device=cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    r = np.random.RandomState(7)
+    imgs = [(r.rand(hh, ww, 3) * 255).astype(np.uint8) for hh, ww in ((40, 80), (80, 40),
+                                                                       (50, 90))]
+    det, ref = Detector(cfg, model, pipeline=pipe), Detector(cfg, cpu_model, pipeline=pipe)
+    before = fb_mod.fused_bottleneck.launches
+    single = [det(i) for i in imgs]
+    assert fb_mod.fused_bottleneck.launches == before + 2 * len(imgs)
+    batched = det.predict_batch(imgs, max_batch=2)  # landscape 2 in one chunk, portrait 1
+    assert fb_mod.fused_bottleneck.launches == before + 2 * len(imgs) + 2 * 2
+    udet = Detector(cfg, model, pipeline=pipe, with_uncertainty=True)
+    unc = [udet(i) for i in imgs]
+    assert fb_mod.fused_bottleneck.launches == before + 4 * len(imgs) + 2 * 2
+    for img, s, b, u in zip(imgs, single, batched, unc):
+        want = ref(img)
+        assert sum(len(a) for a in s) > 0
+        for x, y, z, v in zip(s, b, u, want):
+            assert x.shape == y.shape == v.shape and z.shape == (len(x), 6)
+            np.testing.assert_allclose(x, v, rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(z[:, :5], x, rtol=1e-5, atol=1e-5)

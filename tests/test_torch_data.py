@@ -45,6 +45,9 @@ from aod_meh_hua_torch.data.voc import ConcatVOC, VOCDataset
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 
 from test_data import make_voc
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "aod_meh_hua_torch", "data", "fixtures")

@@ -35,6 +35,9 @@ from aod_meh_hua_torch.ops import fused_block
 from aod_meh_hua_torch.utils import voc_eval as tvoc
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 from torch_parity import TINY, jax_retinanet
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _eval_batch(cfg, seed=0, b=3):

@@ -21,6 +21,9 @@ from aod_meh_hua_tpu.ops import fused_block as jfb
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.resnet import Bottleneck as TBottleneck
 from aod_meh_hua_torch.ops import fused_block as tfb
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _random_variables(model, x, seed):

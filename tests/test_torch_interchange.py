@@ -40,6 +40,9 @@ from aod_meh_hua_torch.utils import config as tcfg
 
 from test_data import make_voc
 from torch_parity import THIN_SSD, TINY, jax_retinanet, jax_ssd, tf32_off
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(autouse=True, scope="module")

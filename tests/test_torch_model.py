@@ -20,6 +20,7 @@ from aod_meh_hua_tpu.engine.batch import prepare_images as jprepare
 from aod_meh_hua_tpu.models.detector import init_retinanet
 from aod_meh_hua_tpu.utils.config import tiny_test_config as jtiny
 from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
+from aod_meh_hua_torch.api import Detector
 from aod_meh_hua_torch.al.uncertainty import score_pool
 from aod_meh_hua_torch.engine.batch import prepare_images as tprepare
 from aod_meh_hua_torch.engine.eval import make_eval_step
@@ -35,6 +36,9 @@ from aod_meh_hua_torch.utils.config import ALConfig, SSDConfig, TrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
 
 from torch_parity import numerics_flags_kept
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 TINY = dict(block_counts=(2, 2, 1, 1), stem_width=32)
 
@@ -161,12 +165,16 @@ def test_backward_through_a_fused_block_raises():
     assert xg.grad is not None and xg.grad.abs().max() > 0
 
 
-@pytest.mark.parametrize("override", [
-    dict(stem_s2d=True), dict(backbone_int8=True),
-    dict(remat=True), dict(mc_dropout=0.1), dict(compute_dtype="bfloat16")])
-def test_unported_options_raise(override):
+@pytest.mark.parametrize("make", [
+    lambda: MEHRetinaNet(ttiny(stem_s2d=True)), lambda: MEHRetinaNet(ttiny(backbone_int8=True)),
+    lambda: MEHRetinaNet(ttiny(remat=True)),
+    lambda: Detector(ttiny(), build_retinanet(ttiny(), device="cpu")).tta(
+        np.zeros((40, 80, 3), np.uint8)),
+    lambda: MEHRetinaNet(ttiny(compute_dtype="bfloat16"))],
+    ids=["stem_s2d", "backbone_int8", "remat", "Detector.tta", "bfloat16"])
+def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        MEHRetinaNet(ttiny(**override))
+        make()
 
 
 @pytest.mark.parametrize("override", [dict(test=dict(fast_topk=True))])

@@ -30,6 +30,9 @@ from aod_meh_hua_torch.ops import dirichlet as tdir
 from aod_meh_hua_torch.ops import hua as thua
 from aod_meh_hua_torch.ops import nms as tnms
 from aod_meh_hua_torch.utils import config as tcfg
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 REPO = Path(__file__).resolve().parents[1]
 _jnms = jax.jit(jnms.batched_multiclass_nms, static_argnums=(2, 3, 4, 5))
@@ -330,7 +333,7 @@ def test_port_imports_no_jax():
     what the machine with the card lacks (OpenCV, PIL, torchvision,
     msgpack)."""
     files = sorted((REPO / "aod_meh_hua_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 53
+    assert len(files) > 58
     refused = ("jax", "jaxlib", "flax", "aod_meh_hua_tpu", "cv2", "PIL", "torchvision",
                "msgpack",
                # the root `tools` too: the port copies from tools/analysis, it does not import it

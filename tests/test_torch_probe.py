@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from aod_meh_hua_tpu.models.detector import init_retinanet
 from aod_meh_hua_tpu.utils.config import tiny_test_config as jtiny
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.detector import build_retinanet
@@ -33,6 +32,11 @@ from aod_meh_hua_torch.ops.transposed_matmul import (transposed_matmul,
                                                      transposed_matmul_reference)
 from aod_meh_hua_torch.tools import pallas_probe as probe
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
+
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+from torch_parity import jax_retinanet
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = 2.0 ** -7
@@ -79,12 +83,23 @@ def test_transposed_matmul_matches_jax_form(m):
     assert transposed_matmul.launches == before
 
 
-def test_jax_pallas_kernel_matches_its_xla_form(jax_tool):
+class _Timings(Exception):
+    """Raised where the JAX tool starts its timings, which the check below
+    does not read."""
+
+
+def test_jax_pallas_kernel_matches_its_xla_form(jax_tool, monkeypatch):
     """The Pallas kernel, in interpret mode as the tool's --cpu runs it,
     equals jnp.dot(wtt, xt, f32).astype(bf16): the form the port's plain
-    version is held to above."""
+    version is held to above. The tool is stopped at its timings, after
+    the check."""
+
+    def stop(*args, **kwargs):
+        raise _Timings
+
+    monkeypatch.setattr(jax_tool, "_chain_timed", stop)
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), pytest.raises(_Timings):
         jax_tool.matmul_probe(argparse.Namespace(batch=1, iters=1, loop=False, cpu=True))
     lines = [json.loads(s) for s in out.getvalue().splitlines() if "pallas_vs_xla" in s]
     assert lines == [{"pallas_vs_xla_max_abs_err": 0.0}]
@@ -156,8 +171,7 @@ def test_probe_cli_needs_a_card_or_cpu(capsys):
 
 
 def test_conv1x1_matmul_matches_jax():
-    model, variables = init_retinanet(jtiny(conv1x1_matmul=True, **TINY), jax.random.PRNGKey(0))
-    variables = jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
+    model, variables = jax_retinanet(conv1x1_matmul=True, **TINY)
     h, w = jtiny().for_orientation("landscape").canvas
     x = np.random.RandomState(0).randn(2, h, w, 3).astype(np.float32)
     want = [np.asarray(a) for a in jax.jit(model.apply)(variables, x)]

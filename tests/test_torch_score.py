@@ -63,6 +63,9 @@ from aod_meh_hua_torch.ops import fused_block
 from aod_meh_hua_torch.ops.dirichlet import dirichlet_mi_sampled, dirichlet_mutual_information
 from aod_meh_hua_torch.utils.config import TestCfg as TTestCfg
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 # binding top-k on the first three levels (4608/1152/288 > 256), reference thresholds
 ORACLE_TEST = dict(nms_pre=256, score_thr=0.05, nms_iou_thr=0.5, max_per_img=100,

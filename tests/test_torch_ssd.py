@@ -62,6 +62,9 @@ from aod_meh_hua_torch.utils.voc_eval import eval_map
 import reference_oracle as oracle
 from test_acquisition_oracle_ssd import _gen_image
 from torch_parity import THIN_SSD, jax_ssd, tf32_off, train_batch
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(autouse=True, scope="module")

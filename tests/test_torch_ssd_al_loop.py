@@ -62,6 +62,9 @@ from aod_meh_hua_torch.utils.device import pin_numerics
 
 from test_data import make_voc
 from test_torch_al_loop import _npy, _record_schedule, _train_log
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 FG_SHARPEN = 2.0
 PINNED = (False, False, True, False)  # cudnn.allow_tf32, matmul.allow_tf32, deterministic, benchmark

@@ -34,6 +34,9 @@ from aod_meh_hua_torch.utils.config import SSDConfig
 
 from test_data import make_voc
 from torch_parity import THIN_SSD
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 SSD_PIPE = dict(img_scale=(300, 300), canvas=(300, 300), std=(1.0, 1.0, 1.0), keep_ratio=False,
                 device_normalize=True)

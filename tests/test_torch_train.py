@@ -51,7 +51,10 @@ from aod_meh_hua_torch.ops import losses as tlosses
 from aod_meh_hua_torch.utils.config import RetinaNetConfig as TRetinaNetConfig
 from aod_meh_hua_torch.utils.config import TrainConfig as TTrainConfig
 from aod_meh_hua_torch.utils.config import tiny_test_config as ttiny
-from torch_parity import TINY, jax_retinanet, train_batch
+from torch_parity import TINY, jax_retinanet, no_exact_low_quality_ties, train_batch
+from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _t(a):
@@ -247,6 +250,39 @@ def test_loss_fn_variants_match_jax(cls_loss, meh_loss):
     for name in want:
         np.testing.assert_allclose(float(got[name]), float(want[name]), rtol=1e-5, err_msg=name)
     assert float(got["loss_meh"]) > 0
+
+
+@pytest.mark.parametrize("over", [
+    dict(cls_loss="focal"), dict(cls_loss="edl_focal"), dict(meh_loss="l1"),
+    dict(meh_loss="msle"), dict(use_meh=False)],
+    ids=["focal", "edl_focal", "meh_l1", "meh_msle", "no_meh"])
+def test_ablation_flags_match_jax(over):
+    """The ablation flags through the whole model: JAX's make_loss_fn
+    (jitted; the batch has no exact low-quality IoU tie) and the port's on
+    one JAX init carried over, every term to rtol 1e-4. Without the MEH
+    branch the JAX tree has no lambda head, nor has the port's model, and
+    loss_meh is 0."""
+    from aod_meh_hua_tpu.engine.train import make_loss_fn as jmake_loss_fn
+
+    jc, tc = jtiny(**over), ttiny(**over)
+    jmodel, variables = jax_retinanet(**over)
+    arrays = train_batch(jc, seed=3)
+    assert no_exact_low_quality_ties(jc, arrays)
+    jloss, janchors = jmake_loss_fn(jmodel, jc)
+    _, want = jax.jit(jloss)(variables["params"], variables["batch_stats"],
+                             JBatch(*(jnp.asarray(a) for a in arrays)), jnp.asarray(janchors))
+    model = build_retinanet(tc, device="cpu")
+    model.load_state_dict(from_jax_variables(variables))
+    tloss, tanchors = ttrain.make_loss_fn(model, tc)
+    _, got = tloss(TBatch(*(torch.from_numpy(a) for a in arrays)), torch.from_numpy(tanchors))
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(float(got[name].detach()), float(want[name]), rtol=1e-4,
+                                   err_msg=name)
+    has_meh = over.get("use_meh", True)
+    assert (float(got["loss_meh"]) > 0) == has_meh
+    assert hasattr(model.head, "retina_L") == hasattr(model.head, "L_convs") == has_meh
+    assert ("L_convs" in variables["params"]["head"]) == has_meh
 
 
 # --- the train step -----------------------------------------------------------

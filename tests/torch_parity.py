@@ -9,9 +9,11 @@ fused gate, and layer1, which training freezes, has two blocks.
 
 import contextlib
 import functools
+import os
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from aod_meh_hua_tpu.models.detector import build_retinanet
@@ -117,6 +119,67 @@ def train_batch(cfg, seed=0, b=2, max_boxes=3):
             gt_valid[i, j] = True
     av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
     return images, gt_boxes, gt_labels, gt_valid, av, shapes
+
+
+# torch's intra-op threads while a port test file runs: the tiny models'
+# ops are too small to split, and torch's default of one thread per core,
+# in each of the suite's workers, oversubscribes the machine (a tiny
+# forward took 0.1-0.7 s with 8 threads against 0.015 s with 1 or 2)
+TEST_THREADS = 2
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """torch.set_num_threads(TEST_THREADS) for a module, restored after.
+    A file opts in with pytestmark = pytest.mark.usefixtures("few_threads")
+    and imports the fixture."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def mini_voc(root):
+    """The mini VOC tree of tests/test_al_loop.py under `root`:
+    make_voc(n=14, seed=3), its first 4 ids also the test split. Returns
+    the VOC2007 directory."""
+    from test_data import make_voc
+
+    base, _, ids = make_voc(str(root), "VOC2007", n=14, seed=3)
+    with open(os.path.join(base, "ImageSets/Main/test.txt"), "w") as f:
+        f.write("\n".join(ids[:4]))
+    return base
+
+
+def sharpen(variables, factor):
+    """JAX variables with the retina_cls kernel scaled by `factor` (logits
+    of std ~1.5 at 150 on the tiny models), a stand-in for a trained cls
+    head: random heads give a near-uniform softmax, and every pool score
+    is 0."""
+    params = dict(variables["params"])
+    head = dict(params["head"])
+    cls = dict(head["retina_cls"])
+    cls["kernel"] = np.asarray(cls["kernel"]) * np.float32(factor)
+    head["retina_cls"] = cls
+    params["head"] = head
+    return {**variables, "params": params}
+
+
+def no_exact_low_quality_ties(cfg, arrays):
+    """True when no valid GT of a train_batch has its maximal IoU at two
+    valid anchors with exactly the same value: the ties of the assigner's
+    low-quality matches, which the jitted JAX program breaks otherwise
+    than eager JAX and the port (ROADMAP Queue 3)."""
+    from aod_meh_hua_torch.ops.bbox import bbox_overlaps
+
+    anchors = torch.from_numpy(np.concatenate(
+        cfg.build_anchor_generator().grid_anchors(cfg.featmap_sizes())).astype(np.float32))
+    _, boxes, _, gt_valid, av, _ = (torch.from_numpy(np.asarray(a)) for a in arrays)
+    ious = torch.where(av[:, None, :], bbox_overlaps(boxes, anchors), torch.tensor(-1.0))
+    counts = (ious == ious.amax(dim=-1, keepdim=True)).sum(dim=-1)
+    return bool((counts[gt_valid] == 1).all())
 
 
 @contextlib.contextmanager
