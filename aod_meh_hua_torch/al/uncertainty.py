@@ -5,12 +5,15 @@ numpy copy of :26-31, and `score_pool`), which mirrors the reference's
 apis/test.py:19-70 (Random = a permutation; Entropy_* = a
 sweep of the pool) and :90-135 (single_gpu_uncertainty). Scores scatter
 back to dataset order, so the result indexes like the reference's
-uncertainty vector.
+uncertainty vector. Across ranks each process sweeps its own slice (a
+loader over parallel.rank_indices) and the ranks' vectors meet in
+parallel.allgather_sum (apis/test.py:197-315).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import time
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +49,9 @@ def score_pool(
     rng: Optional[np.random.RandomState] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    progress: bool = False,
+    steps: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Score every pool image. `loader` is any iterable of (orientation,
     EvalBatch, indices) triples, EvalLoader's contract; `indices` maps
@@ -56,17 +62,30 @@ def score_pool(
     raises without one.
 
     Batch k+1 is uploaded before batch k's scores are read back.
+
+    progress: print the count and rate every 512 images (JAX's).
+    steps: {orientation: make_score_step(...)} to reuse; built when None.
+    mesh: the JAX argument splits each batch over the mesh's devices; a
+    port process holds one device, so a mesh of one rank runs as is and
+    a larger one raises (slice the pool across ranks instead: a loader
+    over parallel.rank_indices, merged with parallel.allgather_sum).
     """
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError(f"score_pool runs on this process's one device; the mesh spans "
+                         f"{mesh.size()} ranks: give each rank a loader over its "
+                         "parallel.rank_indices and merge with parallel.allgather_sum")
     if cfg.hua.pool == "Random":
         if rng is None:
             raise ValueError("the Random pool needs an rng")
         return rng.permutation(num_images).astype(np.float64), np.zeros(num_images)
 
     dev = resolve_device(device)
-    steps = {o: make_score_step(model, cfg.for_orientation(o), device=dev)
-             for o in ("landscape", "portrait")}
+    if steps is None:
+        steps = {o: make_score_step(model, cfg.for_orientation(o), device=dev)
+                 for o in ("landscape", "portrait")}
     unc = np.zeros(num_images, np.float64)
     mconf = np.zeros(num_images, np.float64)
+    t0, n_done = time.time(), 0
 
     def stage(item):
         if item is None:
@@ -87,4 +106,8 @@ def score_pool(
         valid = batch.valid[: len(idx)]
         unc[idx[valid]] = u[valid]
         mconf[idx[valid]] = mc[valid]
+        n_done += int(valid.sum())
+        if progress and n_done % 512 < len(idx):
+            rate = n_done / max(time.time() - t0, 1e-9)
+            print(f"  scored {n_done}/{num_images} ({rate:.1f} img/s)")
     return unc, mconf

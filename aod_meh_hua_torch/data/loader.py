@@ -12,9 +12,12 @@ which replaces the reference's DataLoader + GroupSampler + collate stack
   validity from the /32 pad extent. The RNG stream, the batch order and
   the per-sample seeds are the JAX package's, so the same seed gives the
   same batches, bit for bit (tests/test_torch_data.py).
+* Across ranks (parallel/), a TrainLoader gives each rank its block of
+  rows of the global batch (`rows`): every rank draws the whole batch's
+  order, flips and per-sample seeds, and decodes only its own images.
 * EvalLoader: a sequential sweep per orientation group; the tail batch is
   padded to full size and flagged invalid; batches carry their source
-  indices.
+  indices. A rank sweeps its parallel.rank_indices slice.
 * Both prefetch on a background thread, and decode on a shared thread
   pool.
 
@@ -116,9 +119,13 @@ class TrainLoader:
         num_workers: int = 4,
         with_masks: bool = False,
         proposal_source=None,
+        rows: Tuple[int, int] = (0, 1),
     ):
         """num_workers: decode/resize thread pool size (the host analog of
         the reference's worker processes, datasets/builder.py:104-147).
+        rows=(index, count): yield the index-th of `count` equal blocks of
+        each global batch's rows (parallel.data_sharding), decoding only
+        those images; batch_size stays the global batch.
         augment_fn(img, ann, rng) -> (img, ann) runs before prepare_sample
         with the sample's own RandomState (the SSD augment chain,
         data/ssd_augment.py). with_masks (Mask R-CNN) and proposal_source
@@ -135,6 +142,12 @@ class TrainLoader:
         self.batch_size = batch_size
         self.repeat = repeat
         self.rng = np.random.RandomState(seed)
+        index, count = rows
+        if batch_size % count or not 0 <= index < count:
+            raise ValueError(f"rows {rows}: the global batch {batch_size} splits into "
+                             f"{count} equal blocks, index below {count}")
+        per = batch_size // count
+        self.rows = range(index * per, (index + 1) * per)
         self.prefetch = prefetch
         self.augment_fn = augment_fn
         self.num_workers = num_workers
@@ -164,7 +177,9 @@ class TrainLoader:
         return [batches[i] for i in order]
 
     def _make_batch(self, orientation: str, batch_idx: np.ndarray) -> Batch:
-        # deterministic per-sample seeds drawn in order, then parallel prep
+        # deterministic per-sample seeds drawn in order, then parallel prep;
+        # every rank draws the whole batch's seeds, so the stream, and so
+        # the global batch, is the single-process one on each rank
         seeds = [int(self.rng.randint(0, 2 ** 31 - 1)) for _ in batch_idx]
 
         def prep(i, seed):
@@ -175,12 +190,16 @@ class TrainLoader:
                 img, ann = self.augment_fn(img, ann, r)
             return prepare_sample(img, ann, self.pipeline, rng=r)
 
+        # a short tail repeats its samples to keep the shape: global row r
+        # is sample r % len(batch_idx); this rank decodes its rows' samples
+        src = [r % len(batch_idx) for r in self.rows]
+        need = sorted(set(src))
         if self._pool is not None:
-            samples = list(self._pool.map(prep, batch_idx, seeds))
+            done = list(self._pool.map(prep, batch_idx[need], [seeds[k] for k in need]))
         else:
-            samples = [prep(i, s) for i, s in zip(batch_idx, seeds)]
-        while len(samples) < self.batch_size:  # short tail: repeat to keep shape
-            samples.append(samples[len(samples) % max(1, len(batch_idx))])
+            done = [prep(batch_idx[k], seeds[k]) for k in need]
+        by_sample = dict(zip(need, done))
+        samples = [by_sample[k] for k in src]
         images = np.stack([s["image"] for s in samples])
         boxes, labels, valid = _pad_gt(samples, self.cfg.max_gt)
         pad_shapes = np.stack([s["pad_shape"] for s in samples])

@@ -13,7 +13,7 @@ cfg.resume_from (apis/train_Lambda.py:72-75).
 The file names, the train_state.json progress keys and the meta json are
 the JAX package's; the format the port writes is torch's own:
 `torch.save` of the model state_dict, and for the train state also the
-SGD state_dict (its momentum buffers) and the step.
+SGD momentum buffers by parameter name and the step.
 
 It reads three formats, told apart by their first bytes (`sniff_format`):
 torch's zip and legacy pickle files (its own, or the reference's mmdet
@@ -23,6 +23,11 @@ machine with the card has neither flax nor msgpack) and carried over by
 models/convert.py. So `load_model_state_dict` takes a cycle checkpoint
 of either package or of the reference, and `load_train_state` a JAX
 train_state.ckpt, whose optax SGD trace is torch's momentum_buffer.
+
+Across ranks (al/loop.py) only rank 0 writes, what every rank assembled
+with parallel.gather_to_host before the rank guard; a resume loads the
+file on every rank and the driver places the state again, replicated or
+re-sharded.
 """
 
 from __future__ import annotations
@@ -119,7 +124,8 @@ def train_state_path(save_dir: str) -> str:
 
 def save_train_state(save_dir: str, state: dict, progress: dict) -> str:
     """Epoch-granular full-state snapshot ({"model": state_dict,
-    "optimizer": SGD state_dict, "step": int}) for a mid-cycle resume.
+    "momentum": SGD momentum buffers by parameter name, "step": int}) for
+    a mid-cycle resume.
     Overwrites in place, atomically (a preemption mid-write keeps the old
     one). `progress` records (cycle, run, epoch, run_iter) so the driver
     can replay the loader RNG to the exact batch stream."""
@@ -136,10 +142,11 @@ def save_train_state(save_dir: str, state: dict, progress: dict) -> str:
 def load_train_state(path_or_dir: str, map_location="cpu"):
     """Returns (state, progress dict). Accepts the save_dir or the .ckpt.
 
-    The port's own file gives {"model", "optimizer", "step"}. A JAX
-    TrainState (step, params, batch_stats, opt_state; flax writes the
-    namedtuple as a map of its fields) gives {"model", "momentum",
-    "step"}: "momentum" maps each parameter's name to the optax trace,
+    The port's own file gives {"model", "momentum", "step"} (an older one
+    {"model", "optimizer": SGD state_dict, "step"}). A JAX TrainState
+    (step, params, batch_stats, opt_state; flax writes the namedtuple as
+    a map of its fields) gives the same keys: "momentum" maps each
+    parameter's name to the optax trace,
     which is torch SGD's momentum_buffer (both keep buf = mu * buf +
     (g + wd * p))."""
     d = path_or_dir if os.path.isdir(path_or_dir) else os.path.dirname(path_or_dir)

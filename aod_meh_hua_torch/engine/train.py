@@ -20,14 +20,22 @@ backwards: one backward and one SGD update do both phases. Weight decay
 and momentum act per parameter, so one torch.optim.SGD over the
 non-frozen parameters is update for update the reference's two
 optimizers, and the JAX package's optax chain.
+
+Under a data mesh (parallel/mesh.py) each rank runs the step on its rows
+of the global batch, and the step is the single-process step on the
+whole batch: in JAX the step is one jit over the sharded global batch
+(`num_total = t.num_pos.sum()` counts every rank's positives, JAX :174,
+:241), so the port all-reduces the normaliser and sums the gradients
+(see `DataAxis` and make_step_of_loss).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.assigner import anchor_targets
 from ..ops.losses import (pseudo_logits, sigmoid_focal_loss_elementwise,
@@ -105,6 +113,23 @@ def schedule_lr(tcfg: TrainConfig, outer_epoch: int, inner_epoch: int) -> float:
     return lr
 
 
+class DataAxis:
+    """The ranks that split the global batch's rows (the mesh's `data`
+    dimension): its process group and size. DataAxis() is one process
+    holding the whole batch, where every method is the identity."""
+
+    def __init__(self, group=None, size: int = 1):
+        self.group, self.size = group, size
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the axis (a new tensor, outside autograd)."""
+        if self.group is None:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+
 def _meh_regression(lam: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
                     kind: str) -> torch.Tensor:
     """Per-level MEH loss (Lambda_L2.py:235-252 and the L1/MSLE ablations)."""
@@ -118,11 +143,17 @@ def _meh_regression(lam: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
     raise ValueError(kind)
 
 
-def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
-                        ) -> Tuple[Callable, np.ndarray]:
+def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig,
+                        data: Optional[DataAxis] = None) -> Tuple[Callable, np.ndarray]:
     """Returns (loss_fn, anchors_host); loss_fn(batch: Batch of tensors on
     the model's device, anchors [A, 4]) -> (total, aux) with aux's
-    loss, loss_cls, loss_bbox, loss_meh and num_pos."""
+    loss, loss_cls, loss_bbox, loss_meh and num_pos.
+
+    With a `data` axis, `batch` is this rank's rows of the global batch,
+    and the sum of every rank's total is the global batch's loss:
+    num_pos is the global count, and the MEH means are this rank's share
+    of the global mean."""
+    data = data or DataAxis()
     gen = cfg.build_anchor_generator()
     anchors_host = np.concatenate(gen.grid_anchors(cfg.featmap_sizes())).astype(np.float32)
     bounds = cfg.level_bounds()
@@ -131,7 +162,9 @@ def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
         cls_scores, bbox_preds, lambdas = model(
             prepare_images(batch.images, batch.img_shapes, cfg))
         t = _targets(cfg, batch, anchors)
-        num_total = t.num_pos.sum().float()
+        # trap: the normaliser is global (JAX :174 sums num_pos over the
+        # whole sharded batch); a per-rank count is another gradient
+        num_total = data.sum(t.num_pos.sum().float())
         elem = sigmoid_focal_loss_elementwise(pseudo_logits(cls_scores, cfg.cls_loss),
                                               t.labels, gamma=cfg.focal_gamma,
                                               alpha=cfg.focal_alpha)  # [B, A, C]
@@ -145,6 +178,9 @@ def make_retina_loss_fn(model: torch.nn.Module, cfg: RetinaNetConfig
             for s0, s1 in bounds:
                 loss_meh = loss_meh + _meh_regression(
                     lambdas[:, s0:s1], loss_nor[:, s0:s1], w[:, s0:s1], cfg.meh_loss)
+            # trap: a mean over [B, A_level] (JAX :130); with equal row
+            # slices the global mean is the sum of the local means / size
+            loss_meh = loss_meh / data.size
         total = loss_cls + loss_bbox + loss_meh
         aux = {"loss": total, "loss_cls": loss_cls, "loss_bbox": loss_bbox,
                "loss_meh": loss_meh, "num_pos": num_total}
@@ -176,14 +212,16 @@ def ohem_negatives(ce: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
     return neg & (rank < num_neg[:, None])
 
 
-def make_ssd_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]:
+def make_ssd_loss_fn(model: torch.nn.Module, cfg,
+                     data: Optional[DataAxis] = None) -> Tuple[Callable, np.ndarray]:
     """The SSD loss (make_retina_loss_fn's signature): OHEM softmax CE
     (neg:pos = cfg.neg_pos_ratio) and smooth L1 over the positives, each
     over the total positives; the MEH term regresses lambda onto the
     weighted CE of every anchor (loss_noR, detached): per image the mean
     over all anchors of |lambda + 1e-9 - loss_noR|^2, summed over the
     batch, times cfg.meh_loss_weight, unweighted (the runner never passes
-    mineW)."""
+    mineW). `data` as in make_retina_loss_fn."""
+    data = data or DataAxis()
     gen = cfg.build_anchor_generator()
     anchors_host = np.concatenate(gen.grid_anchors(cfg.featmap_sizes())).astype(np.float32)
     c = cfg.num_classes
@@ -192,10 +230,12 @@ def make_ssd_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]
         cls_scores, bbox_preds, lambdas = model(
             prepare_images(batch.images, batch.img_shapes, cfg))
         t = _targets(cfg, batch, anchors)
-        num_total = t.num_pos.sum().float()
+        num_total = data.sum(t.num_pos.sum().float())  # trap: global, as in the Retina loss
         ce = softmax_cross_entropy(cls_scores, t.labels, reduction="none") * t.label_weights
         pos = (t.labels < c) & (t.label_weights > 0)
         neg = (t.labels == c) & (t.label_weights > 0)
+        # OHEM picks each image's negatives from its own anchors (JAX
+        # :249-255), so the choice stays on the rank that holds the image
         sel_neg = ohem_negatives(ce.detach(), pos, neg, cfg.neg_pos_ratio)
         zero = torch.zeros_like(ce)
         loss_cls = (torch.where(pos, ce, zero).sum() + torch.where(sel_neg, ce, zero).sum()) \
@@ -209,6 +249,7 @@ def make_ssd_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]
             err = torch.abs(lambdas + 1e-9 - ce.detach())  # SSD's loss_noR: the weighted CE
             if cfg.meh_weighted:
                 err = err * t.bbox_weights[..., 0]
+            # a sum over images (JAX :271): the ranks' sums add up, no division
             loss_meh = (err ** 2).mean(dim=1).sum() * cfg.meh_loss_weight
         total = loss_cls + loss_bbox + loss_meh
         aux = {"loss": total, "loss_cls": loss_cls, "loss_bbox": loss_bbox,
@@ -218,38 +259,71 @@ def make_ssd_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]
     return loss_fn, anchors_host
 
 
-def make_loss_fn(model: torch.nn.Module, cfg) -> Tuple[Callable, np.ndarray]:
+def make_loss_fn(model: torch.nn.Module, cfg,
+                 data: Optional[DataAxis] = None) -> Tuple[Callable, np.ndarray]:
     """Family dispatch: the EDL-focal Retina loss or the OHEM-CE SSD loss."""
     if cfg.family == "ssd":
-        return make_ssd_loss_fn(model, cfg)
-    return make_retina_loss_fn(model, cfg)
+        return make_ssd_loss_fn(model, cfg, data)
+    return make_retina_loss_fn(model, cfg, data)
 
 
-def _clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> None:
+def _clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float,
+                         shard_group=None) -> None:
     """optax.clip_by_global_norm on .grad in place: g * max_norm / norm
-    when the global norm exceeds max_norm, g unchanged otherwise."""
+    when the global norm exceeds max_norm, g unchanged otherwise. Under
+    FSDP (`shard_group`, the mesh's fsdp group) each gradient is a DTensor
+    of which this rank holds one shard: the squares of the shards are
+    summed over the group."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if shard_group is None:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        local = [g.to_local() for g in grads]
+        sq = torch.stack([torch.linalg.vector_norm(g) for g in local]).square().sum()
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=shard_group)
+        norm, grads = sq.sqrt(), local
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
 
 
+def _sum_gradients(params: Iterable[torch.Tensor], data: DataAxis) -> None:
+    """Data parallel: every rank's gradient summed over the data axis, in
+    place, through one flat buffer (one all_reduce per step). A sum, not
+    DDP's mean: each rank's loss already carries the global normaliser.
+    Every rank flattens the same parameters: one backward reaches every
+    trainable one, the MEH branch included (its input is detached, not
+    its weights), and with use_meh=False no rank has the branch. BN is
+    frozen (RetinaNet) or absent (SSD), so nothing needs sync-BN."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch._utils._flatten_dense_tensors(grads)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=data.group)
+    for g, r in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(r)
+
+
 def make_train_step(model: torch.nn.Module, cfg,
-                    optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
+                    optimizer: torch.optim.Optimizer, device="cuda", mesh=None) -> Callable:
     """Returns step(batch: Batch) -> aux (detached scalar tensors on
     `device`): one forward, one backward and one optimizer step on
     `model`, which lives on `device` with fused_blocks off (the fused
     kernel has no backward). Where the optimizer carries a grad_clip
     (make_optimizer's TrainConfig.grad_clip), the gradients are clipped
     by their global norm over every parameter that has one, the frozen
-    ones included, before the optimizer sees them."""
-    return make_step_of_loss(model, cfg, optimizer, make_loss_fn, device)
+    ones included, before the optimizer sees them.
+
+    mesh: a parallel/mesh.py DeviceMesh. `batch` is then this rank's rows
+    of the global batch (shard_batch), the model is replicated
+    (parallel.replicate: data parallel) or sharded on the mesh's fsdp
+    dimension (parallel.shard_params_fsdp), and the step is the global
+    batch's step; aux holds the global values."""
+    return make_step_of_loss(model, cfg, optimizer, make_loss_fn, device, mesh)
 
 
 def make_step_of_loss(model: torch.nn.Module, cfg, optimizer: torch.optim.Optimizer,
-                      make_loss: Callable, device="cuda") -> Callable:
+                      make_loss: Callable, device="cuda", mesh=None) -> Callable:
     """make_train_step around the loss that make_loss(model, cfg) returns,
-    a (loss_fn, anchors_host) pair of make_retina_loss_fn's contract."""
+    a (loss_fn, anchors_host) pair of make_retina_loss_fn's contract;
+    under a mesh make_loss(model, cfg, data) must take the DataAxis."""
     dev = resolve_device(device)
     if getattr(cfg, "fused_blocks", False):
         raise ValueError("the fused bottleneck kernel has no backward; train with "
@@ -258,7 +332,14 @@ def make_step_of_loss(model: torch.nn.Module, cfg, optimizer: torch.optim.Optimi
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, the step on {dev}")
     grad_clip = optimizer.defaults.get("grad_clip")
-    loss_fn, anchors_host = make_loss(model, cfg)
+    data, shard_group = None, None
+    if mesh is None:
+        loss_fn, anchors_host = make_loss(model, cfg)
+    else:
+        from ..parallel.mesh import data_axis_of, fsdp_group_of
+
+        data, shard_group = DataAxis(*data_axis_of(mesh)), fsdp_group_of(mesh)
+        loss_fn, anchors_host = make_loss(model, cfg, data)
     anchors = AnchorTable(anchors_host)
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -271,8 +352,17 @@ def make_step_of_loss(model: torch.nn.Module, cfg, optimizer: torch.optim.Optimi
         model.zero_grad(set_to_none=True)
         total, aux = loss_fn(b, anchors.get(dev))
         total.backward()
+        if data is not None:
+            if shard_group is None:
+                _sum_gradients(model.parameters(), data)
+            # under FSDP the backward's reduce-scatter has summed them
+            # already (shard_params_fsdp sets its divide factor)
+            parts = ("loss", "loss_cls", "loss_bbox", "loss_meh")
+            summed = data.sum(torch.stack([aux[k].detach() for k in parts]))
+            aux = {**dict(zip(parts, summed.unbind())), "num_pos": aux["num_pos"]}
+        # clipping after the reduction, on the global gradient
         if grad_clip:
-            _clip_by_global_norm(model.parameters(), grad_clip)
+            _clip_by_global_norm(model.parameters(), grad_clip, shard_group)
         optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 

@@ -13,15 +13,24 @@ port's, the JAX package's flax-msgpack files or the reference's mmdet
 numerics process-wide (utils/device.py pin_numerics).
 
 --dtype defaults to float32 here, where the JAX CLI's default is
-bfloat16: the port's models run float32, and --dtype bfloat16, --int8 and
---num-devices > 1 raise NotImplementedError with their ROADMAP item.
+bfloat16: the port's models run float32, and --dtype bfloat16 and --int8
+raise NotImplementedError with their ROADMAP item.
+
+--num-devices N shards the sweep over N ranks, one device each: under a
+launcher (torchrun, slurm, mpi) the ranks come from its environment,
+else the CLI starts N local ranks (spawn). Each rank sweeps its
+parallel.rank_indices slice at --batch-size / N (the batch is global, as
+in JAX), the scores meet in parallel.allgather_sum, and rank 0 writes
+--out. MC dropout draws rank r's masks from seed + r, so its scores
+depend on the rank count.
 
     python -m aod_meh_hua_torch.tools.score_pool --voc07 .../VOC2007 \\
-        --checkpoint c.ckpt --out unc.npy [--cpu]
+        --checkpoint c.ckpt --out unc.npy [--cpu] [--num-devices N]
     ... --method ensemble --checkpoint a.ckpt b.ckpt c.ckpt
     ... --method mcdropout --passes 25
 
-In process: main(argv) returns the scores, [N] float64 in pool order.
+In process: main(argv) returns the scores, [N] float64 in pool order (in
+the process that starts local ranks: None, once every rank is done).
 """
 
 from __future__ import annotations
@@ -29,12 +38,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from aod_meh_hua_torch.parallel.launch import detect_launch_env, spawn_local_ranks
 from aod_meh_hua_torch.utils.device import pin_numerics
 
 
@@ -56,9 +67,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--cls-weight", action="store_true",
                    help="clsW: weight image scores by distinct-class count")
     p.add_argument("--passes", type=int, default=25, help="MC-dropout passes")
-    p.add_argument("--batch-size", type=int, default=8, help="sweep batch")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="GLOBAL sweep batch (split across --num-devices)")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="shard the sweep over N devices (not ported)")
+                   help="shard the pool sweep over N devices, one process each")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="float32 (the JAX CLI's default is bfloat16, which the port's "
                         "models do not run yet)")
@@ -75,7 +87,6 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def refuse_unported(args) -> None:
     """Raise for a flag of a mode the port does not have yet."""
     refused = [
-        (args.num_devices is not None and args.num_devices > 1, "--num-devices", "12"),
         (args.int8, "--int8", "16"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
@@ -84,9 +95,12 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
     args = parse_args(argv)
     refuse_unported(args)
+    if args.num_devices and args.num_devices > 1 and not detect_launch_env():
+        return spawn_local_ranks(main, sys.argv[1:] if argv is None else argv,
+                                 args.num_devices, args.cpu)
     pin_numerics()
     from aod_meh_hua_torch.al.baselines import score_pool_ensemble, score_pool_mc_dropout
     from aod_meh_hua_torch.al.uncertainty import score_num_objects, score_pool
@@ -97,9 +111,21 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     from aod_meh_hua_torch.data.voc import ConcatVOC, VOCDataset
     from aod_meh_hua_torch.models.detector import build_retinanet
     from aod_meh_hua_torch.models.ssd_detector import build_ssd
+    from aod_meh_hua_torch.parallel import allgather_sum, init_distributed, rank_indices
+    from aod_meh_hua_torch.parallel.launch import rank_device
     from aod_meh_hua_torch.utils.config import RetinaNetConfig, SSDConfig, tiny_test_config
 
     device = "cpu" if args.cpu else "cuda"
+    rank, world = 0, 1
+    if detect_launch_env():
+        info = init_distributed(device=device)
+        rank, world = info["process_index"], info["process_count"]
+        device = rank_device(device)
+    if args.num_devices is not None and args.num_devices != world:
+        raise ValueError(f"--num-devices {args.num_devices}: {world} processes are running, "
+                         "one device each")
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} must divide by --num-devices {world}")
     if args.mini:
         if args.family == "ssd":
             cfg, pipe = SSDConfig(width_mult=0.125, max_gt=8), None
@@ -128,8 +154,11 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     rng = np.random.RandomState(args.seed)
     cache = None
     if args.canvas_cache_dir:
-        cache = open_canvas_cache(args.canvas_cache_dir, pool, pipe, log=print)
-    loader = EvalLoader(pool, np.arange(n), pipe, batch_size=args.batch_size, cache=cache)
+        cache_dir = args.canvas_cache_dir if world == 1 else \
+            os.path.join(args.canvas_cache_dir, f"r{rank}")  # a rank sweeps its own slice
+        cache = open_canvas_cache(cache_dir, pool, pipe, log=print)
+    loader = EvalLoader(pool, rank_indices(n, rank, world), pipe,
+                        batch_size=args.batch_size // world, cache=cache)
 
     ckpts = args.checkpoint or [None]
     model = init_detector(cfg, checkpoint=ckpts[0], seed=args.seed, device=device)
@@ -151,12 +180,16 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
         build = build_ssd if mc_cfg.family == "ssd" else build_retinanet
         mc_model = build(mc_cfg, device=device, seed=args.seed)
         mc_model.load_state_dict(model.state_dict())  # dropout adds no parameter
-        gen = torch.Generator(device=device).manual_seed(args.seed)
+        gen = torch.Generator(device=device).manual_seed(args.seed + rank)
         unc = score_pool_mc_dropout(mc_model, mc_cfg, loader, n, gen, args.passes,
                                     device=device)
     else:  # hua
-        unc, _ = score_pool(model, cfg, loader, n, rng=rng, device=device)
+        unc, _ = score_pool(model, cfg, loader, n, rng=rng, device=device, progress=True)
+    if world > 1 and args.method not in ("random", "numobj"):
+        unc = allgather_sum(unc)  # each rank swept its slice
     dt = time.time() - t0
+    if rank:
+        return unc
 
     np.save(args.out, unc)
     print(f"scored {n} images with {args.method} in {dt:.1f}s "

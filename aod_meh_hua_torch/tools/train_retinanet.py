@@ -12,10 +12,19 @@ TF32, deterministic cuDNN.
 The flags of modes the port does not have yet raise NotImplementedError
 with their ROADMAP item.
 
-    python -m aod_meh_hua_torch.tools.train_retinanet --voc07 .../VOC2007 \
-        --work-dir work_dirs/retinanet_meh [--mini] [--cpu]
+Several ranks, one device each (al/loop.py ALDriver): under a launcher
+(torchrun, slurm, mpi) or with --distributed the ranks come from the
+environment or --coordinator/--num-processes/--process-id, and
+--num-devices counts the global devices; --num-devices N alone starts N
+local ranks (spawn), rank r on card r (or on the CPU under --cpu).
+--fsdp F shards the model over F of them (ZeRO-3).
 
-In process: main(argv) runs the experiment and returns the ALDriver.
+    python -m aod_meh_hua_torch.tools.train_retinanet --voc07 .../VOC2007 \
+        --work-dir work_dirs/retinanet_meh [--mini] [--cpu] [--num-devices N [--fsdp F]]
+    torchrun --nproc-per-node N -m aod_meh_hua_torch.tools.train_retinanet ...
+
+In process: main(argv) runs the experiment and returns the ALDriver (in
+the process that starts local ranks: None, once every rank is done).
 """
 
 from __future__ import annotations
@@ -23,11 +32,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from aod_meh_hua_torch.parallel.launch import launcher_requested, spawn_local_ranks
 from aod_meh_hua_torch.utils.device import pin_numerics
 
 
@@ -67,8 +78,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--batch-size", type=int, default=None, help="train batch")
     p.add_argument("--score-batch-size", type=int, default=None,
                    help="pool-scoring / eval batch size (default 64)")
-    p.add_argument("--fsdp", type=int, default=1, help="ZeRO-3 degree (not ported)")
-    p.add_argument("--num-devices", type=int, default=None, help="data parallel (not ported)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="ZeRO-3 parameter-sharding degree: folds the device "
+                        "mesh to (num_devices/fsdp, fsdp) = (data, fsdp) and "
+                        "shards params + optimizer state over 'fsdp'")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="data-parallel over N devices, one process each (the "
+                        "reference's DDP mode, train.py:75-85); without a launcher "
+                        "environment the CLI starts the N local ranks itself")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--int8-scoring", action="store_true", help="int8 pool scoring (not ported)")
     p.add_argument("--cycles", type=int, default=None, help="override number of AL cycles")
@@ -77,10 +94,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--mini", action="store_true",
                    help="smoke-test mode: shrunken model/canvas + 1-epoch schedule")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
-    p.add_argument("--distributed", action="store_true", help="multi-host (not ported)")
-    p.add_argument("--coordinator", default=None, help="multi-host (not ported)")
-    p.add_argument("--num-processes", type=int, default=None, help="multi-host (not ported)")
-    p.add_argument("--process-id", type=int, default=None, help="multi-host (not ported)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-host: init torch.distributed, train over the "
+                        "global mesh, rank-shard the pool/eval sweeps "
+                        "(the reference's --launcher DDP mode)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port (manual launches; "
+                        "read from the launcher's environment otherwise)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--canvas-cache-dir", default="auto",
                    help="decoded-canvas cache root ('auto' = <work_dir>/canvas_cache, "
                         "'none' = off)")
@@ -97,12 +119,6 @@ def refuse_unported(args) -> None:
     get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     refused = [
         (args.config, "--config (reference-style config files)", "13"),
-        (args.distributed, "--distributed", "12"),
-        (args.coordinator is not None, "--coordinator", "12"),
-        (args.num_processes is not None, "--num-processes", "12"),
-        (args.process_id is not None, "--process-id", "12"),
-        (args.fsdp > 1, "--fsdp", "12"),
-        (args.num_devices is not None and args.num_devices > 1, "--num-devices", "12"),
         (get("int8_scoring", False), "--int8-scoring", "16"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
@@ -141,9 +157,24 @@ def attach_pretrained_backbone(model, path: str) -> None:
     model.backbone.load_state_dict({k: sd[k] for k in want})
 
 
+def driver_dist_kwargs(args) -> dict:
+    """The ALDriver's distributed arguments from either train CLI's flags."""
+    return dict(num_devices=args.num_devices, distributed=launcher_requested(args),
+                coordinator=args.coordinator, num_processes=args.num_processes,
+                process_id=args.process_id, fsdp=args.fsdp)
+
+
+def spawns_local_ranks(args) -> bool:
+    """--num-devices N > 1 with no launcher: the CLI starts the N ranks."""
+    return bool(args.num_devices and args.num_devices > 1 and not launcher_requested(args))
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     refuse_unported(args)
+    if spawns_local_ranks(args):
+        return spawn_local_ranks(main, sys.argv[1:] if argv is None else argv,
+                                 args.num_devices, args.cpu)
     pin_numerics()
     from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
     from aod_meh_hua_torch.data.pipeline import PipelineConfig
@@ -181,7 +212,7 @@ def main(argv: Optional[Sequence[str]] = None):
                       validate=not args.no_validate,
                       cache_dir=None if args.canvas_cache_dir == "none" else args.canvas_cache_dir,
                       baseline=args.baseline, ensemble_size=args.ensemble_size,
-                      device="cpu" if args.cpu else "cuda")
+                      device="cpu" if args.cpu else "cuda", **driver_dist_kwargs(args))
     if args.pretrained:
         if not os.path.exists(args.pretrained):
             raise FileNotFoundError(args.pretrained)

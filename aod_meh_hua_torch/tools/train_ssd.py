@@ -10,12 +10,15 @@ VGG to width 0.125 and the schedule to one epoch per run and two cycles.
 It runs on the card; --cpu runs it on the CPU. main pins the numerics
 process-wide (utils/device.py pin_numerics): no TF32, deterministic
 cuDNN. The flags of modes the port does not have yet raise
-NotImplementedError with their ROADMAP item.
+NotImplementedError with their ROADMAP item. Several ranks as in
+tools/train_retinanet.py (a launcher, --distributed, or --num-devices N
+alone, which starts the local ranks; --fsdp).
 
     python -m aod_meh_hua_torch.tools.train_ssd --voc07 .../VOC2007 \
-        --work-dir work_dirs/ssd_meh [--mini] [--cpu]
+        --work-dir work_dirs/ssd_meh [--mini] [--cpu] [--num-devices N [--fsdp F]]
 
-In process: main(argv) runs the experiment and returns the ALDriver.
+In process: main(argv) runs the experiment and returns the ALDriver (in
+the process that starts local ranks: None, once every rank is done).
 """
 
 from __future__ import annotations
@@ -23,13 +26,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from aod_meh_hua_torch.models.vgg import MMCV_VGG16_CONV_IDX
-from aod_meh_hua_torch.tools.train_retinanet import hua_from_args, refuse_unported
+from aod_meh_hua_torch.parallel.launch import spawn_local_ranks
+from aod_meh_hua_torch.tools.train_retinanet import (driver_dist_kwargs, hua_from_args,
+                                                     refuse_unported, spawns_local_ranks)
 from aod_meh_hua_torch.utils.device import pin_numerics
 
 
@@ -61,18 +67,29 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--batch-size", type=int, default=8, help="train batch")
     p.add_argument("--score-batch-size", type=int, default=None,
                    help="pool-scoring / eval batch size (default 64)")
-    p.add_argument("--num-devices", type=int, default=None, help="data parallel (not ported)")
-    p.add_argument("--fsdp", type=int, default=1, help="ZeRO-3 degree (not ported)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="data-parallel over N devices, one process each (the "
+                        "reference's DDP mode, train.py:75-85); without a launcher "
+                        "environment the CLI starts the N local ranks itself")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="ZeRO-3 parameter-sharding degree: folds the device "
+                        "mesh to (num_devices/fsdp, fsdp) = (data, fsdp) and "
+                        "shards params + optimizer state over 'fsdp'")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--cycles", type=int, default=None, help="override number of AL cycles")
     p.add_argument("--pretrained", default=None, help="mmcv vgg16_caffe .pth")
     p.add_argument("--mini", action="store_true",
                    help="smoke mode: thin VGG + 1-epoch schedule")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
-    p.add_argument("--distributed", action="store_true", help="multi-host (not ported)")
-    p.add_argument("--coordinator", default=None, help="multi-host (not ported)")
-    p.add_argument("--num-processes", type=int, default=None, help="multi-host (not ported)")
-    p.add_argument("--process-id", type=int, default=None, help="multi-host (not ported)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-host: init torch.distributed, train over the "
+                        "global mesh, rank-shard the pool/eval sweeps "
+                        "(the reference's --launcher DDP mode)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port (manual launches; "
+                        "read from the launcher's environment otherwise)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--canvas-cache-dir", default="auto",
                    help="decoded-canvas cache root ('auto' = <work_dir>/canvas_cache, "
                         "'none' = off)")
@@ -97,6 +114,9 @@ def attach_pretrained_vgg(model, path: str) -> None:
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     refuse_unported(args)
+    if spawns_local_ranks(args):
+        return spawn_local_ranks(main, sys.argv[1:] if argv is None else argv,
+                                 args.num_devices, args.cpu)
     pin_numerics()
     from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
     from aod_meh_hua_torch.utils.config import ALConfig, SSDConfig, TrainConfig
@@ -127,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None):
     driver = ALDriver(model_cfg, train_cfg, al_cfg, paths, validate=not args.no_validate,
                       name="ssd_meh",
                       cache_dir=None if args.canvas_cache_dir == "none" else args.canvas_cache_dir,
-                      device="cpu" if args.cpu else "cuda")
+                      device="cpu" if args.cpu else "cuda", **driver_dist_kwargs(args))
     if args.pretrained:
         if not os.path.exists(args.pretrained):
             raise FileNotFoundError(args.pretrained)

@@ -96,7 +96,25 @@
    checkpoints, mcdropout with 25 passes), and the RetinaNet CLI with
    --baseline ensemble --ensemble-size 3 for two cycles under the AL
    phase's cuts; neither launches a kernel, and both pin the numerics.
-17. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+17. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+   NCCL refuses two ranks on one card): NCCL at world size 1, where the
+   full-width data-parallel step (TrainConfig(), batch 2) must equal the
+   plain step bit for bit after 2 steps and the FSDP2 step must be
+   within 1e-6 of each tensor's max-abs; then two ranks sharing cuda:0
+   over gloo, subprocesses of this script with torchrun's variables
+   (--rank-program): the DP and FSDP2 steps on the same batch, one image
+   per rank, held to the single-process step to 1e-4 of max-abs (a
+   tensor that starts at zero, to that or to the largest spread that the
+   plain step's function computed in other orders shows on such
+   tensors, see DIST_RTOL); the
+   fused Entropy_NMS sweep of the 26 canvases rank-sliced, merged with
+   allgather_sum and held to the single-process sweep at rtol 1e-4 but
+   for named decision flips, with each rank's fused launches, img/s and
+   peak memory; last the RetinaNet CLI on two ranks under the AL phase's
+   cuts on its tree, which must acquire the AL phase's X_L_1 (but for
+   named near-ties at the cut), only rank 0 writing. Every subprocess
+   has a wall limit and a process-group timeout.
+18. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -107,6 +125,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2360,6 +2379,568 @@ def al_ensemble_path(device, voc07: Path) -> dict:
                 unc_1_nonzero=int((unc > 0).sum()), peak_mem_bytes=peak, launches=launches)
 
 
+# --- distributed phase: parallel/ on one card ---------------------------------------
+
+DIST = REPO / "build" / "chip_smoke_dist"
+DIST_RANKS = 2           # gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)
+DIST_PG_TIMEOUT_S = 180  # the ranks' process-group timeout: a lost rank fails the others
+DIST_WALL_S = 600        # each group of rank subprocesses' wall limit
+DIST_STEPS = 2           # the steps held to the plain step's, then DIST_TIMED timed ones
+DIST_TIMED = 5
+DIST_BATCH_SEED = 5      # the training path's landscape batch
+FSDP_TOL = 1e-6          # FSDP at world size 1 against the plain step, of each tensor's max-abs
+DIST_RTOL = 1e-4         # the ranks' steps and sweeps against the single process's
+# A rank's step sums one image's gradient where the single process sums two
+# in one kernel. Every tensor whose initial value is not all zero is held to
+# DIST_RTOL of its max-abs. A tensor that starts at zero (the BN, FPN and
+# head biases) is all update after two steps, and the cancellation in its
+# gradient sums carries float32 rounding far past DIST_RTOL of its small
+# scale. A tensor's spread is the largest difference between any two
+# single-process runs that compute the plain step's function in other
+# orders: the rows as given and in the other DIST_ROW_ORDERS (swapped, or
+# each row twice, which leaves every loss term's ratio to the global
+# positive count as it was), and one image at a time (one_image_at_a_time),
+# all under deterministic cuDNN (autotuned algorithms are not reproducible
+# from run to run). One such run alone moves a tensor by a few times to
+# more than ten times what another moves it, so one tensor's spread is no
+# limit for it; a tensor that starts at zero is held to DIST_RTOL or to the
+# largest spread of any tensor that starts at zero.
+DIST_ROW_ORDERS = ((0, 1), (1, 0), (0, 1, 0, 1), (1, 0, 1, 0), (0, 0, 1, 1))
+
+
+def dist_train_setup(cfg):
+    """The distributed steps' inputs: the training path's landscape batch
+    of TrainConfig().batch_size (one image per rank) and seed-0 weights."""
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    tcfg = TrainConfig()
+    lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, DIST_BATCH_SEED)
+    return tcfg, lcfg, batch
+
+
+def dist_steps(model, lcfg, tcfg, batch, device, mesh=None, timed: int = DIST_TIMED) -> dict:
+    """DIST_STEPS steps of `model` (placed on `mesh`, or plain), their aux
+    and the gathered weights after them, then `timed` timed steps (CUDA
+    events): ms per step."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
+    from aod_meh_hua_torch.parallel import gather_to_host, shard_batch
+
+    opt = create_train_state(model, tcfg)
+    step = make_train_step(model, lcfg, opt, device=device, mesh=mesh)
+    rows = batch if mesh is None else shard_batch(batch, mesh)
+    rows = type(rows)(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in rows))
+    auxes = [{k: float(v) for k, v in step(rows).items()} for _ in range(DIST_STEPS)]
+    weights = gather_to_host(model)
+    if not timed:
+        return {"aux": auxes, "weights": weights}
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        step(rows)
+    end.record()
+    torch.cuda.synchronize()
+    return {"aux": auxes, "weights": weights, "ms_per_step": start.elapsed_time(end) / timed}
+
+
+def one_image_at_a_time(model, lcfg, tcfg, batch, device) -> dict:
+    """The plain step's function, computed one image at a time in one
+    process: each row's forward and backward alone (batch 1, the plain
+    loss, no data axis), its cls and bbox terms moved from its own positive
+    count to the batch's and its MEH mean divided by the rows, the
+    gradients summed by autograd; then the plain step's clip and SGD step.
+    The weights after DIST_STEPS steps."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import Batch, as_tensor
+    from aod_meh_hua_torch.engine.train import (_clip_by_global_norm, create_train_state,
+                                                make_loss_fn)
+    from aod_meh_hua_torch.parallel import gather_to_host
+
+    opt = create_train_state(model, tcfg)
+    loss_fn, anchors_host = make_loss_fn(model, lcfg)
+    anchors = torch.from_numpy(anchors_host).to(device)
+    n = len(batch.images)
+    rows = [Batch(images=as_tensor(batch.images[i:i + 1], device),
+                  gt_boxes=as_tensor(batch.gt_boxes[i:i + 1], device, torch.float32),
+                  gt_labels=as_tensor(batch.gt_labels[i:i + 1], device, torch.long),
+                  gt_valid=as_tensor(batch.gt_valid[i:i + 1], device, torch.bool),
+                  anchor_valid=as_tensor(batch.anchor_valid[i:i + 1], device, torch.bool),
+                  img_shapes=as_tensor(batch.img_shapes[i:i + 1], device)) for i in range(n)]
+    for _ in range(DIST_STEPS):
+        model.zero_grad(set_to_none=True)
+        auxes = [loss_fn(r, anchors)[1] for r in rows]
+        num_pos = sum(a["num_pos"] for a in auxes)
+        if not all(a["num_pos"] > 0 for a in auxes):
+            fail(f"one image at a time: an image without positives, "
+                 f"{[a['num_pos'] for a in auxes]}")
+        for a in auxes:
+            ((a["loss_cls"] + a["loss_bbox"]) * (a["num_pos"] / num_pos)
+             + a["loss_meh"] / n).backward()
+        if opt.defaults.get("grad_clip"):
+            _clip_by_global_norm(model.parameters(), opt.defaults["grad_clip"])
+        opt.step()
+    return gather_to_host(model)
+
+
+def errs_of_scale(got: dict, want: dict) -> dict:
+    """Per tensor, max|got - want| / max|want| (inf where an integer
+    tensor differs), largest first."""
+    errs = {}
+    for k, w in want.items():
+        if w.is_floating_point():
+            scale = max(w.abs().max().item(), 1e-30)
+            errs[k] = (got[k].float() - w.float()).abs().max().item() / scale
+        else:
+            errs[k] = 0.0 if torch_equal(got[k], w) else float("inf")
+    return dict(sorted(errs.items(), key=lambda kv: -kv[1]))
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def nccl_world1_path(device) -> tuple:
+    """NCCL at world size 1 on the card: the full-width RetinaNet's
+    data-parallel step (replicated, gradients all-reduced) and FSDP2 step
+    (a (1, 1) (data, fsdp) mesh) against the plain step from the same
+    weights on the same batch: DP bit for bit after DIST_STEPS steps,
+    FSDP within FSDP_TOL of each tensor's max-abs; ms per step of each.
+    Then the plain step's function in the other DIST_ROW_ORDERS and one
+    image at a time. Returns the result, the initial weights, the plain
+    run (the ranks' reference), each float tensor's spread over those
+    runs, of its max-abs, and the one-image-at-a-time run's weights."""
+    import torch
+    import torch.distributed as dist
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.parallel import (init_distributed, make_mesh, make_mesh_2d,
+                                            replicate, shard_params_fsdp)
+    from aod_meh_hua_torch.parallel.launch import free_port
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    cfg = RetinaNetConfig()
+    tcfg, lcfg, batch = dist_train_setup(cfg)
+    init = {k: v.clone() for k, v in build_retinanet(cfg, device=device, seed=0)
+            .state_dict().items()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the plain step repeats bit for bit
+    info = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=device,
+                            timeout=DIST_PG_TIMEOUT_S)
+    if dist.get_backend() != "nccl" or info["process_count"] != 1:
+        fail(f"NCCL world 1: the group is {dist.get_backend()}, {info}")
+    runs = {}
+    try:
+        for kind in ("plain", "dp", "fsdp"):
+            model = build_retinanet(cfg, device=device, seed=0)
+            model.load_state_dict(init)
+            mesh = None
+            if kind == "dp":
+                mesh = make_mesh(1, device_type="cuda")
+                replicate(model, mesh)
+            elif kind == "fsdp":
+                mesh = make_mesh_2d(1, 1, device_type="cuda")
+                shard_params_fsdp(model, mesh)
+            runs[kind] = dist_steps(model, lcfg, tcfg, batch, device, mesh)
+            del model
+            torch.cuda.empty_cache()
+        # the plain step's spread: each float tensor's least and largest
+        # value over the runs of its function, from the reference run
+        lo = {k: v.clone() for k, v in runs["plain"]["weights"].items() if v.is_floating_point()}
+        hi = {k: v.clone() for k, v in lo.items()}
+        for order in DIST_ROW_ORDERS[1:] + ("one image at a time",):
+            model = build_retinanet(cfg, device=device, seed=0)
+            model.load_state_dict(init)
+            if order == "one image at a time":
+                weights = runs["one_image"] = one_image_at_a_time(model, lcfg, tcfg, batch, device)
+            else:
+                rows = type(batch)(*(a[list(order)] for a in batch))
+                weights = dist_steps(model, lcfg, tcfg, rows, device, timed=0)["weights"]
+            for k in lo:
+                torch.minimum(lo[k], weights[k], out=lo[k])
+                torch.maximum(hi[k], weights[k], out=hi[k])
+            del model, weights
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    plain, dp, fsdp = runs["plain"], runs["dp"], runs["fsdp"]
+    if dp["aux"] != plain["aux"] or dp["weights"].keys() != plain["weights"].keys() or \
+            not all(torch_equal(dp["weights"][k], v) for k, v in plain["weights"].items()):
+        fail(f"NCCL world 1: the DP step is not the plain step bit for bit: {dp['aux']} "
+             f"against {plain['aux']}")
+    errs = errs_of_scale(fsdp["weights"], plain["weights"])
+    fsdp_err = next(iter(errs.values()))
+    if fsdp_err > FSDP_TOL or not np.allclose(
+            [a[k] for a in fsdp["aux"] for k in LOSS_KEYS],
+            [a[k] for a in plain["aux"] for k in LOSS_KEYS], rtol=FSDP_TOL, atol=0):
+        fail(f"NCCL world 1: FSDP is {fsdp_err} of max-abs off the plain step "
+             f"(worst {list(errs.items())[:6]}; aux {fsdp['aux']} against {plain['aux']})")
+    spread = {k: (hi[k] - lo[k]).max().item()
+              / max(plain["weights"][k].abs().max().item(), 1e-30) for k in lo}
+    spread = dict(sorted(spread.items(), key=lambda kv: -kv[1]))
+    result = {"batch": tcfg.batch_size, "steps": DIST_STEPS, "timed_steps": DIST_TIMED,
+              "dp_bit_equal": True, "fsdp_max_err_of_scale": fsdp_err,
+              "plain_ms_per_step": plain["ms_per_step"], "dp_ms_per_step": dp["ms_per_step"],
+              "fsdp_ms_per_step": fsdp["ms_per_step"], "aux": plain["aux"],
+              "plain_runs": len(DIST_ROW_ORDERS) + 1,
+              "plain_spread_of_scale": list(spread.items())[:4]}
+    return result, init, plain, spread, runs["one_image"]
+
+
+def rank_triples(triples, rank: int, world: int, b: int = BATCH):
+    """This rank's parallel.rank_indices slice of a pool of triples, in
+    batches of b per orientation (the last padded)."""
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.parallel import rank_indices
+
+    n = sum(len(t[2]) for t in triples)
+    mine = set(rank_indices(n, rank, world).tolist())
+    out = []
+    for orientation in ("landscape", "portrait"):
+        rows = [(t[1], r, int(t[2][r])) for t in triples if t[0] == orientation
+                for r in range(len(t[2])) if int(t[2][r]) in mine]
+        for i in range(0, len(rows), b):
+            chunk = rows[i:i + b]
+            k = len(chunk)
+            chunk = chunk + [chunk[-1]] * (b - k)
+            arrays = [np.stack([bt[f][r] for bt, r, _ in chunk]) for f in range(3)]
+            out.append((orientation, EvalBatch(*arrays, np.arange(b) < k),
+                        np.array([j for *_, j in chunk[:k]])))
+    return out
+
+
+def run_rank_programs(program: str, spec: dict) -> list:
+    """`program` in DIST_RANKS subprocesses of this script (--rank-program),
+    with torchrun's variables, every rank on cuda:0 (LOCAL_RANK 0, as two
+    hosts of one card each) over gloo; their JSON results in rank order.
+    Fails when a rank fails or outlives DIST_WALL_S (then it is killed)."""
+    from aod_meh_hua_torch.parallel.launch import free_port
+
+    DIST.mkdir(parents=True, exist_ok=True)
+    spec_path = DIST / f"{program}.json"
+    spec_path.write_text(json.dumps(spec))
+    port = free_port()
+    procs, logs = [], []
+    for r in range(DIST_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DIST_RANKS), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(DIST / f"{program}_r{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, "-u", "-X", "faulthandler",
+                                       str(REPO / "chip_smoke.py"),
+                                       "--rank-program", program, str(spec_path)],
+                                      env=env, stdout=log, stderr=subprocess.STDOUT,
+                                      cwd=str(REPO)))
+    deadline = time.time() + DIST_WALL_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * DIST_RANKS:
+        tails = {r: (DIST / f"{program}_r{r}.log").read_text()[-3000:] for r in range(DIST_RANKS)}
+        fail(f"{program}: rank exit codes {codes} (killed past {DIST_WALL_S} s where "
+             f"negative); log tails {tails}")
+    return [json.loads((DIST / f"{program}_r{r}.result.json").read_text())
+            for r in range(DIST_RANKS)]
+
+
+def rank_setup():
+    """A rank subprocess: join the group from the launcher's variables
+    (gloo; its card from LOCAL_RANK), the numerics the CLIs pin."""
+    from aod_meh_hua_torch.parallel import init_distributed
+    from aod_meh_hua_torch.parallel.launch import rank_device
+    from aod_meh_hua_torch.utils.device import pin_numerics
+
+    pin_numerics()
+    info = init_distributed(backend="gloo", timeout=DIST_PG_TIMEOUT_S, device="cuda")
+    return info["process_index"], info["process_count"], rank_device("cuda")
+
+
+def rank_train_and_sweep(spec: dict) -> dict:
+    """Rank program: the full-width DP step over gloo on the global batch
+    (one image per rank), FSDP2 on a (1, 2) mesh where gloo carries it,
+    then the fused Entropy_NMS sweep of this rank's slice of the
+    synthetic pool, merged with allgather_sum."""
+    import torch
+    import torch.distributed as dist
+    from aod_meh_hua_torch.al.uncertainty import score_pool
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.parallel import (allgather_sum, barrier, make_mesh, make_mesh_2d,
+                                            replicate, shard_params_fsdp)
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    rank, world, device = rank_setup()
+    out = {"rank": rank, "world": world, "device": str(device),
+           "backend": dist.get_backend()}
+    cfg = RetinaNetConfig()
+    tcfg, lcfg, batch = dist_train_setup(cfg)
+    init = torch.load(spec["train_init"], map_location="cpu")
+    # gloo carries FSDP2's all_gather_into_tensor and reduce_scatter_tensor
+    # on CUDA tensors through the host
+    meshes = [("dp", lambda: make_mesh(world, device_type="cuda"), replicate),
+              ("fsdp", lambda: make_mesh_2d(1, world, device_type="cuda"), shard_params_fsdp)]
+    for kind, make, place in meshes:
+        model = build_retinanet(cfg, device=device, seed=0)
+        model.load_state_dict(init)
+        mesh = make()
+        place(model, mesh)
+        barrier(kind)
+        torch.cuda.reset_peak_memory_stats(device)
+        run = dist_steps(model, lcfg, tcfg, batch, device, mesh)
+        out[kind] = {"aux": run["aux"], "ms_per_step": run["ms_per_step"],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(device)}
+        if rank == 0:
+            torch.save(run["weights"], DIST / f"{kind}_weights.pt")
+        del model, run
+        torch.cuda.empty_cache()
+
+    scfg = RetinaNetConfig(fused_blocks=True)
+    model = build_retinanet(scfg, device=device, seed=0)
+    model.load_state_dict(torch.load(spec["score_model"], map_location="cpu"))
+    triples, n = synthetic_pool(scfg)
+    mine = rank_triples(triples, rank, world)
+    score_pool(model, scfg, mine[:1], n, device=device)  # warm-up, outside the count
+    torch.cuda.synchronize()
+    barrier("sweep")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.time()
+    unc, _ = score_pool(model, scfg, mine, n, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    images = sum(int(t[1].valid.sum()) for t in mine)
+    out["sweep"] = {"images": images, "forwards": len(mine), "seconds": wall,
+                    "img_per_s": images / wall, "launches": read_launches(),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(device)}
+    merged = allgather_sum(unc)
+    if rank == 0:
+        np.save(DIST / "merged_unc.npy", merged)
+    dist.destroy_process_group()
+    return out
+
+
+def rank_al_cli(spec: dict) -> dict:
+    """Rank program: the RetinaNet CLI (main, in process) under the AL
+    phase's cuts on its tree, its sweep's cls head sharpened on the pool's
+    first canvas, as al_path does; the driver joins the group over gloo
+    (NCCL refuses two ranks on one card) with DIST_PG_TIMEOUT_S."""
+    import functools
+
+    import torch
+    from aod_meh_hua_torch.al import loop as loop_module
+    from aod_meh_hua_torch.data.loader import EvalLoader
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.tools import train_retinanet
+    from aod_meh_hua_torch.utils import config as config_module
+    from aod_meh_hua_torch.utils.device import resolve_device
+
+    real_score_pool = loop_module.score_pool
+
+    def sharpened_score_pool(model, cfg, loader, n_images, **kwargs):
+        _, b, _ = next(iter(EvalLoader(loader.dataset, [0], loader.pipeline, batch_size=1,
+                                       prefetch=False)))
+        dev = next(model.parameters()).device
+        sharpen_cls_head(model, prepare_images(torch.from_numpy(b.images).to(dev),
+                                               torch.from_numpy(b.img_shapes), cfg))
+        return real_score_pool(model, cfg, loader, n_images, **kwargs)
+
+    reset_launches()
+    with mock.patch.object(config_module, "TrainConfig",
+                           with_cuts(config_module.TrainConfig, AL_TRAIN)), \
+            mock.patch.object(config_module, "ALConfig",
+                              with_cuts(config_module.ALConfig, AL_AL)), \
+            mock.patch.object(loop_module, "score_pool", sharpened_score_pool), \
+            mock.patch.object(loop_module, "init_distributed", functools.partial(
+                loop_module.init_distributed, backend="gloo", timeout=DIST_PG_TIMEOUT_S)):
+        driver = train_retinanet.main(spec["argv"])
+    device = resolve_device(driver.device)
+    torch.cuda.synchronize(device)
+    return {"rank": driver.proc_id, "world": driver.proc_count, "device": str(device),
+            "launches": read_launches(),
+            "cycles": [{"cycle": t["cycle"], "seconds": t["seconds"]}
+                       for t in driver.timings if t["phase"] == "cycle"],
+            "train_epochs": sum(t["phase"] == "train_epoch" for t in driver.timings),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+            "metrics": driver.metrics}
+
+
+RANK_PROGRAMS = {"train_and_sweep": rank_train_and_sweep, "al_cli": rank_al_cli}
+
+
+def rank_main(argv) -> int:
+    """`chip_smoke.py --rank-program NAME SPEC`: one rank of a distributed
+    phase (run_rank_programs starts them); writes its result next to the
+    spec."""
+    import torch
+
+    from aod_meh_hua_torch.kernels.build import build_all
+
+    name, spec_path = argv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()  # the main process built them: this loads the libraries
+    result = RANK_PROGRAMS[name](json.loads(Path(spec_path).read_text()))
+    rank = int(os.environ["RANK"])
+    (DIST / f"{name}_r{rank}.result.json").write_text(json.dumps(result))
+    return 0
+
+
+def acquisition_flips(single: np.ndarray, ranks: np.ndarray, x_l0: np.ndarray,
+                      x_l1: np.ndarray, x_l1_ranks: np.ndarray, k: int) -> list:
+    """The images on which two runs' acquisitions part, each named with
+    both runs' scores; fails unless each lies at a near-tie of the cut (its
+    score within 1e-3 of the k-th largest unlabeled score)."""
+    differ = sorted(set(x_l1.tolist()) ^ set(x_l1_ranks.tolist()))
+    unlabeled = np.setdiff1d(np.arange(len(single)), x_l0)
+    cut = np.sort(single[unlabeled])[-k]
+    named = []
+    for i in differ:
+        near = abs(single[i] - cut) <= 1e-3 * max(abs(cut), 1e-30)
+        named.append({"image": int(i), "single": float(single[i]), "ranks": float(ranks[i]),
+                      "cut": float(cut), "near_tie": bool(near)})
+        if not near:
+            fail(f"2-rank AL CLI: image {i} acquired by one run only, and not at a near-tie "
+                 f"of the cut: {named[-1]}")
+    return named
+
+
+def distributed_path(device, card: str, score_sd: dict, unc_single: np.ndarray,
+                     al: dict, voc07: Path) -> tuple:
+    """The distributed phase (see the module docstring). Returns its result
+    and the fused kernel's launches on the ranks' sweep (rank order)."""
+    import torch
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    shutil.rmtree(DIST, ignore_errors=True)
+    DIST.mkdir(parents=True)
+    t0 = time.time()
+    world1, init, plain, spread, one_image = nccl_world1_path(device)
+    print("NCCL world 1:", json.dumps(world1), f"[{card}]", flush=True)
+    from_zero = {k for k, v in init.items() if v.is_floating_point() and not v.any()}
+    zero_spread = max(v for k, v in spread.items() if k in from_zero)
+    torch.save({k: v.cpu() for k, v in init.items()}, DIST / "train_init.pt")
+    torch.save(score_sd, DIST / "score_model.pt")
+    del init
+    torch.cuda.empty_cache()
+
+    t1 = time.time()
+    ranks = run_rank_programs("train_and_sweep", {"train_init": str(DIST / "train_init.pt"),
+                                                  "score_model": str(DIST / "score_model.pt")})
+    ranks_s = time.time() - t1
+    if [(r["rank"], r["backend"], r["device"]) for r in ranks] != \
+            [(i, "gloo", "cuda:0") for i in range(DIST_RANKS)]:
+        fail(f"2 ranks: {[(r['rank'], r['backend'], r['device']) for r in ranks]}")
+    steps = {}
+    for kind in ("dp", "fsdp"):
+        if ranks[0][kind]["aux"] != ranks[1][kind]["aux"]:
+            fail(f"2 ranks, {kind}: the ranks report different aux")
+        weights = torch.load(DIST / f"{kind}_weights.pt", map_location="cpu")
+        errs = errs_of_scale(weights, plain["weights"])
+        # past DIST_RTOL: each tensor with its own spread (see DIST_RTOL)
+        named = [{"tensor": k, "err_of_scale": e, "plain_spread": spread.get(k),
+                  "from_zero": k in from_zero} for k, e in errs.items() if e > DIST_RTOL]
+        off = [n for n in named if not n["from_zero"] or n["err_of_scale"] > zero_spread]
+        aux_ok = np.allclose([a[k] for a in ranks[0][kind]["aux"] for k in LOSS_KEYS],
+                             [a[k] for a in plain["aux"] for k in LOSS_KEYS],
+                             rtol=DIST_RTOL, atol=0)
+        if off or not aux_ok or [a["num_pos"] for a in ranks[0][kind]["aux"]] != \
+                [a["num_pos"] for a in plain["aux"]]:
+            fail(f"2 ranks, {kind}: off the single-process step past {DIST_RTOL} of max-abs "
+                 f"(a tensor from zero: past the spread {zero_spread}): {off[:6]}; aux "
+                 f"{ranks[0][kind]['aux']} against {plain['aux']}")
+        err = max((e for k, e in errs.items() if e <= DIST_RTOL), default=0.0)
+        steps[kind] = {"max_err_of_scale_unnamed": err, "named_past_rtol": named,
+                       "from_zero_spread": zero_spread,
+                       "max_err_over_own_spread": max(
+                           (n["err_of_scale"] / max(n["plain_spread"], 1e-30) for n in named),
+                           default=0.0),
+                       "max_err_of_scale_against_one_image_at_a_time":
+                           next(iter(errs_of_scale(weights, one_image).values())),
+                       "ms_per_step_per_rank": [r[kind]["ms_per_step"] for r in ranks],
+                       "peak_mem_bytes_per_rank": [r[kind]["peak_mem_bytes"] for r in ranks]}
+
+    # the rank-sliced sweep against the single-process one
+    merged = np.load(DIST / "merged_unc.npy")
+    sweeps = [r["sweep"] for r in ranks]
+    per_forward = FUSED_PER_FORWARD
+    for s in sweeps:
+        if s["launches"]["fused_bottleneck"] != per_forward * s["forwards"] or \
+                s["launches"]["transposed_matmul"]:
+            fail(f"rank-sliced sweep: launches {s['launches']} for {s['forwards']} forwards")
+    if sum(s["images"] for s in sweeps) != len(unc_single):
+        fail(f"rank-sliced sweep: {[s['images'] for s in sweeps]} images of {len(unc_single)}")
+    off = np.nonzero(~np.isclose(merged, unc_single, rtol=DIST_RTOL, atol=0))[0]
+    flips = []
+    if len(off):
+        scfg = RetinaNetConfig(fused_blocks=True)
+        model = build_retinanet(scfg, device=device, seed=0)
+        model.load_state_dict(score_sd)
+        triples, _ = synthetic_pool(scfg)
+        for i in off:
+            mine = rank_triples(triples, int(i) % DIST_RANKS, DIST_RANKS)
+            flips.append(decision_flip(model, scfg, triples, mine, int(i), device,
+                                       what="rank-sliced sweep"))
+        del model
+    wall = max(s["seconds"] for s in sweeps)
+    sweep = {"images": len(unc_single), "max_rel_diff": float(np.max(
+                 np.abs(merged - unc_single) / np.maximum(np.abs(unc_single), 1e-30))),
+             "flips": flips, "img_per_s_per_rank": [s["img_per_s"] for s in sweeps],
+             "img_per_s_total": len(unc_single) / wall,
+             "fused_launches_per_rank": [s["launches"]["fused_bottleneck"] for s in sweeps],
+             "forwards_per_rank": [s["forwards"] for s in sweeps],
+             "peak_mem_bytes_per_rank": [s["peak_mem_bytes"] for s in sweeps],
+             "peak_mem_bytes_total": sum(s["peak_mem_bytes"] for s in sweeps)}
+
+    # the AL CLI on two ranks against the AL phase's single-process run
+    work = DIST / "al_work"
+    argv = ["--voc07", str(voc07), "--work-dir", str(work), "--cycles", "2",
+            "--ckpt-interval", "1", "--score-batch-size", "8", "--zero-rate", "0.15"]
+    t1 = time.time()
+    cli = run_rank_programs("al_cli", {"argv": argv})
+    cli_s = time.time() - t1
+    if [(c["rank"], c["world"]) for c in cli] != [(i, DIST_RANKS) for i in range(DIST_RANKS)]:
+        fail(f"2-rank AL CLI: ranks {[(c['rank'], c['world']) for c in cli]}")
+    x_l0, x_l1 = np.load(work / "X_L_0.npy"), np.load(work / "X_L_1.npy")
+    unc = np.load(work / "Unc_1.npy")
+    single_unc = np.load(REPO / "build" / "chip_smoke_al" / "work" / "Unc_1.npy")
+    if not np.array_equal(x_l0, np.asarray(al["x_l_0"])):
+        fail(f"2-rank AL CLI: X_L_0 {x_l0} against {al['x_l_0']}")
+    al_flips = acquisition_flips(single_unc, unc, x_l0, np.asarray(al["x_l_1"]), x_l1,
+                                 AL_AL["x_s_size"])
+    lines = len((work / "train_log.jsonl").read_text().splitlines())
+    if lines != cli[0]["train_epochs"]:
+        fail(f"2-rank AL CLI: {lines} train-log lines for {cli[0]['train_epochs']} epochs "
+             "(only rank 0 writes)")
+    caches = sorted(p.name for p in (work / "canvas_cache").iterdir())
+    if caches != ["pool_r0", "pool_r1", "val_r0", "val_r1"]:
+        fail(f"2-rank AL CLI: canvas caches {caches}")
+    if any(v for c in cli for v in c["launches"].values()):
+        fail(f"2-rank AL CLI: a hand-written kernel launched: {[c['launches'] for c in cli]}")
+    al_cli = {"argv": argv, "x_l_1": x_l1.tolist(), "x_l_1_single": al["x_l_1"],
+              "flips": al_flips, "unc_1_max_rel_diff": float(np.max(
+                  np.abs(unc - single_unc) / np.maximum(np.abs(single_unc), 1e-30))),
+              "cycles_per_rank": [c["cycles"] for c in cli],
+              "cycles_single": al["cycles"], "metrics": cli[0]["metrics"],
+              "peak_mem_bytes_per_rank": [c["peak_mem_bytes"] for c in cli],
+              "wall_s": cli_s}
+    result = {"nccl_world1": world1, "gloo_2_ranks_steps": steps, "rank_sliced_sweep": sweep,
+              "al_cli_2_ranks": al_cli, "ranks_wall_s": ranks_s,
+              "phase_s": time.time() - t0}
+    return result, [s["launches"] for s in sweeps], [c["launches"] for c in cli]
+
+
 def main() -> int:
     import torch
 
@@ -2371,6 +2952,8 @@ def main() -> int:
         print(f"chip_smoke: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--rank-program"]:
+        return rank_main(sys.argv[2:])
     from aod_meh_hua_torch.kernels.build import build_all
     from aod_meh_hua_torch.utils.config import RetinaNetConfig
 
@@ -2392,6 +2975,8 @@ def main() -> int:
     path, prof, model, triples, unc = main_path(device, cfg, per_forward=5)
     print("main path:", json.dumps(path), f"[{card}]", flush=True)
     print("profile of one score step:", json.dumps(prof), f"[{card}]", flush=True)
+    # the scoring model and its sweep, for the rank-sliced sweep at the end
+    score_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     reset_launches()
     nms_sync = nms_sync_path(model, cfg, triples[0], device)
     nms_launches = read_launches()["fused_bottleneck"]
@@ -2465,10 +3050,16 @@ def main() -> int:
     al_ens = al_ensemble_path(device, voc07)
     print("ensemble AL path:", json.dumps(al_ens), f"[{card}]", flush=True)
     print(f"ensemble AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
+    print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
+    print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
 
     new_paths = {"ensemble_sweep": ens_launches, "mc_dropout": mc_launches,
                  "detector": api_launches, "ssl": ssl_launches, "score_pool_cli": sp_launches,
-                 "al_ensemble_cli": al_ens["launches"]}
+                 "al_ensemble_cli": al_ens["launches"],
+                 **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
+                 "dist_al_cli_2_ranks": add_launches(*dist_al)}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

@@ -388,12 +388,9 @@ def test_pretrained_backbone_loads_torchvision_names(tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags", [
-    ("train", ["--config", "c.py"]), ("train", ["--distributed"]),
-    ("train", ["--coordinator", "localhost:1234"]), ("train", ["--num-processes", "2"]),
-    ("train", ["--process-id", "0"]), ("train", ["--fsdp", "2"]),
-    ("train", ["--num-devices", "2"]), ("train", ["--int8-scoring"]),
-    ("train", ["--dtype", "bfloat16"]), ("score_pool", ["--num-devices", "2"]),
-    ("score_pool", ["--int8"]), ("score_pool", ["--dtype", "bfloat16"])])
+    ("train", ["--config", "c.py"]), ("train", ["--int8-scoring"]),
+    ("train", ["--dtype", "bfloat16"]), ("score_pool", ["--int8"]),
+    ("score_pool", ["--dtype", "bfloat16"])])
 def test_unported_cli_flags_raise(cli, flags):
     """The JAX CLIs' flags of modes the port does not have are parsed and
     refused with their ROADMAP item, never ignored: the RetinaNet AL CLI's

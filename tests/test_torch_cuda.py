@@ -3,6 +3,7 @@ and transposed matmul against their plain PyTorch versions, and the tiny
 model's fused path against its unfused one; the train step on the card
 against the CPU, a backward through a fused block on the card, and the
 sampled Dirichlet MI with a CUDA generator at small concentrations; the
+data-parallel step over NCCL at world size 1 against the plain step; the
 AL CLI's --mini run and a mid-cycle resume on the card; the ensemble and
 MC-dropout steps on the card against the CPU, and a fused Detector's
 launches and results. Skips, with the reason, where there is no card.
@@ -209,7 +210,7 @@ def test_transposed_matmul_rejects_what_it_does_not_take(cuda):
     assert transposed_matmul.launches == before
 
 
-def _tiny_train_run(device, steps=2):
+def _tiny_train_run(device, steps=2, place=None):
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.train import create_train_state, make_train_step
     from aod_meh_hua_torch.models.detector import build_retinanet
@@ -230,7 +231,9 @@ def _tiny_train_run(device, steps=2):
                   torch.from_numpy(av), shapes)
     model = build_retinanet(cfg, device=device, seed=3)
     initial = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-    step = make_train_step(model, cfg, create_train_state(model, TrainConfig()), device=device)
+    mesh = place(model) if place is not None else None
+    step = make_train_step(model, cfg, create_train_state(model, TrainConfig()), device=device,
+                           mesh=mesh)
     losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(steps)]
     return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
 
@@ -252,6 +255,38 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
         dc, dg = c - c0, g - g0
         ulp = torch.finfo(torch.float32).eps * scale
         assert (dg - dc).abs().max().item() <= 1e-3 * dc.abs().max().item() + 2 * ulp, name
+
+
+def test_nccl_world1_dp_step_is_the_plain_step(cuda):
+    """NCCL at world size 1: the data-parallel step (replicated weights,
+    the loss normaliser, the aux and the gradients all-reduced over the
+    group) is the plain step bit for bit, under deterministic cuDNN."""
+    import torch.distributed as dist
+
+    from aod_meh_hua_torch.parallel import init_distributed, make_mesh, replicate
+    from aod_meh_hua_torch.parallel.launch import free_port
+
+    def data_parallel(model):
+        mesh = make_mesh(1, device_type="cuda")
+        replicate(model, mesh)
+        return mesh
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _tiny_train_run(cuda)
+        init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=cuda,
+                         timeout=60)
+        try:
+            assert dist.get_backend() == "nccl"
+            dp = _tiny_train_run(cuda, place=data_parallel)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert dp[0] == plain[0]
+    for name, (_, p) in plain[1].items():
+        assert torch.equal(dp[1][name][1], p), name
 
 
 def test_backward_through_the_fused_kernel_raises(cuda):

@@ -415,10 +415,10 @@ def test_grad_clip_matches_optax_and_keeps_frozen_gradients(monkeypatch):
     # requires_grad and the clip the step applies, over every gradient
     clips = []
 
-    def recorder(params, max_norm):
+    def recorder(params, max_norm, shard_group=None):
         params = list(params)
         clips.append((max_norm, params[0].grad is not None))
-        real_clip(params, max_norm)
+        real_clip(params, max_norm, shard_group)
 
     real_clip = ttrain._clip_by_global_norm
     monkeypatch.setattr(ttrain, "_clip_by_global_norm", recorder)
