@@ -1,8 +1,8 @@
 """High-level inference API for the two ported families (MEH-RetinaNet,
 MEH-SSD).
 
-Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :214-267
-(`_default_pipeline`, `Detector`) and :439-525 (`predict_batch`,
+Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :214-341
+(`_default_pipeline`, `Detector` with its dense `tta`) and :439-525 (`predict_batch`,
 `inference_detector`, `async_inference_detector`), which mirror the
 reference's mmdet/apis/inference.py:16 (init_detector), :89
 (inference_detector) and :155 (async_inference_detector).
@@ -11,12 +11,13 @@ In PyTorch's idiom the module carries its weights: `init_detector`
 returns the model on its device, where the JAX function returns
 (model, variables), and `Detector` takes (cfg, model) where the JAX one
 takes (cfg, model, variables). Its steps run on the model's device. The
-other families of the JAX registry raise (ROADMAP Queue 1 item 15), and
-so do test-time augmentation and drawing (item 13).
+other families of the JAX registry raise (ROADMAP Queue 1 item 15), with
+their test-time augmentation, and so does drawing (item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -26,6 +27,7 @@ from .data.pipeline import PipelineConfig, load_image, prepare_sample
 from .engine.batch import EvalBatch
 from .engine.checkpoint import load_model_state_dict
 from .engine.eval import detections_to_per_class, make_eval_step
+from .engine.tta import canvas_for_scale, make_tta_candidate_step, make_tta_merge_step
 from .models.detector import build_retinanet
 from .models.ssd_detector import build_ssd
 
@@ -84,6 +86,8 @@ class Detector:
         self.pipeline = pipeline or _default_pipeline(cfg)
         self.with_uncertainty = with_uncertainty
         self._steps: Dict[str, object] = {}
+        self._tta_steps: Dict[tuple, object] = {}
+        self._tta_merge = make_tta_merge_step(cfg)
 
     def _step(self, orientation: str):
         if orientation not in self._steps:
@@ -110,9 +114,51 @@ class Detector:
                           np.ones(1, bool))
         return self._per_class(self._step(s["orientation"])(batch))[0]
 
-    def tta(self, image, scales=None, flip: bool = True, return_masks: bool = False):
-        """Test-time-augmented inference needs engine/tta.py."""
-        _not_ported("Detector.tta (engine/tta.py)", "13")
+    def tta(self, image: Union[str, np.ndarray], scales: Optional[Sequence] = None,
+            flip: bool = True, return_masks: bool = False) -> List[np.ndarray]:
+        """Test-time-augmented inference (MultiScaleFlipAug + aug_test,
+        reference datasets/pipelines/test_time_aug.py:10 +
+        dense_test_mixins.py:71; JAX aod_meh_hua_tpu/api.py:269-341): one
+        candidate pass per (scale, flip), the candidates mapped back to
+        original coordinates and merged through ONE NMS. Returns per-class
+        [k, 5] arrays like __call__. `scales` are (long, short) resize
+        bounds, the pipeline's img_scale by default; the SSD warps to
+        each scale's square input_size.
+
+        The dense families only: the two-stage, cascade and mask
+        families' TTA (and `return_masks`) come with the model zoo
+        (ROADMAP Queue 1 item 15); Sparse R-CNN raises, as the reference
+        does (sparse_roi_head.py:302)."""
+        img = load_image(image) if isinstance(image, str) else image
+        scales = [tuple(s) for s in (scales or [self.pipeline.img_scale])]
+        flips = [False, True] if flip else [False]
+        fam = _family(self.cfg)
+        if fam == "sparse_rcnn":
+            raise NotImplementedError("Sparse R-CNN does not support `aug_test`")
+        if fam not in _FAMILIES:
+            _not_ported(f"TTA of the {fam} family", "15")
+        aug_boxes, aug_scores = [], []
+        for scale in scales:
+            canvas = (canvas_for_scale(scale) if self.pipeline.keep_ratio
+                      else (min(scale), max(scale)))
+            pipe = dataclasses.replace(self.pipeline, img_scale=scale, canvas=canvas)
+            for f in flips:
+                s = prepare_sample(img, None, pipe, flip=f)
+                key = (scale, s["orientation"])
+                if key not in self._tta_steps:
+                    if fam == "ssd":
+                        cfg_s = dataclasses.replace(self.cfg, input_size=max(scale))
+                    else:
+                        cfg_s = dataclasses.replace(self.cfg, canvas=canvas)
+                    self._tta_steps[key] = make_tta_candidate_step(
+                        self.model, cfg_s.for_orientation(s["orientation"]))
+                batch = EvalBatch(s["image"][None], s["img_shape"][None],
+                                  s["scale_factor"][None], np.ones(1, bool))
+                b, sc = self._tta_steps[key](batch, np.array([f], bool))
+                aug_boxes.append(b)
+                aug_scores.append(sc)
+        dets = self._tta_merge(torch.cat(aug_boxes, dim=1), torch.cat(aug_scores, dim=1))
+        return detections_to_per_class(dets, self.cfg.num_fg_classes)[0]
 
     def predict_batch(self, images: Sequence[Union[str, np.ndarray]],
                       max_batch: int = 8) -> List[List[np.ndarray]]:

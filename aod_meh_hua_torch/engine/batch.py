@@ -11,6 +11,7 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import _register_namedtuple
 
 
 def as_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -75,3 +76,8 @@ class EvalBatch(NamedTuple):
     img_shapes: object     # [B, 2] resized (h, w)
     scale_factors: object  # [B, 4] (w_s, h_s, w_s, h_s) resize scales
     valid: object          # [B] bool — padding rows in the last pool batch
+
+
+# a name under which torch.export serialises the type in a program's
+# input and output specs (JAX's register_namedtuple_serialization)
+_register_namedtuple(EvalBatch, serialized_type_name="aod_meh_hua_torch.EvalBatch")

@@ -20,42 +20,85 @@ import torch
 from ..ops.nms import batched_multiclass_nms
 from ..utils.config import RetinaNetConfig
 from ..utils.device import resolve_device
-from .batch import AnchorTable, EvalBatch, as_tensor, prepare_images
+from .batch import EvalBatch, as_tensor, prepare_images
 from .postprocess import make_candidate_selector
+
+
+class EvalStep(torch.nn.Module):
+    """make_eval_step's body as a module: forward(batch: EvalBatch of
+    tensors on the model's device) -> NMSResult ([B, max_per_img] fields,
+    boxes in original-image coordinates); (NMSResult, unc [B, K]) with
+    `with_uncertainty`, unc the Shannon entropy of each survivor anchor's
+    foreground scores (the reference's per-detection uncertainty,
+    L_anchor_head.py:473-481), 0 in empty slots. The anchor table is a
+    buffer.
+
+    torch.export traces it at a fixed batch (tools/deployment/
+    export_model.py): on float32 canvases normalised on the host, as the
+    JAX package's artifacts take them, and with `device_loop`, which
+    runs the NMS fixpoint as a device-side while_loop (ops/nms.py) where
+    the eager step checks for convergence on the host. Both give the same
+    detections. The caller runs it under torch.no_grad().
+    """
+
+    def __init__(self, model, cfg: RetinaNetConfig, with_uncertainty: bool = False,
+                 device_loop: bool = False):
+        super().__init__()
+        self.model = model
+        self.cfg = cfg
+        self.with_uncertainty = with_uncertainty
+        self.device_loop = device_loop
+        self.select, anchors_host = make_candidate_selector(cfg)
+        device = next(model.parameters()).device
+        self.register_buffer("anchors", torch.from_numpy(anchors_host).to(device))
+
+    def candidates(self, batch: EvalBatch):
+        """The batch's pre-NMS candidates (postprocess.Candidates), boxes
+        in the canvas frame: the forward, the score transform, top-k and
+        decode. The TTA step (engine/tta.py) maps these back itself."""
+        images = prepare_images(batch.images, batch.img_shapes, self.cfg)
+        cls_scores, bbox_preds, _ = self.model(images, with_meh=False)
+        return self.select(self.anchors, cls_scores, bbox_preds, None, batch.img_shapes)
+
+    def forward(self, batch: EvalBatch):
+        cfg, t = self.cfg, self.cfg.test
+        cand = self.candidates(batch)
+        # rescale to original image coordinates before NMS (Lambda_L2.py:307-308)
+        boxes = cand.boxes / batch.scale_factors[:, None, :]
+        fg_scores = cand.scores[..., :cfg.num_fg_classes]
+        dets = batched_multiclass_nms(boxes, fg_scores, t.score_thr, t.nms_iou_thr,
+                                      t.max_per_img, t.pre_nms_cands, self.device_loop)
+        if not self.with_uncertainty:
+            return dets
+        h = -(fg_scores * torch.log(fg_scores.clamp(min=1e-38))).sum(dim=-1)  # [B, A]
+        det_unc = torch.gather(h, 1, dets.anchor_idx)
+        return dets, torch.where(dets.valid, det_unc, torch.zeros_like(det_unc))
+
+
+def batch_on(batch: EvalBatch, device) -> EvalBatch:
+    """An EvalBatch of numpy arrays or tensors as tensors on `device`
+    (scale factors float32)."""
+    return EvalBatch(as_tensor(batch.images, device), as_tensor(batch.img_shapes, device),
+                     as_tensor(batch.scale_factors, device, torch.float32),
+                     as_tensor(batch.valid, device))
 
 
 def make_eval_step(model, cfg: RetinaNetConfig, with_uncertainty: bool = False,
                    device="cuda") -> Callable:
     """Returns step(batch: EvalBatch) -> NMSResult ([B, max_per_img]
     fields, boxes in original-image coordinates) on `device`, where
-    `model` lives. with_uncertainty: step returns (NMSResult, unc [B, K]),
-    unc the Shannon entropy of each survivor anchor's foreground scores
-    (the reference's per-detection uncertainty, L_anchor_head.py:473-481),
-    0 in empty slots."""
+    `model` lives: EvalStep under torch.no_grad(), on a batch of numpy
+    arrays or tensors. with_uncertainty: step returns (NMSResult, unc
+    [B, K]) (EvalStep)."""
     dev = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, the step on {dev}")
-    select, anchors_host = make_candidate_selector(cfg)
-    anchors = AnchorTable(anchors_host)
-    t = cfg.test
+    module = EvalStep(model, cfg, with_uncertainty)
 
     @torch.no_grad()
     def step(batch: EvalBatch):
-        img_shapes = as_tensor(batch.img_shapes, dev)
-        images = prepare_images(as_tensor(batch.images, dev), img_shapes, cfg)
-        cls_scores, bbox_preds, _ = model(images, with_meh=False)
-        cand = select(anchors.get(dev), cls_scores, bbox_preds, None, img_shapes)
-        # rescale to original image coordinates before NMS (Lambda_L2.py:307-308)
-        boxes = cand.boxes / as_tensor(batch.scale_factors, dev, torch.float32)[:, None, :]
-        fg_scores = cand.scores[..., :cfg.num_fg_classes]
-        dets = batched_multiclass_nms(boxes, fg_scores, t.score_thr, t.nms_iou_thr,
-                                      t.max_per_img, t.pre_nms_cands)
-        if not with_uncertainty:
-            return dets
-        h = -(fg_scores * torch.log(fg_scores.clamp(min=1e-38))).sum(dim=-1)  # [B, A]
-        det_unc = torch.gather(h, 1, dets.anchor_idx)
-        return dets, torch.where(dets.valid, det_unc, torch.zeros_like(det_unc))
+        return module(batch_on(batch, dev))
 
     return step
 

@@ -19,12 +19,13 @@ masks from the generator the caller passes to the forward.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck_block
+from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck
 
 _NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
 
@@ -93,6 +94,13 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
     return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
+def _kernel_layout(fb: FoldedBlock, dtype: torch.dtype) -> FoldedBlock:
+    """Weights contiguous in `dtype`, biases contiguous float32."""
+    return FoldedBlock(*(
+        None if a is None else a.to(dtype if name.startswith("w") else torch.float32)
+        .contiguous() for name, a in zip(FoldedBlock._fields, fb)))
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (4 * planes) + residual, ReLU after each."""
 
@@ -118,21 +126,26 @@ class Bottleneck(nn.Module):
                                             FrozenBatchNorm2d(planes * 4))
         self._folded: Optional[FoldedBlock] = None
         self._folded_key = None
+        self.fold_in_graph = False  # set by folds_in_graph
 
-    def folded(self, dtype: torch.dtype) -> FoldedBlock:
+    def folded(self, dtype: torch.dtype, in_graph: bool = False) -> FoldedBlock:
         """fold_bottleneck(self) in the kernel's layout: weights contiguous
         in `dtype`, biases contiguous float32, on the parameters' device.
-        Folded once and cached; refolded when a parameter or buffer is
-        replaced, moved or edited in place (its `_version` moves), or when
-        `dtype` changes. Inference only: the cache carries no autograd."""
+
+        Without `in_graph` it is folded once and cached, without autograd;
+        refolded when a parameter or buffer is replaced, moved or edited in
+        place (its `_version` moves), or when `dtype` changes. With
+        `in_graph` it is folded anew from the parameters, as operations
+        that autograd and torch.export record: a forward that may be
+        differentiated takes it (so the operator's backward raises), and
+        so does a model under `folds_in_graph` (export)."""
+        if in_graph:
+            return _kernel_layout(fold_bottleneck(self), dtype)
         tensors = list(self.parameters()) + list(self.buffers())
         key = (dtype, tuple((t.device, t.dtype, t.data_ptr(), t._version) for t in tensors))
         if key != self._folded_key:
             with torch.no_grad():
-                fb = fold_bottleneck(self)
-            self._folded = FoldedBlock(*(
-                None if a is None else a.to(dtype if name.startswith("w") else torch.float32)
-                .contiguous() for name, a in zip(FoldedBlock._fields, fb)))
+                self._folded = _kernel_layout(fold_bottleneck(self), dtype)
             self._folded_key = key
         return self._folded
 
@@ -150,8 +163,9 @@ class Bottleneck(nn.Module):
         if self.fused_eligible(x.shape[1]):
             nhwc = x.permute(0, 2, 3, 1)  # a view when x is channels_last
             # differentiating through the kernel raises (it has no backward)
-            out = fused_bottleneck_block(nhwc.contiguous(), self.folded(x.dtype),
-                                         tuple(self.parameters()))
+            in_graph = self.fold_in_graph or (torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())))
+            out = fused_bottleneck(nhwc.contiguous(), self.folded(x.dtype, in_graph))
             return out.permute(0, 3, 1, 2)
         drop = lambda v: channel_dropout(v, self.mc_dropout, generator)  # noqa: E731
         identity = x
@@ -161,6 +175,24 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             identity = self.downsample(x)
         return drop(torch.relu(y + identity))
+
+
+@contextlib.contextmanager
+def folds_in_graph(model: nn.Module) -> Iterator[nn.Module]:
+    """Within the block, every fused Bottleneck of `model` folds its BN
+    from the parameters on each forward (Bottleneck.folded(in_graph=
+    True)) instead of reading its cache: torch.export then records the
+    fold as operations on the parameters, and the exported program needs
+    no cache to run. The exporter's explicit choice
+    (tools/deployment/export_model.py)."""
+    blocks = [m for m in model.modules() if isinstance(m, Bottleneck)]
+    for b in blocks:
+        b.fold_in_graph = True
+    try:
+        yield model
+    finally:
+        for b in blocks:
+            b.fold_in_graph = False
 
 
 class ResNet(nn.Module):

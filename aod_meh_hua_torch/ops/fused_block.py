@@ -15,15 +15,20 @@ sqrt(var + eps).
 Layouts are the JAX package's: x and the output are NHWC; w1 [Cin, P],
 w2 [9, P, P] (taps HW-major, then in, out), w3 [P, Cout], wd [Cin, Cout];
 biases [1, C] in float32. Inference only: the kernel has no backward,
-as the JAX kernel defines no VJP. `fused_bottleneck_block`, which
-models/resnet.py calls, makes differentiating through it raise, as
-jax.grad through the JAX kernel does.
+as the JAX kernel defines no VJP, so differentiating through the
+operator raises, as jax.grad through the JAX kernel does.
+
+The kernel is the PyTorch operator `aod_meh_hua_torch::fused_bottleneck`
+(torch.library), so that torch.export keeps it as one node of an
+exported program, as jax.export keeps the Pallas call inside its
+artifact. Loading such a program needs this module imported, which
+registers the operator.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -104,37 +109,28 @@ def fused_bottleneck_reference(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor
     return torch.relu(y + res).to(dt).permute(0, 2, 3, 1).contiguous()
 
 
-def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
-    """One stride-1 bottleneck block, fused. x: [B, H, W, Cin] NHWC.
-
-    A CUDA tensor goes through the hand-written kernel, which raises on
-    what it does not take and on a failed build or launch; a CPU tensor
-    goes through fused_bottleneck_reference. `fused_bottleneck.launches`
-    counts the kernel's launches.
-    """
-    if x.device.type == "cpu":
-        return fused_bottleneck_reference(x, fb)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+def _check_and_launch(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd, bd) -> torch.Tensor:
+    """The CUDA kernel on x [B, H, W, Cin] and the folded weights: the
+    checks, the launch on the current stream, the launch count."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("fused_bottleneck: x must be a contiguous NHWC tensor")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_bottleneck: dtype {x.dtype} is not float32 or bfloat16")
     b, h, w_, cin = x.shape
-    p = fb.w1.shape[1]
-    cout = fb.w3.shape[1]
+    p = w1.shape[1]
+    cout = w3.shape[1]
     if p not in _PLANES:
         raise ValueError(f"fused_bottleneck: bottleneck width {p} not in {_PLANES}")
     if cin % 32 or cout % p:
         raise ValueError(f"fused_bottleneck: needs Cin % 32 == 0 and Cout % P == 0 "
                          f"(Cin={cin}, P={p}, Cout={cout})")
-    if fb.wd is None and cin != cout:
+    if wd is None and cin != cout:
         raise ValueError("fused_bottleneck: identity residual needs Cin == Cout")
     if not 0 < b <= 65535:
         raise ValueError(f"fused_bottleneck: batch {b} out of range")
     if x.data_ptr() % 16:
         raise ValueError("fused_bottleneck: x must be 16-byte aligned")
-    if tuple(fb.w1.shape) != (cin, p) or tuple(fb.w2.shape) != (9, p, p):
+    if tuple(w1.shape) != (cin, p) or tuple(w2.shape) != (9, p, p):
         raise ValueError("fused_bottleneck: weight shapes do not match x")
 
     from ..kernels.build import load
@@ -150,8 +146,8 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
     def bs(t):
         return t.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
 
-    args = [wt(fb.w1), bs(fb.b1), wt(fb.w2), bs(fb.b2), wt(fb.w3), bs(fb.b3)]
-    args += [None, None] if fb.wd is None else [wt(fb.wd), bs(fb.bd)]
+    args = [wt(w1), bs(b1), wt(w2), bs(b2), wt(w3), bs(b3)]
+    args += [None, None] if wd is None else [wt(wd), bs(bd)]
     out = torch.empty((b, h, w_, cout), dtype=dt, device=dev)
     lib = load("fused_bottleneck")
     with torch.cuda.device(dev):
@@ -166,31 +162,54 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
     return out
 
 
+# The block as a PyTorch operator, so that torch.export records it as one
+# node (the counterpart of the Pallas call inside a jax.export artifact)
+# and a saved program calls the kernel when it runs. It dispatches on the
+# tensors' device: CUDA -> the kernel, CPU -> the plain version; no other
+# device, and no fallback from the one to the other.
+@torch.library.custom_op("aod_meh_hua_torch::fused_bottleneck", mutates_args=())
+def _fused_bottleneck_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                         b3: torch.Tensor, wd: Optional[torch.Tensor],
+                         bd: Optional[torch.Tensor]) -> torch.Tensor:
+    raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+
+
+@_fused_bottleneck_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    return _check_and_launch(x, w1, b1, w2, b2, w3, b3, wd, bd)
+
+
+@_fused_bottleneck_op.register_kernel("cpu")
+def _(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    return fused_bottleneck_reference(x, FoldedBlock(w1, b1, w2, b2, w3, b3, wd, bd))
+
+
+@_fused_bottleneck_op.register_fake
+def _(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    return x.new_empty((*x.shape[:3], w3.shape[1]))
+
+
+def _no_backward(ctx, grad):
+    raise RuntimeError(
+        "fused_bottleneck has no backward (the kernel is for scoring and eval, as "
+        "the JAX kernel, which defines no VJP); train with fused_blocks=False")
+
+
+_fused_bottleneck_op.register_autograd(_no_backward)
+
+
+def fused_bottleneck(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
+    """One stride-1 bottleneck block, fused. x: [B, H, W, Cin] NHWC.
+
+    Calls the operator `aod_meh_hua_torch::fused_bottleneck`: a CUDA
+    tensor goes through the hand-written kernel, which raises on what it
+    does not take and on a failed build or launch; a CPU tensor goes
+    through fused_bottleneck_reference. `fused_bottleneck.launches`
+    counts the kernel's launches. A backward through it raises (the
+    kernel has none, as the JAX kernel defines no VJP).
+    """
+    return _fused_bottleneck_op(x, *fb)
+
+
 fused_bottleneck.launches = 0
-
-
-class _NoBackward(torch.autograd.Function):
-    """fused_bottleneck as an autograd node over the block's parameters
-    and input, whose backward raises: the folded weights carry no graph,
-    so without this node autograd would give those parameters no
-    gradient and say nothing."""
-
-    @staticmethod
-    def forward(ctx, x, fb, *params):
-        return fused_bottleneck(x, fb)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise RuntimeError(
-            "fused_bottleneck has no backward (the kernel is for scoring and eval, as "
-            "the JAX kernel, which defines no VJP); train with fused_blocks=False")
-
-
-def fused_bottleneck_block(x: torch.Tensor, fb: FoldedBlock,
-                           params: Sequence[torch.Tensor]) -> torch.Tensor:
-    """fused_bottleneck(x, fb) for a block whose folded weights `fb` come
-    from `params`. Under torch.no_grad or inference mode, or when neither
-    x nor a parameter requires grad, the output is fused_bottleneck's and
-    carries no graph; otherwise it is differentiable in name only, and a
-    backward through it raises."""
-    return _NoBackward.apply(x, fb, *params)

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils._pytree import _register_namedtuple
 
 from .bbox import bbox_overlaps
 
@@ -28,6 +29,11 @@ class NMSResult(NamedTuple):
     labels: torch.Tensor      # [B, K] int64 class ids (0-based, no background)
     valid: torch.Tensor       # [B, K] bool
     anchor_idx: torch.Tensor  # [B, K] int64 index into the input box array
+
+
+# a name under which torch.export serialises the type in a program's
+# input and output specs (JAX's register_namedtuple_serialization)
+_register_namedtuple(NMSResult, serialized_type_name="aod_meh_hua_torch.NMSResult")
 
 
 def _compact_keep(keep: torch.Tensor, max_out: int):
@@ -56,7 +62,7 @@ def _converged(prev: torch.Tensor, keep: torch.Tensor) -> bool:
 
 
 def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
-                        iou_thr: float) -> torch.Tensor:
+                        iou_thr: float, device_loop: bool = False) -> torch.Tensor:
     """Exact greedy-NMS keep mask [B, k] for candidates sorted by
     descending score.
 
@@ -67,26 +73,49 @@ def _greedy_keep_sorted(off_boxes: torch.Tensor, cand_ok: torch.Tensor,
     two checks; past the fixpoint the map leaves every mask unchanged, so
     the extra applications are exact, and the host reads a flag back
     ceil((d + 1) / CHECK_INTERVAL) times instead of d + 1.
+
+    device_loop: the same iteration as one torch while_loop, whose
+    condition is the "mask changed" flag on the device (JAX's
+    lax.while_loop, aod_meh_hua_tpu/ops/nms.py:138): the form that
+    torch.export records (engine/eval.py EvalStep). The masks are the
+    host loop's, bit for bit: each body applies the map CHECK_INTERVAL
+    times and the loop stops after the same body.
     """
     k = off_boxes.shape[1]
     ar = torch.arange(k, device=off_boxes.device)
     earlier = ar[:, None] < ar[None, :]  # j < i
     sup = (bbox_overlaps(off_boxes, off_boxes) > iou_thr) & earlier  # [B, j, i]
-    keep = cand_ok
-    while True:
+
+    def interval(keep):
         for _ in range(CHECK_INTERVAL):
             prev, keep = keep, cand_ok & ~(keep[:, :, None] & sup).any(dim=1)
+        return prev, keep
+
+    if device_loop:
+        from torch._higher_order_ops import while_loop
+
+        def body(changed, keep):
+            prev, keep = interval(keep)
+            return (prev != keep).any(), keep
+
+        start = torch.ones((), dtype=torch.bool, device=cand_ok.device)
+        # the condition returns a new tensor: a while_loop may not alias its inputs
+        return while_loop(lambda changed, keep: changed.clone(), body, (start, cand_ok))[1]
+    keep = cand_ok
+    while True:
+        prev, keep = interval(keep)
         if _converged(prev, keep):
             return keep
 
 
 def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, score_thr: float,
-                           iou_thr: float, max_out: int, pre_nms_cands: int = 1000
-                           ) -> NMSResult:
+                           iou_thr: float, max_out: int, pre_nms_cands: int = 1000,
+                           device_loop: bool = False) -> NMSResult:
     """Multiclass NMS per image with static output shape [B, max_out].
 
     boxes [B, N, 4] shared across classes; scores [B, N, C] foreground
-    class scores.
+    class scores. device_loop: the fixpoint as a device-side while_loop
+    (_greedy_keep_sorted), for torch.export.
     """
     b, n, c = scores.shape
     flat = scores.reshape(b, -1)  # pair (anchor, class): idx = anchor * C + class
@@ -103,7 +132,7 @@ def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, score_thr:
     max_coord = torch.where(cand_ok[..., None], cand_boxes,
                             torch.zeros_like(cand_boxes)).amax(dim=(1, 2))
     offsets = labels.to(boxes.dtype) * (max_coord[:, None] + 1.0)
-    keep = _greedy_keep_sorted(cand_boxes + offsets[..., None], cand_ok, iou_thr)
+    keep = _greedy_keep_sorted(cand_boxes + offsets[..., None], cand_ok, iou_thr, device_loop)
 
     slots, ok = _compact_keep(keep, max_out)
 

@@ -1,0 +1,152 @@
+"""Serving export: the eval step (forward -> decode -> NMS) as a
+torch.export program with the weights inside.
+
+Port of tools/deployment/export_model.py of the JAX package (flags
+:17-84), whose artifact is a jax.export StableHLO blob; here it is a
+torch.export ExportedProgram saved with torch.export.save (a .pt2 zip).
+The program is traced at a fixed batch on float32 canvases normalised on
+the host (the JAX artifacts' input, package_model.py's geometry block),
+with the NMS fixpoint as a device-side while_loop and, for
+fused_blocks=True, each fused block as one `aod_meh_hua_torch::
+fused_bottleneck` node whose BN fold is recorded on the parameters
+(models/resnet.py folds_in_graph). A program exported on the card runs
+the kernel on the card when it is called.
+
+    python -m aod_meh_hua_torch.tools.deployment.export_model \\
+        [--family retinanet|ssd] [--checkpoint c.ckpt] [--out det.pt2] \\
+        [--batch 8] [--mini] [--cpu]
+
+It runs on the card unless given --cpu, and pins the numerics
+(utils/device.py pin_numerics). `export_eval_step(cfg, model, batch)`
+exports a model the caller built (e.g. fused, through api.py). Loading a
+program needs the operator and the two namedtuples registered: use
+`load_program`, which imports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import warnings
+from typing import Optional, Sequence
+
+import torch
+
+from ...engine.batch import EvalBatch
+from ...engine.eval import EvalStep, batch_on
+from ...models.resnet import folds_in_graph
+from ...ops import fused_block  # noqa: F401 (registers aod_meh_hua_torch::fused_bottleneck)
+from ...ops.nms import NMSResult
+from ...utils.device import pin_numerics
+
+EXPORTED_FAMILIES = ("retinanet", "ssd")
+
+
+def config_for(family: str, mini: bool = False):
+    """The JAX tools' config choice: --mini the tiny RetinaNet, else the
+    family's default; families other than retinanet and ssd raise."""
+    from ...utils.config import RetinaNetConfig, SSDConfig, tiny_test_config
+
+    if mini:
+        return tiny_test_config()
+    if family == "retinanet":
+        return RetinaNetConfig()
+    if family == "ssd":
+        return SSDConfig()
+    raise NotImplementedError(
+        f"the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
+
+
+def example_batch(cfg, batch: int, device) -> EvalBatch:
+    """The traced input: `batch` float32 canvases of cfg.canvas (JAX's
+    zeros), their shapes, scale factors and valid flags."""
+    h, w = cfg.canvas
+    return EvalBatch(torch.zeros((batch, h, w, 3), dtype=torch.float32, device=device),
+                     torch.zeros((batch, 2), dtype=torch.int32, device=device),
+                     torch.ones((batch, 4), dtype=torch.float32, device=device),
+                     torch.ones(batch, dtype=torch.bool, device=device))
+
+
+def export_eval_step(cfg, model, batch: int) -> torch.export.ExportedProgram:
+    """torch.export of EvalStep(model, cfg) at `batch` on the model's
+    device: float32 canvases of cfg.canvas (pass cfg.for_orientation(...)
+    for the portrait program), the NMS loop on the device, the fused
+    blocks' folds in the graph. Raises whatever export raises."""
+    device = next(model.parameters()).device
+    step = EvalStep(model, cfg, device_loop=True)
+    with torch.no_grad(), folds_in_graph(model):
+        program = torch.export.export(step, (example_batch(cfg, batch, device),))
+    # the saved program keeps no input (at batch 8 the canvases are 60 MB),
+    # as the JAX artifact keeps none
+    program.example_inputs = None
+    return program
+
+
+def save_program(program: torch.export.ExportedProgram, f) -> None:
+    """torch.export.save. Its warning that a conv weight in channels_last
+    memory is not a "complete tensor" is dropped: such a weight is saved
+    whole, with its strides, and loads back bit for bit
+    (tests/test_torch_deploy.py)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="No complete tensor found")
+        torch.export.save(program, f)
+
+
+def load_program(f) -> torch.export.ExportedProgram:
+    """torch.export.load of a program this module exported, with what it
+    needs registered by this module's imports: the fused operator and the
+    EvalBatch / NMSResult serialisation names."""
+    return torch.export.load(f)
+
+
+def run_program(program, batch: EvalBatch) -> NMSResult:
+    """Call a loaded program (its module, or the ExportedProgram) on an
+    EvalBatch of numpy arrays or tensors, without autograd, on the
+    device the program was exported on."""
+    module = program.module() if isinstance(program, torch.export.ExportedProgram) else program
+    device = next(module.parameters()).device
+    with torch.no_grad():
+        return module(batch_on(batch, device))
+
+
+def fused_nodes(program: torch.export.ExportedProgram) -> int:
+    """The number of aod_meh_hua_torch::fused_bottleneck calls in the
+    program's graph."""
+    op = torch.ops.aod_meh_hua_torch.fused_bottleneck.default
+    return sum(n.op == "call_function" and n.target is op for n in program.graph.nodes)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    ap = argparse.ArgumentParser(description="Export the eval step with torch.export")
+    ap.add_argument("--family", default="retinanet",
+                    help="retinanet or ssd (the other families: ROADMAP item 15)")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--out", default="detector_export.pt2")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--mini", action="store_true", help="tiny model geometry (smoke/test mode)")
+    ap.add_argument("--cpu", action="store_true", help="export on the CPU instead of the card")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    from ...api import init_detector
+
+    args = parse_args(argv)
+    if args.mini and args.family != "retinanet":
+        raise ValueError("--mini is the retinanet smoke mode")
+    pin_numerics()
+    cfg = config_for(args.family, args.mini)
+    model = init_detector(cfg, checkpoint=args.checkpoint, device="cpu" if args.cpu else "cuda")
+    program = export_eval_step(cfg, model, args.batch)
+    save_program(program, args.out)
+    print(f"exported {args.family} eval step ({os.path.getsize(args.out) / 1e6:.1f} MB) "
+          f"-> {args.out}")
+    # round-trip sanity
+    loaded = load_program(args.out)
+    out = run_program(loaded, example_batch(cfg, args.batch, "cpu"))
+    print(f"round-trip OK: boxes {tuple(out.boxes.shape)}")
+    return args.out
+
+
+if __name__ == "__main__":
+    main()

@@ -7,10 +7,12 @@
    of the port from the sources in this checkout (one nvcc per source,
    all started together, timed).
 2. Kernel phase, TF32 off: each kernel against its plain PyTorch version
-   at its path's shapes and at small edge cases, and CUDA-event times of
-   the kernel, the plain version and the library yardstick (for the
-   fused bottleneck the unfused cuDNN chain of the same block, for the
-   transposed matmul one torch.matmul).
+   at its paths' shapes (the TTA's batch-1 canvases too) and at small
+   edge cases, and CUDA-event times of the kernel, the plain version and
+   the library yardstick (for the fused bottleneck the unfused cuDNN
+   chain of the same block, for the transposed matmul one torch.matmul);
+   for the fused bottleneck also the operator against its launch called
+   directly, in turns (the operator's dispatch).
 3. Scoring path: a full-width MEH-RetinaNet (R50-FPN, 9 anchors, 20
    classes, 608x1024 canvases in both orientations, fused_blocks=True),
    seeded random weights with a sharpened cls head, scores a pool of
@@ -96,7 +98,28 @@
    checkpoints, mcdropout with 25 passes), and the RetinaNet CLI with
    --baseline ensemble --ensemble-size 3 for two cycles under the AL
    phase's cuts; neither launches a kernel, and both pin the numerics.
-17. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+17. Serving phase, on the AL phase's tree: a full-width fused RetinaNet
+   (seed 0, its cls head sharpened) behind the port's serving path.
+   Detector.tta on the fixture JPEGs: identity TTA equal to __call__ bit
+   for bit, then TTA_SCALES with the flip (5 launches per augmented
+   forward), ms per image, held to the same TTA through an unfused twin
+   with the same weights (rtol 1e-4, at most SERVE_MAX_FLIPS named
+   decision flips). The eval step exported with torch.export at
+   batch 8 in both orientations (5 fused operator nodes each), saved,
+   packaged and loaded back: on the 26 synthetic canvases its
+   detections against the eager step's (bit-equal, or to rtol 1e-4 with
+   at most SERVE_MAX_FLIPS named decision flips), its launches, its ms
+   per batch against eager in turns; test_exported's sweep of the AL
+   tree's test split, per image against the eager step on the same
+   loader batches (as the canvases), and its mAP equal to the eager
+   eval's. The HTTP server
+   (Batcher, make_handler) on 127.0.0.1:0 around the Detector, then
+   around the archive (ArchiveDetector): SERVE_REQUESTS POSTs from
+   SERVE_CLIENTS threads, raw and base64, each reply held to the
+   Detector's rows; p50/p99 latency, req/s, mean coalesced batch,
+   launches. Last the FPS tool (tools/benchmark.py) at batch 8, fused
+   and unfused.
+18. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -114,7 +137,7 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-18. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+19. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -257,19 +280,29 @@ def block_bound_ms(b, h, w, cin, p, cout, down, dtype):
 
 def kernel_phase(device):
     import torch
-    from aod_meh_hua_torch.ops.fused_block import fused_bottleneck, fused_bottleneck_reference
+    from aod_meh_hua_torch.engine.tta import canvas_for_scale
+    from aod_meh_hua_torch.ops.fused_block import (_check_and_launch, fused_bottleneck,
+                                                   fused_bottleneck_reference)
+    from aod_meh_hua_torch.tools.pallas_probe import cuda_time_ms
 
     gen = torch.Generator(device=device).manual_seed(0)
     both, f32 = (torch.float32, torch.bfloat16), (torch.float32,)
     # (label, B, H, W, Cin, P, Cout, downsample, dtypes): C2/C3 are the main
     # path's landscape shapes at the smoke batch, C2p/C3p its portrait ones;
-    # the last two are edge cases (1x1 downsample; H, W not multiples of 8)
+    # the next two are edge cases (1x1 downsample; H, W not multiples of 8);
+    # last the serving phase's TTA shapes: batch 1 on each TTA_SCALES
+    # canvas in both orientations (C2 at stride 4, C3 at stride 8)
     cases = [("C2", BATCH, 152, 256, 256, 64, 256, False, both),
              ("C3", BATCH, 76, 128, 512, 128, 512, False, both),
              ("C2p", BATCH, 256, 152, 256, 64, 256, False, f32),
              ("C3p", BATCH, 128, 76, 512, 128, 512, False, f32),
              ("down", 2, 20, 12, 128, 64, 256, True, both),
              ("ragged", 2, 37, 29, 256, 64, 256, False, both)]
+    for scale in TTA_SCALES:
+        ch, cw = canvas_for_scale(scale)
+        for o, (h, w) in (("", (ch, cw)), ("p", (cw, ch))):
+            cases += [(f"tta{max(scale)} C2{o}", 1, h // 4, w // 4, 256, 64, 256, False, f32),
+                      (f"tta{max(scale)} C3{o}", 1, h // 8, w // 8, 512, 128, 512, False, f32)]
     results = []
     for label, b, h, w, cin, p, cout, down, dtypes in cases:
         fb = random_block(cin, p, cout, down, gen, device)
@@ -296,6 +329,14 @@ def kernel_phase(device):
                 lib_err = (libout.permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
                 row.update(times_in_turns(lambda: fused_bottleneck(x, fb),
                                           lambda: fused_bottleneck_reference(x, fb), lib))
+                # the operator's dispatch: the same launch called directly,
+                # in turns with the operator (op, direct, direct, op)
+                turns = {"op_ms": lambda: fused_bottleneck(x, fb),
+                         "direct_ms": lambda: _check_and_launch(x, *fb)}
+                dispatch = {key: 0.0 for key in turns}
+                for key in ("op_ms", "direct_ms", "direct_ms", "op_ms"):
+                    dispatch[key] += cuda_time_ms(turns[key]) / 2
+                row.update(dispatch=dispatch)
                 bound, bound_by, cuda_cores = block_bound_ms(b, h, w, cin, p, cout, down, dt)
                 row.update(library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by)
                 if cuda_cores is not None:
@@ -2379,6 +2420,355 @@ def al_ensemble_path(device, voc07: Path) -> dict:
                 unc_1_nonzero=int((unc > 0).sum()), peak_mem_bytes=peak, launches=launches)
 
 
+# --- serving phase: TTA, the exported program and its archive, the server ----------
+
+SERVE = REPO / "build" / "chip_smoke_serve"
+TTA_SCALES = [(1000, 600), (800, 480)]  # the default resize and a smaller one
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
+SERVE_SCORE_THR = 0.3
+SERVE_MAX_FLIPS = B64_MAX_FLIPS  # replies or images off by a flipped decision
+FPS_ITERS, FPS_WARMUP = 10, 2
+
+
+def _agree(got, want, rtol) -> str:
+    """"exact", "close" (to rtol, the same shapes) or "flip" (another count
+    of rows in some class: a decision flipped) for two per-class lists."""
+    if len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want)):
+        return "exact"
+    if _same(got, want, rtol):
+        return "close"
+    return "flip"
+
+
+def _rows(per_class, classes, thr):
+    """The server's reply rows for per-class results (make_handler's rule)."""
+    return [{"class_name": classes[c], "bbox": [float(v) for v in r[:4]], "score": float(r[4])}
+            for c, dets in enumerate(per_class) for r in dets if float(r[4]) >= thr]
+
+
+def _rows_agree(got, want, rtol) -> str:
+    if got == want:
+        return "exact"
+    if [r["class_name"] for r in got] == [r["class_name"] for r in want] and all(
+            np.allclose(g["bbox"] + [g["score"]], w["bbox"] + [w["score"]], rtol=rtol, atol=1e-4)
+            for g, w in zip(got, want)):
+        return "close"
+    return "flip"
+
+
+class _Forwards:
+    """A detector whose predict_batch calls are counted in forwards (one
+    per orientation group of up to max_batch images, as predict_batch and
+    ArchiveDetector split them); `sizes` holds each call's image count,
+    the Batcher's coalesced batches."""
+
+    def __init__(self, det):
+        self.det, self.forwards, self.sizes = det, 0, []
+        self.device = det.device
+
+    def predict_batch(self, images, max_batch=8):
+        self.sizes.append(len(images))
+        per_o = {}
+        for im in images:
+            o = "landscape" if im.shape[1] / im.shape[0] > 1 else "portrait"
+            per_o[o] = per_o.get(o, 0) + 1
+        self.forwards += sum(-(-n // max_batch) for n in per_o.values())
+        return self.det.predict_batch(images, max_batch=max_batch)
+
+
+def serve_load(det, payloads, expected, what):
+    """SERVE_REQUESTS POSTs from SERVE_CLIENTS threads to a server on
+    127.0.0.1:0 around `det`, raw and base64 in turns; each reply held to
+    expected[i % len]. Returns latency, rate, batches, launches, agreement."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES
+    from aod_meh_hua_torch.tools.deployment.serve import Batcher, make_handler
+
+    counted = _Forwards(det)
+    batcher = Batcher(counted, max_batch=BATCH, delay_ms=5.0)
+    handler = make_handler(batcher, VOC_CLASSES, SERVE_SCORE_THR)
+    handler.log_message = lambda *a: None
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predictions"
+    lat, agree, errors = [0.0] * SERVE_REQUESTS, [None] * SERVE_REQUESTS, []
+    lock = threading.Lock()
+    next_req = [0]
+
+    def client():
+        while True:
+            with lock:
+                i = next_req[0]
+                next_req[0] += 1
+            if i >= SERVE_REQUESTS:
+                return
+            raw = payloads[i % len(payloads)]
+            body = raw if i % 2 == 0 else base64.b64encode(raw)
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(url, data=body,
+                                                                   method="POST"),
+                                            timeout=300) as r:
+                    reply = json.load(r)
+            except Exception as e:  # recorded, and the phase fails below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+                continue
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            agree[i] = _rows_agree(reply, expected[i % len(payloads)], API_RTOL)
+
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if any(t.is_alive() for t in clients):
+            fail(f"{what}: a client did not return within 600 s")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join(60)
+    if errors:
+        fail(f"{what}: {len(errors)} requests failed: {errors[:3]}")
+    flips = [i for i, a in enumerate(agree) if a == "flip"]
+    if len(flips) > SERVE_MAX_FLIPS:
+        fail(f"{what}: {len(flips)} replies differ from the Detector's rows: {flips}")
+    if launches["fused_bottleneck"] != FUSED_PER_FORWARD * counted.forwards or \
+            counted.forwards == 0:
+        fail(f"{what}: launches {launches} for {counted.forwards} forwards")
+    return dict(requests=SERVE_REQUESTS, clients=SERVE_CLIENTS, wall_s=wall,
+                req_per_s=SERVE_REQUESTS / wall, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), mean_ms=float(np.mean(lat)),
+                batches=len(counted.sizes),
+                mean_batch=float(np.mean(counted.sizes)), forwards=counted.forwards,
+                replies={k: agree.count(k) for k in ("exact", "close", "flip")},
+                flipped_requests=flips, rows=sum(len(expected[i % len(payloads)])
+                                                 for i in range(SERVE_REQUESTS)),
+                launches=launches)
+
+
+def serving_path(device, voc07: Path) -> tuple:
+    """The serving phase (see the module docstring). Returns (result,
+    launches by path)."""
+    import dataclasses
+
+    import torch
+    from aod_meh_hua_torch.api import Detector, init_detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.loader import EvalLoader
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig, prepare_sample
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES, VOCDataset
+    from aod_meh_hua_torch.engine.batch import EvalBatch, prepare_images
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class, make_eval_step
+    from aod_meh_hua_torch.models.detector import build_retinanet
+    from aod_meh_hua_torch.tools import benchmark
+    from aod_meh_hua_torch.tools.deployment import export_model, package_model, test_exported
+    from aod_meh_hua_torch.tools.deployment.serve import ArchiveDetector
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+    from aod_meh_hua_torch.utils.voc_eval import eval_map
+
+    t_phase = time.time()
+    shutil.rmtree(SERVE, ignore_errors=True)
+    SERVE.mkdir(parents=True)
+    cfg = RetinaNetConfig(fused_blocks=True)
+    model = init_detector(cfg, seed=0, device=device)
+    det = Detector(cfg, model)
+    files = sorted(FIXTURES.glob("*.jpg"))
+    imgs = [imread(str(p)) for p in files]
+    samples = [prepare_sample(i, None, det.pipeline, flip=False) for i in imgs]
+    s0 = samples[0]
+    sharpen_cls_head(model, prepare_images(torch.from_numpy(s0["image"][None]).to(device),
+                                           torch.from_numpy(s0["img_shape"][None]).to(device),
+                                           cfg.for_orientation(s0["orientation"])))
+    result, launches = {}, {}
+
+    # TTA: identity against __call__, then two scales and the flip
+    singles = [det(i) for i in imgs]
+    identity = [_agree(det.tta(i, scales=[det.pipeline.img_scale], flip=False), s, 1e-5)
+                for i, s in zip(imgs, singles)]
+    if "flip" in identity or "close" in identity:
+        fail(f"TTA: identity TTA differs from __call__: {identity}")
+    for o in ("landscape", "portrait"):  # warm-up of each (scale, orientation)
+        det.tta(imgs[next(k for k, s in enumerate(samples) if s["orientation"] == o)],
+                scales=TTA_SCALES)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tta = [det.tta(i, scales=TTA_SCALES, flip=True) for i in imgs]
+    tta_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    launches["tta"] = read_launches()
+    augs = len(TTA_SCALES) * 2
+    if launches["tta"]["fused_bottleneck"] != FUSED_PER_FORWARD * augs * len(imgs):
+        fail(f"TTA: launches {launches['tta']} for {augs * len(imgs)} forwards")
+    if not all(np.isfinite(a).all() for r in tta for a in r) or \
+            sum(len(a) for r in tta for a in r) == 0:
+        fail("TTA: no detection, or not finite")
+    # the same TTA through an unfused twin with the same weights: the
+    # kernel at the TTA's shapes, the flips and the merge at full width
+    plain = build_retinanet(dataclasses.replace(cfg, fused_blocks=False), device=device)
+    plain.load_state_dict(model.state_dict())
+    twin = Detector(dataclasses.replace(cfg, fused_blocks=False), plain)
+    tta_agree = [_agree(got, twin.tta(i, scales=TTA_SCALES, flip=True), API_RTOL)
+                 for i, got in zip(imgs, tta)]
+    del twin, plain
+    tta_flips = [k for k, a in enumerate(tta_agree) if a == "flip"]
+    if len(tta_flips) > SERVE_MAX_FLIPS:
+        fail(f"TTA: {len(tta_flips)} images off the unfused twin's TTA: {tta_agree}")
+    result["tta"] = dict(scales=TTA_SCALES, flip=True, images=len(imgs), ms_per_image=tta_ms,
+                         identity=identity, detections=sum(len(a) for r in tta for a in r),
+                         forwards_per_image=augs,
+                         against_unfused={k: tta_agree.count(k) for k in ("exact", "close",
+                                                                           "flip")},
+                         flipped_images=tta_flips)
+
+    # the fused eval step exported at batch 8 in both orientations, saved,
+    # packaged and loaded; on the synthetic canvases against the eager step
+    t0 = time.time()
+    paths = {}
+    for o in ("landscape", "portrait"):
+        program = export_model.export_eval_step(cfg.for_orientation(o), model, BATCH)
+        if export_model.fused_nodes(program) != FUSED_PER_FORWARD:
+            fail(f"export ({o}): {export_model.fused_nodes(program)} fused operator nodes")
+        paths[o] = str(SERVE / f"{o}.pt2")
+        export_model.save_program(program, paths[o])
+        del program
+    export_s = time.time() - t0
+    t0 = time.time()
+    archive = package_model.package(paths["landscape"], str(SERVE), "retinanet_fused",
+                                    artifact_portrait=paths["portrait"],
+                                    classes=VOC_CLASSES,
+                                    geometry=package_model.geometry_for(cfg, BATCH))
+    manifest, programs = package_model.load_archive(archive)
+    modules = {o: p.module() for o, p in programs.items()}
+    load_s = time.time() - t0
+    triples, n_pool = synthetic_pool(cfg)
+
+    def float_batch(o, b):
+        up = upload(b, device)
+        return EvalBatch(prepare_images(up.images, up.img_shapes, cfg.for_orientation(o)),
+                         up.img_shapes, up.scale_factors, b.valid)
+
+    floats = [(o, float_batch(o, b), idx) for o, b, idx in triples]
+    steps = {o: make_eval_step(model, cfg.for_orientation(o), device=device)
+             for o in modules}
+    eager = [steps[o](b) for o, b, _ in floats]
+    torch.cuda.synchronize()
+    reset_launches()
+    exported = [export_model.run_program(modules[o], b) for o, b, _ in floats]
+    torch.cuda.synchronize()
+    launches["exported"] = read_launches()
+    if launches["exported"]["fused_bottleneck"] != FUSED_PER_FORWARD * len(floats):
+        fail(f"exported: launches {launches['exported']} for {len(floats)} batches")
+    agree = []
+    for (o, b, idx), e, x in zip(floats, eager, exported):
+        pe = detections_to_per_class(e, cfg.num_classes, batch_valid=b.valid)
+        px = detections_to_per_class(x, cfg.num_classes, batch_valid=b.valid)
+        agree += [(int(i), _agree(g, w, 1e-4)) for i, g, w in zip(idx, px, pe)]
+    flips = [i for i, a in agree if a == "flip"]
+    if len(flips) > SERVE_MAX_FLIPS:
+        fail(f"exported: {len(flips)} images off the eager step: {flips}")
+    timing = {"eager": [], "exported": []}
+    for name in ("eager", "exported", "exported", "eager"):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for o, b, _ in floats:
+            (steps[o](b) if name == "eager" else export_model.run_program(modules[o], b))
+        torch.cuda.synchronize()
+        timing[name].append((time.perf_counter() - t0) * 1e3 / len(floats))
+    n_dets = sum(int(e.valid.sum()) for e in eager)
+    if n_dets == 0:
+        fail("exported: the eager step found no detection on the synthetic pool")
+
+    # test_exported's sweep of the AL tree's test split through the loaded
+    # programs only, against the eager eval of the same canvases
+    reset_launches()
+    t0 = time.time()
+    swept = test_exported.run([paths["landscape"], "--artifact-portrait", paths["portrait"],
+                               "--voc07", str(voc07), "--split", "test", "--batch", str(BATCH)])
+    test_exported_s = time.time() - t0
+    launches["test_exported"] = read_launches()
+    m_exported = swept["mAP"]
+    ds = VOCDataset(str(voc07 / "ImageSets" / "Main" / "test.txt"), str(voc07),
+                    test_mode=True)
+    results, order = [], []
+    for o, b, bidx in EvalLoader(ds, np.arange(len(ds)), PipelineConfig(canvas=cfg.canvas),
+                                 batch_size=BATCH):
+        results += detections_to_per_class(steps[o](b), cfg.num_classes,
+                                           batch_valid=np.asarray(b.valid))
+        order += bidx.tolist()
+    m_eager = eval_map(results, [ds.get_ann_info(i) for i in order], iou_thr=0.5,
+                       mode="11points")["mAP"]
+    # the sweep's own per-image detections against the eager step's: with
+    # random weights both mAPs are near 0, so the mAP alone would not see
+    # a dropped image, a swapped orientation or a wrong class count
+    if swept["order"] != order:
+        fail(f"test_exported: swept images {swept['order']}, the eager loader's {order}")
+    swept_agree = [_agree(g, w, 1e-4) for g, w in zip(swept["results"], results)]
+    swept_flips = [order[k] for k, a in enumerate(swept_agree) if a == "flip"]
+    if len(swept_flips) > SERVE_MAX_FLIPS or sum(len(r) for p in results for r in p) == 0:
+        fail(f"test_exported: per image against the eager step {swept_agree}")
+    if launches["test_exported"]["fused_bottleneck"] == 0 or not np.isfinite(m_exported) or \
+            (not swept_flips and abs(m_exported - m_eager) > 1e-6):
+        fail(f"test_exported: mAP {m_exported} against the eager {m_eager}, launches "
+             f"{launches['test_exported']}")
+    result["exported"] = dict(
+        batch=BATCH, fused_nodes=FUSED_PER_FORWARD, export_s=export_s, package_and_load_s=load_s,
+        archive_mb=os.path.getsize(archive) / 1e6, manifest_keys=sorted(manifest),
+        canvases=n_pool, batches=len(floats), detections=n_dets,
+        images={k: [a for _, a in agree].count(k) for k in ("exact", "close", "flip")},
+        flipped_images=flips, ms_per_batch=timing, test_exported=dict(
+            mAP=m_exported, mAP_eager=m_eager, images=len(ds), seconds=test_exported_s,
+            against_eager={k: swept_agree.count(k) for k in ("exact", "close", "flip")},
+            flipped_images=swept_flips))
+
+    # the server around the fused Detector, then around the archive
+    payloads = [p.read_bytes() for p in files]
+    expected = [_rows(r, VOC_CLASSES, SERVE_SCORE_THR)
+                for r in (det.predict_batch([i], max_batch=BATCH)[0] for i in imgs)]
+    if not any(expected):
+        fail(f"serve: no row at or above {SERVE_SCORE_THR} on the fixtures")
+    det.predict_batch(imgs, max_batch=BATCH)  # warm-up
+    result["serve"] = serve_load(det, payloads, expected, "serve")
+    launches["serve"] = result["serve"]["launches"]
+    adet = ArchiveDetector(archive)
+    adet.predict_batch(imgs)  # warm-up
+    result["serve_archive"] = serve_load(adet, payloads, expected, "serve_archive")
+    launches["serve_archive"] = result["serve_archive"]["launches"]
+    del adet, modules, programs, steps
+    model = det = None
+    torch.cuda.empty_cache()
+
+    # the FPS tool at batch 8, fused and unfused (seeded random weights)
+    result["benchmark"] = {}
+    for name, fused in (("fused", True), ("unfused", False)):
+        reset_launches()
+        out = benchmark.benchmark(dataclasses.replace(cfg, fused_blocks=fused), batch=BATCH,
+                                  iters=FPS_ITERS, warmup=FPS_WARMUP, device=device)
+        counts = read_launches()
+        want = FUSED_PER_FORWARD * (FPS_ITERS + FPS_WARMUP) if fused else 0
+        if counts["fused_bottleneck"] != want:
+            fail(f"benchmark ({name}): launches {counts}, not {want}")
+        result["benchmark"][name] = out
+        if fused:
+            launches["benchmark"] = counts
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.time() - t_phase
+    result["launches"] = launches
+    return result, launches
+
+
 # --- distributed phase: parallel/ on one card ---------------------------------------
 
 DIST = REPO / "build" / "chip_smoke_dist"
@@ -3051,6 +3441,10 @@ def main() -> int:
     print("ensemble AL path:", json.dumps(al_ens), f"[{card}]", flush=True)
     print(f"ensemble AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    serving, serving_launches = serving_path(device, voc07)
+    print("serving path:", json.dumps(serving), f"[{card}]", flush=True)
+    print(f"serving phase: {serving['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -3059,7 +3453,7 @@ def main() -> int:
                  "detector": api_launches, "ssl": ssl_launches, "score_pool_cli": sp_launches,
                  "al_ensemble_cli": al_ens["launches"],
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
-                 "dist_al_cli_2_ranks": add_launches(*dist_al)}
+                 "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731
@@ -3072,9 +3466,11 @@ def main() -> int:
         "name": "fused_bottleneck", "route": "cuda",
         "source": "aod_meh_hua_torch/csrc/fused_bottleneck.cu",
         "replaces": "aod_meh_hua_tpu/ops/fused_block.py:221",
-        # the scoring, extra-pool, eval, ensemble and Detector runs, each counted from 0
+        # the scoring, extra-pool, eval, ensemble, Detector and serving runs, each counted
+        # from 0
         "launches": path["launches"] + pool_launches + eval_launches
-        + ens_launches["fused_bottleneck"] + api_launches["fused_bottleneck"],
+        + ens_launches["fused_bottleneck"] + api_launches["fused_bottleneck"]
+        + sum(c["fused_bottleneck"] for c in serving_launches.values()),
         "launches_by_path": {"score_pool": path["launches"], "other_pools": pool_launches,
                              "eval": eval_launches, "nms_sync_check": nms_launches,
                              "batch64_pool_and_eval": b64_launches,

@@ -5,8 +5,9 @@ against the CPU, a backward through a fused block on the card, and the
 sampled Dirichlet MI with a CUDA generator at small concentrations; the
 data-parallel step over NCCL at world size 1 against the plain step; the
 AL CLI's --mini run and a mid-cycle resume on the card; the ensemble and
-MC-dropout steps on the card against the CPU, and a fused Detector's
-launches and results. Skips, with the reason, where there is no card.
+MC-dropout steps on the card against the CPU, a fused Detector's
+launches and results, and the fused eval step exported, saved and
+loaded. Skips, with the reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -509,3 +510,43 @@ def test_detector_launches_the_fused_kernel(cuda):
             np.testing.assert_allclose(x, v, rtol=1e-4, atol=1e-3)
             np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-3)
             np.testing.assert_allclose(z[:, :5], x, rtol=1e-5, atol=1e-5)
+
+
+def test_exported_fused_program_launches_the_kernel(cuda, tmp_path):
+    """The fused tiny model's eval step exported on the card, saved and
+    loaded: two operator nodes, two kernel launches per call of the
+    loaded program, the eager step's detections bit for bit, and a
+    backward through the operator raises."""
+    from aod_meh_hua_torch.api import init_detector
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.engine.eval import make_eval_step
+    from aod_meh_hua_torch.tools.deployment import export_model
+    from aod_meh_hua_torch.utils.config import tiny_test_config
+
+    cfg = tiny_test_config(block_counts=(2, 2, 1, 1), stem_width=32, fused_blocks=True)
+    model = init_detector(cfg, seed=2, device=cuda)
+    with torch.no_grad():
+        model.head.retina_cls.weight.mul_(150.0)
+    program = export_model.export_eval_step(cfg, model, 2)
+    assert export_model.fused_nodes(program) == 2
+    path = tmp_path / "det.pt2"
+    export_model.save_program(program, path)
+    loaded = export_model.load_program(path)
+    h, w = cfg.canvas
+    r = np.random.RandomState(0)
+    # the program takes the traced dtypes: int32 shapes
+    batch = EvalBatch(r.randn(2, h, w, 3).astype(np.float32),
+                      np.array([[h, w], [h - 8, w]], np.int32), np.ones((2, 4), np.float32),
+                      np.ones(2, bool))
+    before = fb_mod.fused_bottleneck.launches
+    got = export_model.run_program(loaded, batch)
+    torch.cuda.synchronize()
+    assert fb_mod.fused_bottleneck.launches == before + 2
+    want = make_eval_step(model, cfg, device=cuda)(batch)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert int(want.valid.sum()) > 0
+    x = torch.randn(1, 8, 8, 128, device=cuda, requires_grad=True)
+    blk = random_block(128, 32, 128, False, cuda)
+    with pytest.raises(RuntimeError, match="fused_bottleneck has no backward"):
+        fused_bottleneck(x, blk).sum().backward()

@@ -10,6 +10,7 @@ TPU outside interpret mode); the port runs both. Head outputs agree to
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -165,11 +166,18 @@ def test_backward_through_a_fused_block_raises():
     assert xg.grad is not None and xg.grad.abs().max() > 0
 
 
+def _two_stage_tta(image):
+    """Detector.tta of a two-stage family (the dense families' TTA is
+    ported; tests/test_torch_tta.py)."""
+    det = Detector(ttiny(), build_retinanet(ttiny(), device="cpu"))
+    det.cfg = SimpleNamespace(family="faster_rcnn")
+    return det.tta(image)
+
+
 @pytest.mark.parametrize("make", [
     lambda: MEHRetinaNet(ttiny(stem_s2d=True)), lambda: MEHRetinaNet(ttiny(backbone_int8=True)),
     lambda: MEHRetinaNet(ttiny(remat=True)),
-    lambda: Detector(ttiny(), build_retinanet(ttiny(), device="cpu")).tta(
-        np.zeros((40, 80, 3), np.uint8)),
+    lambda: _two_stage_tta(np.zeros((40, 80, 3), np.uint8)),
     lambda: MEHRetinaNet(ttiny(compute_dtype="bfloat16"))],
     ids=["stem_s2d", "backbone_int8", "remat", "Detector.tta", "bfloat16"])
 def test_unported_options_raise(make):
