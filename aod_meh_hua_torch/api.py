@@ -1,18 +1,20 @@
-"""High-level inference API for the two ported families (MEH-RetinaNet,
-MEH-SSD).
+"""High-level inference API for the ported families (MEH-RetinaNet,
+MEH-SSD, Faster R-CNN).
 
-Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :214-341
-(`_default_pipeline`, `Detector` with its dense `tta`) and :439-525 (`predict_batch`,
-`inference_detector`, `async_inference_detector`), which mirror the
-reference's mmdet/apis/inference.py:16 (init_detector), :89
-(inference_detector) and :155 (async_inference_detector).
+Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :112-205
+(`make_eval_step_for`), :214-341 (`_default_pipeline`, `Detector` with
+its dense `tta`) and :439-525 (`predict_batch`, `inference_detector`,
+`async_inference_detector`), which mirror the reference's
+mmdet/apis/inference.py:16 (init_detector), :89 (inference_detector) and
+:155 (async_inference_detector).
 
 In PyTorch's idiom the module carries its weights: `init_detector`
 returns the model on its device, where the JAX function returns
 (model, variables), and `Detector` takes (cfg, model) where the JAX one
 takes (cfg, model, variables). Its steps run on the model's device. The
-other families of the JAX registry raise (ROADMAP Queue 1 item 15), with
-their test-time augmentation, and so does drawing (item 13).
+other families of the JAX registry raise (ROADMAP Queue 1 item 15), and
+so do Faster R-CNN's test-time augmentation and uncertainty column (the
+JAX package's are the dense families' only), and drawing (item 13).
 """
 
 from __future__ import annotations
@@ -28,10 +30,15 @@ from .engine.batch import EvalBatch
 from .engine.checkpoint import load_model_state_dict
 from .engine.eval import detections_to_per_class, make_eval_step
 from .engine.tta import canvas_for_scale, make_tta_candidate_step, make_tta_merge_step
+from .engine.two_stage import make_faster_rcnn_eval_step
 from .models.detector import build_retinanet
 from .models.ssd_detector import build_ssd
+from .models.two_stage import build_faster_rcnn
+from .utils.config import ALL_FAMILIES
 
-_FAMILIES = ("retinanet", "ssd")
+# the dense families: TTA and the per-detection uncertainty are theirs
+_DENSE = ("retinanet", "ssd")
+_BUILD = {"retinanet": build_retinanet, "ssd": build_ssd, "faster_rcnn": build_faster_rcnn}
 
 
 def _family(cfg) -> str:
@@ -50,13 +57,19 @@ def init_detector(cfg, checkpoint: Optional[str] = None, seed: int = 0,
     given: the port's files, the JAX package's flax-msgpack files and
     the reference's mmdet .pth (engine/checkpoint.py)."""
     family = _family(cfg)
-    if family not in _FAMILIES:
+    if family not in ALL_FAMILIES:
         _not_ported(f"the {family} family", "15")
-    build = build_ssd if family == "ssd" else build_retinanet
-    model = build(cfg, device=device, seed=seed)
+    model = _BUILD[family](cfg, device=device, seed=seed)
     if checkpoint:
         model.load_state_dict(load_model_state_dict(checkpoint, family))
     return model
+
+
+def make_eval_step_for(model, cfg, device="cuda"):
+    """The family's eval step on `device`: step(EvalBatch) -> NMSResult."""
+    if _family(cfg) == "faster_rcnn":
+        return make_faster_rcnn_eval_step(model, cfg, device=device)
+    return make_eval_step(model, cfg, device=device)
 
 
 def _default_pipeline(cfg) -> PipelineConfig:
@@ -76,9 +89,9 @@ class Detector:
         [k, 6], the per-detection Shannon entropy appended (the reference's
         bbox2tupleresult)."""
         family = _family(cfg)
-        if with_uncertainty and family not in _FAMILIES:
+        if with_uncertainty and family not in _DENSE:
             raise ValueError("with_uncertainty is a retinanet/ssd capability")
-        if family not in _FAMILIES:
+        if family not in ALL_FAMILIES:
             _not_ported(f"the {family} family", "15")
         self.cfg = cfg
         self.model = model
@@ -91,9 +104,10 @@ class Detector:
 
     def _step(self, orientation: str):
         if orientation not in self._steps:
-            self._steps[orientation] = make_eval_step(
-                self.model, self.cfg.for_orientation(orientation),
-                with_uncertainty=self.with_uncertainty, device=self.device)
+            ocfg = self.cfg.for_orientation(orientation)
+            self._steps[orientation] = (
+                make_eval_step(self.model, ocfg, with_uncertainty=True, device=self.device)
+                if self.with_uncertainty else make_eval_step_for(self.model, ocfg, self.device))
         return self._steps[orientation]
 
     def _per_class(self, out, batch_valid=None) -> List[List[np.ndarray]]:
@@ -135,7 +149,7 @@ class Detector:
         fam = _family(self.cfg)
         if fam == "sparse_rcnn":
             raise NotImplementedError("Sparse R-CNN does not support `aug_test`")
-        if fam not in _FAMILIES:
+        if fam not in _DENSE:
             _not_ported(f"TTA of the {fam} family", "15")
         aug_boxes, aug_scores = [], []
         for scale in scales:

@@ -9,7 +9,8 @@ which replaces the reference's DataLoader + GroupSampler + collate stack
   portrait), each batch tagged with its orientation.
 * TrainLoader: a seeded shuffle of whole same-orientation batches, the
   dataset-repeat multiplier, GT padded to max_gt, per-image anchor
-  validity from the /32 pad extent. The RNG stream, the batch order and
+  validity from the /32 pad extent, for the anchors of the config's
+  family (RetinaNet's, SSD's, or Faster R-CNN's RPN anchors). The RNG stream, the batch order and
   the per-sample seeds are the JAX package's, so the same seed gives the
   same batches, bit for bit (tests/test_torch_data.py).
 * Across ranks (parallel/), a TrainLoader gives each rank its block of
@@ -36,7 +37,6 @@ import numpy as np
 
 from ..engine.batch import Batch, EvalBatch
 from ..ops.anchors import anchor_valid_flags
-from ..utils.config import RetinaNetConfig
 from .pipeline import PipelineConfig, load_image, prepare_sample
 
 ORIENTATIONS = ("landscape", "portrait")
@@ -109,7 +109,7 @@ class TrainLoader:
         self,
         dataset,
         indices: Sequence[int],
-        model_cfg: RetinaNetConfig,
+        model_cfg,
         pipeline: PipelineConfig,
         batch_size: int,
         repeat: int = 1,

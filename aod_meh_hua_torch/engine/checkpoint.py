@@ -15,6 +15,10 @@ the JAX package's; the format the port writes is torch's own:
 `torch.save` of the model state_dict, and for the train state also the
 SGD momentum buffers by parameter name and the step.
 
+The families' model files go by family (`load_model_state_dict(path,
+family)`): "retinanet", "ssd" and "faster_rcnn" (the generic trainer's
+{family}_final.ckpt, a JAX-written one included).
+
 It reads three formats, told apart by their first bytes (`sniff_format`):
 torch's zip and legacy pickle files (its own, or the reference's mmdet
 .pth, raw or in mmcv's {"state_dict", "meta"} wrapper), and the JAX
@@ -79,12 +83,19 @@ def load_checkpoint(path: str, map_location="cpu") -> Any:
 def to_model_state_dict(obj: Any, family: str) -> Dict[str, torch.Tensor]:
     """A loaded checkpoint -> the family's port state_dict: a JAX
     variables tree ({"params", "batch_stats"}, or bare params), mmcv's
-    {"state_dict", "meta"} wrapper, an mmdet state_dict, or the port's
-    own. Unknown keys of an mmdet file raise."""
+    {"state_dict", "meta"} wrapper, an mmdet state_dict (RetinaNet, SSD),
+    or the port's own. Unknown keys of an mmdet file raise, and so does an
+    mmdet Faster R-CNN file."""
     if isinstance(obj, dict) and "params" in obj:
         return from_jax_variables(obj)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
+    if family == "faster_rcnn":
+        if any(k.startswith("roi_head.") for k in obj):
+            raise NotImplementedError(
+                "an mmdet Faster R-CNN .pth: its import (the box head's (c, h, w) fc "
+                "input) is not ported yet (ROADMAP Queue 1 item 15)")
+        return dict(obj)
     if family == "ssd":
         sd, rest = convert_reference_ssd(obj)
     elif is_reference_retinanet(obj):

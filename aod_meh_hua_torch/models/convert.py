@@ -1,12 +1,15 @@
 """JAX variables -> the port's state_dict.
 
-Takes the JAX package's MEH-RetinaNet or MEH-SSD variables, {"params":
-..., "batch_stats": ...} as nested dicts of numpy arrays (the trees of
-aod_meh_hua_tpu/models/detector.py and ssd_detector.py), and returns a
-state_dict for models/detector.py's MEHRetinaNet or
-models/ssd_detector.py's MEHSSD (mmdet's names, the mapping of
-aod_meh_hua_tpu/models/reference_convert.py:107-140). Conv kernels go
-HWIO -> OIHW; BN scale/bias/mean/var and L2Norm's scale go to
+Takes the JAX package's MEH-RetinaNet, MEH-SSD or Faster R-CNN variables,
+{"params": ..., "batch_stats": ...} as nested dicts of numpy arrays (the
+trees of aod_meh_hua_tpu/models/detector.py, ssd_detector.py and
+two_stage.py), and returns a state_dict for models/detector.py's
+MEHRetinaNet, models/ssd_detector.py's MEHSSD (mmdet's names, the mapping
+of aod_meh_hua_tpu/models/reference_convert.py:107-140) or
+models/two_stage.py's FasterRCNN. Conv kernels go HWIO -> OIHW and Dense
+kernels [in, out] -> [out, in]; the box head's first fc reads its input
+in the JAX head's (h, w, c) order, so its columns carry over as they are.
+BN scale/bias/mean/var and L2Norm's scale go to
 weight/bias/running_mean/running_var and weight. The JAX
 package keeps one tree whether fused_blocks is on or off
 (models/resnet.py:93-122), and so does the port: the same tree loads
@@ -32,6 +35,7 @@ _NAME_RULES = (
     (re.compile(r"^conv_(\d+)$"), r"\1"),
     (re.compile(r"^downsample_conv$"), "downsample.0"),
     (re.compile(r"^downsample_bn$"), "downsample.1"),
+    (re.compile(r"^shared_fc_(\d+)$"), r"shared_fcs.\1"),
 )
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -77,8 +81,8 @@ def _ssd_module(mods) -> str:
 
 def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} numpy tree -> the state_dict of the port
-    model of its family (MEHRetinaNet, or MEHSSD for a tree with VGG
-    convs). SSD has no batch_stats."""
+    model of its family (MEHRetinaNet, MEHSSD for a tree with VGG convs,
+    FasterRCNN for one with an RPN head). SSD has no batch_stats."""
     ssd = "conv1_1" in tree.get("params", {}).get("backbone", {})
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
@@ -86,7 +90,8 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
             *mods, name = path
             arr = np.asarray(leaf, dtype=np.float32)
             if name == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                # HWIO -> OIHW; a Dense kernel [in, out] -> [out, in]
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             module = _ssd_module(mods) if ssd else ".".join(_module_name(m) for m in mods)
             out[f"{module}.{_LEAF[name]}"] = torch.from_numpy(np.array(arr, order="C"))
     return out

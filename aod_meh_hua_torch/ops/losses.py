@@ -1,13 +1,13 @@
 """Classification and regression losses of MEH-RetinaNet and MEH-SSD
 (torch): focal, the EDL variants, L1, softmax cross-entropy.
 
-Port of aod_meh_hua_tpu/ops/losses.py:25-162 and :238-254, which mirrors the
+Port of aod_meh_hua_tpu/ops/losses.py:25-162 and :238-271, which mirrors the
 reference's mmdet/models/losses/EDL_Softmax_FocalLoss.py:31-68 (the live
 cls loss: softmax -> pseudo-logit -> sigmoid focal loss),
 EDL_FocalLoss.py, EDL_ReLU.py, mmcv's sigmoid_focal_loss kernel (per
 (anchor, class) terms with integer targets), smooth_l1_loss.py (L1Loss,
-the live bbox loss), cross_entropy_loss.py (SSD's CE over C+1 columns)
-and utils.py weight_reduce_loss. Labels run over
+the live bbox loss), cross_entropy_loss.py (SSD's and the RoI head's CE
+over C+1 columns, the RPN's sigmoid BCE) and utils.py weight_reduce_loss. Labels run over
 [0, C], where C is background.
 """
 
@@ -129,4 +129,15 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weight=Non
     idx = labels.long()
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     loss = -torch.gather(log_p, -1, idx[..., None])[..., 0]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight=None,
+                                     reduction: str = "mean",
+                                     avg_factor=None) -> torch.Tensor:
+    """Sigmoid BCE on float targets in the stable form
+    max(x, 0) - x * t + log1p(exp(-|x|)) (the reference's
+    CrossEntropyLoss(use_sigmoid=True), the RPN's objectness loss)."""
+    loss = torch.clamp(logits, min=0.0) - logits * targets \
+        + torch.log1p(torch.exp(-torch.abs(logits)))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)

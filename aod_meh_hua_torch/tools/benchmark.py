@@ -10,12 +10,13 @@ runs on the card otherwise. --dtype defaults to float32, as the port's
 score_pool does (the JAX tool's default, bfloat16, raises: ROADMAP
 Queue 1 item 16).
 
-    python -m aod_meh_hua_torch.tools.benchmark [--family retinanet|ssd] \\
+    python -m aod_meh_hua_torch.tools.benchmark [--family retinanet|ssd|faster_rcnn] \\
         [--batch 8] [--iters 50] [--warmup 5] [--cpu]
 
 `benchmark(cfg, ...)` is the same measurement on a config the caller
 gives: RetinaNetConfig(fused_blocks=True) for the fused kernel, the
-tests' tiny one.
+tests' tiny ones. The step is the family's (api.make_eval_step_for): for
+Faster R-CNN the two-stage eval step.
 """
 
 from __future__ import annotations
@@ -33,15 +34,16 @@ from ..utils.device import pin_numerics, resolve_device
 
 def benchmark(cfg, batch: int = 8, iters: int = 50, warmup: int = 5, device="cuda",
               seed: int = 0) -> dict:
-    """img/s and ms per image of make_eval_step(init_detector(cfg)) on
-    `device`, over `iters` steps after `warmup`; the batch is seeded
-    normal noise (x0.2) on the canvas, valid everywhere."""
-    from ..api import init_detector
-    from ..engine.eval import batch_on, make_eval_step
+    """img/s and ms per image of the family's eval step on
+    init_detector(cfg) on `device`, over `iters` steps after `warmup`;
+    the batch is seeded normal noise (x0.2) on the canvas, valid
+    everywhere."""
+    from ..api import init_detector, make_eval_step_for
+    from ..engine.eval import batch_on
 
     dev = resolve_device(device)
     model = init_detector(cfg, device=dev, seed=seed)
-    step = make_eval_step(model, cfg, device=dev)
+    step = make_eval_step_for(model, cfg, device=dev)
     h, w = cfg.canvas
     rng = np.random.RandomState(seed)
     data = batch_on(EvalBatch(rng.randn(batch, h, w, 3).astype(np.float32) * 0.2,
@@ -67,14 +69,15 @@ def benchmark(cfg, batch: int = 8, iters: int = 50, warmup: int = 5, device="cud
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description="Eval-step FPS benchmark")
     ap.add_argument("--family", default="retinanet",
-                    help="retinanet or ssd (the other families: ROADMAP item 15)")
+                    help="retinanet, ssd or a ported zoo family (utils/config.py "
+                         "ZOO_FAMILIES; the others: ROADMAP item 15)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     args = ap.parse_args(argv)
-    from ..utils.config import RetinaNetConfig, SSDConfig
+    from ..utils.config import ZOO_FAMILIES, RetinaNetConfig, SSDConfig
 
     if args.dtype != "float32":
         raise NotImplementedError(
@@ -83,6 +86,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = RetinaNetConfig()
     elif args.family == "ssd":
         cfg = SSDConfig()
+    elif args.family in ZOO_FAMILIES:
+        cfg = ZOO_FAMILIES[args.family][0]()
     else:
         raise NotImplementedError(
             f"the {args.family} family is not ported yet (ROADMAP Queue 1 item 15)")

@@ -1,12 +1,14 @@
-"""Config dataclasses of the MEH-RetinaNet path.
+"""Config dataclasses of the ported families.
 
 A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
 `SSDAnchorCfg`, `SSDConfig`, `TrainConfig`, `ALConfig` and
 `tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-298,
-:2246-2294, :3545).
+:2246-2294, :3545), and of the Faster R-CNN family's `RPNCfg`, `RCNNCfg`,
+`FasterRCNNConfig` and `tiny_faster_rcnn_config` (:301-434, :2513) with
+`ZOO_FAMILIES` (:3569) cut to the families the port has.
 The port keeps its own copy because it imports nothing of the JAX
-package; tests/test_torch_ops.py holds the two copies equal field by
-field.
+package; tests/test_torch_ops.py and tests/test_torch_two_stage.py hold
+the copies equal field by field.
 """
 
 from __future__ import annotations
@@ -351,3 +353,180 @@ def tiny_test_config(**overrides) -> RetinaNetConfig:
     )
     base.update(overrides)
     return RetinaNetConfig(**base)
+
+
+@dataclass(frozen=True)
+class RPNCfg:
+    """RPN anchors / targets / proposal settings
+    (configs/_base_/models/faster_rcnn_r50_fpn.py rpn_head + train_cfg.rpn
+    + *_cfg.rpn_proposal)."""
+
+    anchor_strides: Tuple[int, ...] = (4, 8, 16, 32, 64)
+    anchor_scale: int = 8
+    ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    # assigner (train_cfg.rpn.assigner)
+    pos_iou_thr: float = 0.7
+    neg_iou_thr: float = 0.3
+    min_pos_iou: float = 0.3
+    # sampler (RandomSampler num=256, pos_fraction=0.5; neg_pos_ub >= 0
+    # caps negatives at neg_pos_ub * num_pos — Libra sets 5)
+    sampler_num: int = 256
+    pos_fraction: float = 0.5
+    neg_pos_ub: int = -1
+    # proposal generation
+    train_nms_pre: int = 2000
+    train_max_per_img: int = 1000
+    test_nms_pre: int = 1000
+    test_max_per_img: int = 1000
+    nms_iou_thr: float = 0.7
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.ratios)
+
+
+@dataclass(frozen=True)
+class RCNNCfg:
+    """RoI head settings (roi_head + train_cfg.rcnn)."""
+
+    # assigner (match_low_quality=False)
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.5
+    # sampler (num=512, pos_fraction=0.25, add_gt_as_proposals=True)
+    sampler_num: int = 512
+    pos_fraction: float = 0.25
+    # RoIAlign (output_size=7, strides 4-32, finest_scale=56); the
+    # reference's sampling_ratio=0 is adaptive — fixed 2 here (static shapes)
+    roi_size: int = 7
+    sampling_ratio: int = 2
+    finest_scale: int = 56
+    roi_strides: Tuple[int, ...] = (4, 8, 16, 32)
+    fc_channels: int = 1024
+    target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+
+
+@dataclass(frozen=True)
+class FasterRCNNConfig:
+    """Faster R-CNN R50-FPN, VOC classes (the upstream two-stage family
+    the reference keeps registered; configs/pascal_voc/ uses the same
+    1000x600 keep-ratio scale as RetinaNet).
+
+    The fields from `backbone_dcn` on select the JAX package's variants
+    of the family (other backbones, necks, RoI extractors, Libra R-CNN's
+    balanced pyramid, sampler and loss; the last seven are fields of its
+    subclasses there). The port builds the ResNet + FPN form only:
+    models/two_stage.py check_two_stage_options raises on any of them
+    set, as on compute_dtype="bfloat16", remat and stem_s2d."""
+
+    num_classes: int = 20
+    canvas: Tuple[int, int] = (608, 1024)
+    block_counts: Tuple[int, ...] = (3, 4, 6, 3)
+    stem_width: int = 64
+    frozen_stages: int = 1
+    fpn_channels: int = 256
+    rpn: RPNCfg = field(default_factory=RPNCfg)
+    rcnn: RCNNCfg = field(default_factory=RCNNCfg)
+    max_gt: int = 64
+    img_mean: Tuple[float, ...] = (123.675, 116.28, 103.53)
+    img_std: Tuple[float, ...] = (58.395, 57.12, 57.375)
+    img_to_rgb: bool = True
+    compute_dtype: str = "float32"
+    remat: bool = False
+    stem_s2d: bool = False
+    backbone_dcn: Optional[str] = None
+    backbone_gcb_ratio: Optional[float] = None
+    backbone_type: str = "resnet"
+    resnext_groups: int = 32
+    resnext_base_width: int = 4
+    res2net_scales: int = 4
+    res2net_base_width: int = 26
+    regnet_arch: str = "regnetx_3.2gf"
+    test: TestCfg = field(default_factory=lambda: TestCfg(
+        nms_pre=1000, score_thr=0.05, nms_iou_thr=0.5, max_per_img=100,
+        pre_nms_cands=1000))
+    # the JAX package's subclasses' switches, at the base family's values
+    neck_type: str = "fpn"
+    roi_extractor: str = "single"
+    bfp_refine_level: Optional[int] = None
+    bfp_refine_type: str = "non_local"
+    num_bins: Optional[int] = None
+    balanced_l1_alpha: Optional[float] = None
+    balanced_l1_gamma: float = 1.5
+    balanced_l1_beta: float = 1.0
+
+    family = "faster_rcnn"
+
+    @property
+    def backbone_channels(self) -> Tuple[int, ...]:
+        w = self.stem_width
+        return (4 * w, 8 * w, 16 * w, 32 * w)
+
+    @property
+    def num_fg_classes(self) -> int:
+        return self.num_classes
+
+    def for_orientation(self, orientation: str) -> "FasterRCNNConfig":
+        h, w = self.canvas
+        land = (max(h, w) == w)
+        if (orientation == "landscape") == land:
+            return self
+        return dataclasses.replace(self, canvas=(w, h))
+
+    def build_anchor_generator(self):
+        from ..ops.anchors import AnchorGenerator
+
+        return AnchorGenerator(
+            strides=self.rpn.anchor_strides, ratios=self.rpn.ratios,
+            octave_base_scale=self.rpn.anchor_scale, scales_per_octave=1,
+        )
+
+    def featmap_sizes(self):
+        h, w = self.canvas
+        assert h % 32 == 0 and w % 32 == 0, "canvas must be divisible by 32"
+        sizes = [(h // 4, w // 4), (h // 8, w // 8), (h // 16, w // 16),
+                 (h // 32, w // 32)]
+        for _ in range(len(self.rpn.anchor_strides) - 4):
+            ph, pw = sizes[-1]
+            sizes.append(((ph + 1) // 2, (pw + 1) // 2))
+        return sizes
+
+    def level_bounds(self):
+        a = self.rpn.num_anchors
+        bounds, off = [], 0
+        for (h, w) in self.featmap_sizes():
+            n = h * w * a
+            bounds.append((off, off + n))
+            off += n
+        return bounds
+
+
+def tiny_faster_rcnn_config(**overrides) -> FasterRCNNConfig:
+    """A shrunken Faster R-CNN for fast CPU unit tests."""
+    base = dict(
+        canvas=(64, 128),
+        block_counts=(1, 1, 1, 1),
+        stem_width=8,
+        fpn_channels=16,
+        num_classes=6,
+        max_gt=8,
+        rpn=RPNCfg(train_nms_pre=256, train_max_per_img=64,
+                   test_nms_pre=256, test_max_per_img=64,
+                   sampler_num=64),
+        rcnn=RCNNCfg(sampler_num=32, fc_channels=32),
+        test=TestCfg(nms_pre=200, pre_nms_cands=128, max_per_img=20),
+    )
+    base.update(overrides)
+    return FasterRCNNConfig(**base)
+
+
+# The model-zoo families the port has: name -> (full-size config class,
+# tiny test-config factory), the JAX package's ZOO_FAMILIES (:3569) cut to
+# them. Every port CLI reads its --family choices here; the other 51
+# families of the JAX registry come with ROADMAP Queue 1 item 15.
+ZOO_FAMILIES = {
+    "faster_rcnn": (FasterRCNNConfig, tiny_faster_rcnn_config),
+}
+
+# the two AL families and the zoo: every family init_detector builds
+ALL_FAMILIES = ("retinanet", "ssd") + tuple(ZOO_FAMILIES)

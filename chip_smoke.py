@@ -119,7 +119,24 @@
    Detector's rows; p50/p99 latency, req/s, mean coalesced batch,
    launches. Last the FPS tool (tools/benchmark.py) at batch 8, fused
    and unfused.
-18. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+18. Faster R-CNN (FasterRCNNConfig(): R50-FPN, frozen_stages 1, 3 RPN
+   anchors at strides 4-64, RoIAlign 7x7 over P2-P5, the 2-fc 1024 head,
+   20 classes, 608x1024 in both orientations), random weights from seed
+   0 with the RPN cls head sharpened (and for eval the class head): 2 +
+   10 train steps at batch 2 (ms per step, peak memory, finite losses,
+   positives every step, frozen stages unmoved), one step's device time
+   by stage (the steps' profiler ranges) and each proposal NMS
+   fixpoint's depth; the tiny config's two steps on the card against the
+   CPU under the same uniforms; the eval step over the 26 synthetic
+   canvases at batch 8 (img/s, peak memory, the split, the depths) with
+   the first two canvases of the timed sweep's first batch held to the
+   CPU's eval step on those canvases (no flip allowed); the trainer's CLI (tools/train_detector.py) for one
+   epoch at full width with eval on a fixture tree (build/chip_smoke_frcnn/),
+   its checkpoint back through init_detector and a Detector's
+   predict_batch on the 8 test JPEGs against the eval step's rows; the
+   FPS tool with --family faster_rcnn. Neither kernel lies on this path:
+   both launch counts must read 0.
+19. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -137,7 +154,7 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-19. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+20. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -146,6 +163,7 @@ of the repository. Every failed check raises.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -878,11 +896,17 @@ def train_card_vs_cpu(device, make_step=None):
         losses = [{k: float(v) for k, v in step(batch).items()} for _ in range(2)]
         return losses, {n: (initial[n], p.detach().cpu()) for n, p in model.named_parameters()}
 
-    (cpu_l, cpu_p), (gpu_l, gpu_p) = two_steps("cpu"), two_steps(device)
+    return steps_card_vs_cpu("training", LOSS_KEYS, two_steps("cpu"), two_steps(device))
+
+
+def steps_card_vs_cpu(what, keys, cpu, gpu) -> dict:
+    """The rules of train_card_vs_cpu on two runs of steps, each (losses
+    per step, {name: (initial, final) parameter on the host})."""
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = cpu, gpu
     loss_err = max(abs(g[k] - c[k]) / abs(c[k]) if c[k] else (0.0 if g[k] == 0 else np.inf)
-                   for c, g in zip(cpu_l, gpu_l) for k in LOSS_KEYS)
+                   for c, g in zip(cpu_l, gpu_l) for k in keys)
     if not loss_err <= TRAIN_RTOL:
-        fail(f"training card vs CPU: losses {gpu_l} vs {cpu_l}")
+        fail(f"{what} card vs CPU: losses {gpu_l} vs {cpu_l}")
     param_err = update_err = 0.0
     # what each check would read of a tensor that the card left unchanged
     missing_param, missing_update = [], []
@@ -892,17 +916,17 @@ def train_card_vs_cpu(device, make_step=None):
         err = (g - c).abs().max().item() / scale
         param_err = max(param_err, err)
         if err > TRAIN_RTOL:
-            fail(f"training card vs CPU: {name} differs by {err} of its max")
+            fail(f"{what} card vs CPU: {name} differs by {err} of its max")
         dc, dg = c - c0, g - g0
         tol = UPDATE_RTOL * dc.abs().max().item() + 2 * float(np.finfo(np.float32).eps) * scale
         uerr = (dg - dc).abs().max().item() / tol
         update_err = max(update_err, uerr)
         if uerr > 1.0:
-            fail(f"training card vs CPU: the update of {name} is {uerr} of its tolerance off")
+            fail(f"{what} card vs CPU: the update of {name} is {uerr} of its tolerance off")
         if dc.abs().max().item() > 0:
             missing_param.append(dc.abs().max().item() / scale / TRAIN_RTOL)
             missing_update.append(dc.abs().max().item() / tol)
-    return dict(steps=2, max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
+    return dict(steps=len(cpu_l), max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
                 max_update_err_over_tol=update_err, tensors_moved=len(missing_update),
                 # readings over each check's limit; a tensor reading <= 1 would pass unmoved
                 if_unmoved_param_check_min=min(missing_param),
@@ -1793,7 +1817,7 @@ def ssd_card_vs_cpu(device):
         update_err = max(update_err, uerr)
         if uerr > 1.0:
             fail(f"SSD training card vs CPU: the update of {name} is {uerr} of its tolerance off")
-    return dict(steps=2, max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
+    return dict(steps=len(cpu_l), max_rel_loss_err=loss_err, max_param_err_of_max=param_err,
                 max_update_err_over_tol=update_err, losses_card=gpu_l, losses_cpu=cpu_l)
 
 
@@ -2769,6 +2793,458 @@ def serving_path(device, voc07: Path) -> tuple:
     return result, launches
 
 
+# --- Faster R-CNN R50-FPN: the two-stage core of the model zoo -----------------------
+
+FRCNN = REPO / "build" / "chip_smoke_frcnn"
+FRCNN_RTOL = 1e-4       # card against CPU detections; the Detector against the eval step
+RPN_LOGIT_STD = 1.5     # the sharpened objectness logits, as CLS_LOGIT_STD for the classes
+FRCNN_LOSS_KEYS = ("loss", "loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox")
+# the eval step's profiler ranges (engine/two_stage.py STAGES) -> the split's groups
+FRCNN_GROUPS = {"faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
+                "faster_rcnn.proposals": "proposal top-k, decode and NMS",
+                "faster_rcnn.roi_align": "RoIAlign gathers",
+                "faster_rcnn.roi_head": "RoI-head matmuls",
+                # prefixes of the autograd engine's and torch.optim's host ops
+                "autograd::engine": "backward", "Optimizer.step": "optimizer"}
+# proposals of one image the card may keep and the CPU not, or the other way
+# round, each named with its largest IoU with a higher one; one of a step's
+# must sit within 1e-4 of the RPN's 0.7
+FRCNN_MAX_PROPOSAL_FLIPS = 4
+
+
+def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
+    """Scale rpn_cls so that the objectness logits on `images` have a std
+    of RPN_LOGIT_STD, and (classes) zero fc_cls's bias and background row
+    and scale its weight so that the class logits on the eval proposals'
+    RoIs have a std of CLS_LOGIT_STD: random heads put every objectness
+    near 0.5 (near-ties in the top-k) and every class score near 1/21,
+    under the 0.05 score gate, and a head trained a few steps from random
+    weights scores the background alone."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.engine.two_stage import (anchor_table, extract_rois,
+                                                    make_proposal_fn)
+
+    with torch.no_grad():
+        x = prepare_images(images, img_shapes, cfg)
+        model.rpn_head.rpn_cls.weight.mul_(RPN_LOGIT_STD / model(x)[1].std().item())
+        if not classes:
+            return
+        feats, rpn_cls, rpn_reg = model(x)
+        anchors = torch.from_numpy(anchor_table(cfg)).to(rpn_cls.device)
+        props = make_proposal_fn(cfg)(rpn_cls, rpn_reg, anchors, img_shapes,
+                                      cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)[0]
+        model.bbox_head.fc_cls.bias.zero_()
+        model.bbox_head.fc_cls.weight[-1].zero_()
+        cls = model.roi_forward(extract_rois(cfg, feats, props))[0]
+        model.bbox_head.fc_cls.weight.mul_(CLS_LOGIT_STD / cls.std().item())
+
+
+@contextlib.contextmanager
+def fixpoint_depths():
+    """Record each NMS fixpoint's candidate count and depth (the map
+    applications that changed the mask) while inside: the convergence is
+    checked after every application (CHECK_INTERVAL 1), which gives the
+    same masks (tests/test_torch_ops.py)."""
+    from aod_meh_hua_torch.ops import nms
+
+    real_keep, real_check, interval = nms._greedy_keep_sorted, nms._converged, nms.CHECK_INTERVAL
+    calls = []
+
+    def keep(off_boxes, cand_ok, iou_thr, device_loop=False):
+        checks = []
+
+        def counted(prev, k):
+            checks.append(1)
+            return real_check(prev, k)
+
+        with mock.patch.object(nms, "_converged", counted):
+            out = real_keep(off_boxes, cand_ok, iou_thr, device_loop)
+        calls.append({"batch": int(off_boxes.shape[0]), "k": int(off_boxes.shape[1]),
+                      "depth": len(checks) - 1})
+        return out
+
+    nms.CHECK_INTERVAL = 1
+    try:
+        with mock.patch.object(nms, "_greedy_keep_sorted", keep):
+            yield calls
+    finally:
+        nms.CHECK_INTERVAL = interval
+
+
+def profile_stages(fn, groups: dict) -> dict:
+    """Device time of one call of `fn` (ending in a host read) split by the
+    profiler range each kernel was launched in (the ranges' names ->
+    groups, the rest "other"), with profile_device's split by kernel name
+    and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        wall_us = (time.time() - t0) * 1e6
+    def group_of(name):
+        return next((g for key, g in groups.items() if name.startswith(key)), None)
+
+    by_group = {}
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels or getattr(e, "is_user_annotation", False):
+            continue
+        parent, group = e, None
+        while parent is not None and group is None:
+            group = group_of(parent.name)
+            parent = parent.cpu_parent
+        group = group or "other"
+        by_group[group] = by_group.get(group, 0.0) + sum(k.duration for k in kernels)
+    busy = sum(by_group.values())
+    if busy == 0:
+        return {"device_time": "not measured (no kernel was linked to a host op)"}
+    names = {}
+    for e in prof.key_averages():  # kernels only: not the ranges' spans on the device
+        if (str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+                and group_of(e.key) is None):
+            g = next((grp for key, grp in KERNEL_GROUPS if key in e.key.lower()), "other")
+            names[g] = names.get(g, 0.0) + e.self_device_time_total / 1e3
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "by_stage_ms": {g: t / 1e3 for g, t in sorted(by_group.items(), key=lambda kv: -kv[1])},
+            "by_kernel_name_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
+
+
+def frcnn_train_path(device) -> dict:
+    """FasterRCNNConfig() (R50-FPN, frozen_stages 1, 3 anchors, RoIAlign 7,
+    2-fc 1024 head, 20 classes), seed 0, its RPN cls head sharpened,
+    TrainConfig() (batch 2): 2 warm-up and 10 timed steps on one seeded
+    landscape batch, then one step profiled by stage, one under the
+    fixpoint-depth recorder and one portrait step."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.utils.config import FasterRCNNConfig, TrainConfig
+
+    cfg, tcfg = FasterRCNNConfig(), TrainConfig()
+    model = build_faster_rcnn(cfg, device=device, seed=0)
+    lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
+    batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
+    sharpen_frcnn(model, lcfg, batch.images, batch.img_shapes, classes=False)
+    opt = create_train_state(model, tcfg, frozen_stages=cfg.frozen_stages)
+    mask = frozen_mask(model, cfg.frozen_stages)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_faster_rcnn_train_step(model, lcfg, opt, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    auxes = [step(batch, gen) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    auxes += [step(batch, gen) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(device)
+    traj = {k: [float(a[k]) for a in auxes] for k in FRCNN_LOSS_KEYS + ("num_pos",)}
+    for k, v in traj.items():
+        if not np.isfinite(v).all():
+            fail(f"Faster R-CNN training: {k} is not finite: {v}")
+    if not min(traj["num_pos"]) > 0:
+        fail(f"Faster R-CNN training: a step sampled no positive RoI: {traj['num_pos']}")
+    for name, p in model.named_parameters():  # weight decay moves every trained weight
+        moved = not torch.equal(p.detach(), before[name])
+        if moved if mask[name] else (name.endswith("weight") and not moved):
+            fail(f"Faster R-CNN training: {name} (frozen: {mask[name]}) moved: {moved}")
+    prof = profile_stages(lambda: float(step(batch, gen)["loss"]), FRCNN_GROUPS)
+    with fixpoint_depths() as depths:
+        float(step(batch, gen)["loss"])
+    pcfg, pbatch = synthetic_train_batch(cfg, "portrait", tcfg.batch_size, seed=6)
+    paux = make_faster_rcnn_train_step(model, pcfg, opt, device=device)(pbatch, gen)
+    if not all(np.isfinite(float(v)) for v in paux.values()):
+        fail(f"Faster R-CNN training: a portrait loss is not finite: {paux}")
+    return dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
+                steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+                peak_mem_bytes=peak, trajectory=traj, proposal_fixpoints=depths,
+                portrait=(pcfg.canvas, {k: float(v) for k, v in paux.items()}),
+                profile_of_one_step=prof)
+
+
+def proposal_flips(got, want, iou_thr: float) -> list:
+    """The proposals (boxes [B, P, 4], scores, valid) one device kept and
+    the other did not, per image, each named with its largest IoU with a
+    higher-scored proposal of the other device's set (the decision that
+    flipped, near iou_thr). Boxes match within 1e-3 px."""
+    from aod_meh_hua_torch.ops.bbox import bbox_overlaps
+
+    flips = []
+    for i in range(got[0].shape[0]):
+        sets = [(b[i][v[i]], sc[i][v[i]]) for b, sc, v in (got, want)]
+        for (name, (boxes, scores)), (other, oscores) in zip(
+                (("card only", sets[0]), ("cpu only", sets[1])), (sets[1], sets[0])):
+            close = (boxes[:, None, :] - other[None, :, :]).abs().amax(-1) <= 1e-3
+            for j in (~close.any(1)).nonzero().flatten().tolist():
+                higher = other[oscores > scores[j]]
+                iou = bbox_overlaps(boxes[j:j + 1], higher).max().item() if len(higher) else 0.0
+                flips.append({"image": i, "which": name, "score": scores[j].item(),
+                              "box": [round(c, 3) for c in boxes[j].tolist()],
+                              "max_iou_with_a_higher_one": iou, "iou_thr": iou_thr})
+    return flips
+
+
+def frcnn_card_vs_cpu(device) -> dict:
+    """Two steps of tiny_faster_rcnn_config() from the same weights (its RPN
+    cls head sharpened on the CPU), batch and uniforms (drawn once on the
+    CPU) on the card and on the CPU, held by train_card_vs_cpu's rules.
+    Greedy NMS decides at a threshold, so the card's proposals are first
+    held to the CPU's with every difference named (proposal_flips, at
+    most FRCNN_MAX_PROPOSAL_FLIPS, one of each step's at the threshold),
+    and then the card's step carries on from the CPU's proposals: the rest
+    of the step (sampling, RoIAlign, the head, the losses, backward, SGD)
+    is compared on the same input."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.utils.config import TrainConfig, tiny_faster_rcnn_config
+
+    cfg, tcfg = tiny_faster_rcnn_config(), TrainConfig()
+    _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
+    seed_model = build_faster_rcnn(cfg, device="cpu", seed=1)
+    sharpen_frcnn(seed_model, cfg, torch.from_numpy(batch.images),
+                  torch.from_numpy(batch.img_shapes), classes=False)
+    weights = seed_model.state_dict()
+    gen = torch.Generator().manual_seed(3)
+    n = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
+    draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(2))
+              for k, m in n.items()} for _ in range(2)]
+
+    real_proposals = two_stage.make_proposal_fn
+    cpu_props, flips = [], []
+
+    def pinned(cfg_, reference):
+        fn = real_proposals(cfg_)
+
+        def proposals(*args):
+            out = [t.detach() for t in fn(*args)]
+            if reference:
+                cpu_props.append([t.cpu().clone() for t in out])
+                return tuple(out)
+            want = cpu_props[len(flips)]
+            flips.append(proposal_flips([t.cpu() for t in out], want, cfg_.rpn.nms_iou_thr))
+            return tuple(t.to(out[0].device) for t in want)
+
+        return proposals
+
+    def two_steps(dev):
+        model = build_faster_rcnn(cfg, device=dev)
+        model.load_state_dict(weights)
+        initial = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        with mock.patch.object(two_stage, "make_proposal_fn",
+                               lambda c: pinned(c, reference=not cpu_props)):
+            step = make_faster_rcnn_train_step(model, cfg, create_train_state(model, tcfg), dev)
+        losses = []
+        for d in draws:
+            aux = step(batch, uniforms=lambda stage, m, d=d: tuple(u.to(dev) for u in d[stage]))
+            losses.append({k: float(v) for k, v in aux.items()})
+        return losses, {k: (initial[k], p.detach().cpu()) for k, p in model.named_parameters()}
+
+    out = steps_card_vs_cpu("Faster R-CNN training", FRCNN_LOSS_KEYS + ("num_pos",),
+                            two_steps("cpu"), two_steps(device))
+    # each step's differences must start at a decision at the threshold
+    # (the rest follow from it: a box suppressed no longer suppresses)
+    at_thr = [any(abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) < 1e-4 for f in step)
+              for step in flips if step]
+    if (len(flips) != len(draws) or max(len(f) for f in flips) > FRCNN_MAX_PROPOSAL_FLIPS
+            or not all(at_thr)):
+        fail(f"Faster R-CNN training card vs CPU: the proposals differ: {flips}")
+    return {**out, "proposal_flips_per_step": flips}
+
+
+def _dets_agree(a, b, i, rtol) -> bool:
+    """Image i's detections of two NMSResults (host arrays) agree: the same
+    valid slots, labels and source indices, boxes and scores to rtol."""
+    if not (np.array_equal(a.valid[i], b.valid[i]) and np.array_equal(a.labels[i], b.labels[i])
+            and np.array_equal(a.anchor_idx[i], b.anchor_idx[i])):
+        return False
+    return bool(np.allclose(a.scores[i], b.scores[i], rtol=rtol, atol=0)
+                and np.allclose(a.boxes[i], b.boxes[i], rtol=rtol, atol=1e-3))
+
+
+def _host_dets(d):
+    return type(d)(*(t.cpu().numpy() for t in d))
+
+
+def frcnn_eval_path(device) -> dict:
+    """The eval step over the 26 synthetic canvases at batch 8, both
+    orientations: FasterRCNNConfig(), seed 0, its RPN and class heads
+    sharpened on the first batch. img/s and peak memory over a sweep
+    that also reads the detections to the host per class, after a
+    warm-up sweep; the split of one batch's device time by stage; each
+    NMS fixpoint's depth; the first two canvases of the timed sweep's
+    first batch held to the CPU's eval step on those two canvases: the
+    same valid slots, labels and sources, boxes and scores to FRCNN_RTOL,
+    with no difference allowed."""
+    import torch
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.utils.config import FasterRCNNConfig
+
+    cfg = FasterRCNNConfig()
+    model = build_faster_rcnn(cfg, device=device, seed=0)
+    triples, n = synthetic_pool(cfg)
+    first = upload(triples[0][1], device)
+    sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
+    steps = {o: make_faster_rcnn_eval_step(model, cfg.for_orientation(o), device=device)
+             for o in ("landscape", "portrait")}
+    batches = [(o, upload(b, device)) for o, b, _ in triples]
+
+    def sweep():
+        rows, outs = [], []
+        for o, b in batches:
+            outs.append(steps[o](b))
+            rows += detections_to_per_class(outs[-1], cfg.num_classes, batch_valid=b.valid)
+        return rows, outs[0]
+
+    sweep()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    rows, timed_first = sweep()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    if len(rows) != n or not all(np.isfinite(a).all() for r in rows for a in r):
+        fail(f"Faster R-CNN eval: {len(rows)} images of {n}, or a detection not finite")
+    n_dets = sum(len(a) for r in rows for a in r)
+    if n_dets == 0:
+        fail("Faster R-CNN eval: no detection in the pool")
+    o0, b0 = batches[0]
+    prof = profile_stages(lambda: steps[o0](b0).valid.cpu(), FRCNN_GROUPS)
+    with fixpoint_depths() as depths:
+        steps[o0](b0).valid.cpu()
+
+    # the timed sweep's first two canvases against the CPU's eval step on
+    # those canvases, with the same weights
+    cpu_model = build_faster_rcnn(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    two = type(triples[0][1])(*(a[:2] for a in triples[0][1]))
+    want = _host_dets(make_faster_rcnn_eval_step(cpu_model, cfg.for_orientation(o0),
+                                                 device="cpu")(two))
+    got = _host_dets(type(timed_first)(*(t[:2] for t in timed_first)))
+    flips = [{"image": i, "card_valid": int(got.valid[i].sum()),
+              "cpu_valid": int(want.valid[i].sum()),
+              "first_slot_off": int(np.argmax(~(np.isclose(got.scores[i], want.scores[i],
+                                                           rtol=FRCNN_RTOL)
+                                                & (got.labels[i] == want.labels[i]))))}
+             for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+    if flips:
+        fail(f"Faster R-CNN eval card vs CPU: {flips}")
+    return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
+                detections=n_dets, fixpoints=depths, profile_of_one_batch=prof,
+                card_vs_cpu={"images": 2, "flips": flips,
+                             "detections": int(got.valid.sum())})
+
+
+def frcnn_cli_path(device) -> dict:
+    """The trainer's CLI (python -m aod_meh_hua_torch.tools.train_detector,
+    in process) at full width for one epoch with eval on a VOC07 tree of
+    the fixture JPEGs (32 trainval, 8 test); its checkpoint back through
+    init_detector (equal to the CLI's model), then, its heads sharpened, a
+    Detector's predict_batch on the 8 test JPEGs against the eval step's
+    rows on the same canvases; last the FPS tool."""
+    import torch
+    from aod_meh_hua_torch.api import Detector, init_detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import prepare_sample
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
+    from aod_meh_hua_torch.tools import benchmark, train_detector
+
+    shutil.rmtree(FRCNN, ignore_errors=True)
+    voc07 = synthetic_voc(FRCNN)
+    work = FRCNN / "work"
+    t0 = time.time()
+    (model, cfg, metrics), flags = run_cli(train_detector.main, [
+        "--family", "faster_rcnn", "--voc07", str(voc07), "--work-dir", str(work),
+        "--epochs", "1"])
+    cli_s = time.time() - t0
+    if len(metrics) != 1 or not np.isfinite(metrics[0]["loss"]) or "mAP" not in metrics[0]:
+        fail(f"train_detector CLI: {metrics}")
+    log = [json.loads(line) for line in (work / "train_log.jsonl").read_text().splitlines()]
+    if log != metrics:
+        fail(f"train_detector CLI: train_log.jsonl {log} against {metrics}")
+    loaded = init_detector(cfg, checkpoint=str(work / "faster_rcnn_final.ckpt"), device=device)
+    loaded_sd = loaded.state_dict()
+    for k, v in model.state_dict().items():
+        if not torch.equal(loaded_sd[k], v):
+            fail(f"train_detector CLI: the checkpoint's {k} is not the model's")
+    det = Detector(cfg, loaded)
+    ids = (voc07 / "ImageSets/Main/test.txt").read_text().split()
+    imgs = [imread(str(voc07 / "JPEGImages" / f"{i}.jpg")) for i in ids]
+    samples = [prepare_sample(im, None, det.pipeline, flip=False) for im in imgs]
+    s0 = samples[0]
+    ocfg = cfg.for_orientation(s0["orientation"])
+    sharpen_frcnn(loaded, ocfg, torch.from_numpy(s0["image"][None]).to(device),
+                  torch.from_numpy(s0["img_shape"][None]).to(device))
+    rows = det.predict_batch(imgs, max_batch=8)
+    want = [None] * len(samples)
+    for o in ("landscape", "portrait"):  # predict_batch's batches: the group, padded by its first
+        idx = [i for i, s in enumerate(samples) if s["orientation"] == o]
+        if not idx:
+            continue
+        pad = idx + [idx[0]] * (8 - len(idx))
+        stack = lambda k: np.stack([samples[i][k] for i in pad])  # noqa: E731
+        valid = np.arange(8) < len(idx)
+        out = make_faster_rcnn_eval_step(loaded, cfg.for_orientation(o), device=device)(
+            EvalBatch(stack("image"), stack("img_shape"), stack("scale_factor"), valid))
+        for i, per in zip(idx, detections_to_per_class(out, cfg.num_classes, batch_valid=valid)):
+            want[i] = per
+    off = [i for i, (g, w) in enumerate(zip(rows, want))
+           if not all(a.shape == b.shape and np.allclose(a, b, rtol=FRCNN_RTOL, atol=1e-3)
+                      for a, b in zip(g, w))]
+    if off:
+        fail(f"Detector.predict_batch against the eval step: images {off} differ")
+    empty = [i for i, r in enumerate(rows) if sum(len(a) for a in r) == 0]
+    if empty:  # two empty answers agree: each image must give detections
+        fail(f"Detector.predict_batch: no detection on images {empty}")
+    fps = benchmark.main(["--family", "faster_rcnn", "--batch", str(BATCH), "--iters", "10",
+                          "--warmup", "2"])
+    return dict(cli_s=cli_s, metrics=metrics, flags_after=flags,
+                detector_images=len(rows), detector_detections=sum(len(a) for r in rows
+                                                                   for a in r),
+                fps_tool=fps)
+
+
+def frcnn_path(device, card: str) -> tuple:
+    """The Faster R-CNN phase, with the kernels' launch counts reset just
+    before and read just after: neither kernel lies on this path, so both
+    must read 0. Returns (result, launches)."""
+    import torch
+
+    t0 = time.time()
+    reset_launches()
+    out = {"train": frcnn_train_path(device)}
+    torch.cuda.empty_cache()
+    print("Faster R-CNN training:", json.dumps(out["train"]), f"[{card}]", flush=True)
+    out["card_vs_cpu"] = frcnn_card_vs_cpu(device)
+    print("Faster R-CNN training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
+          flush=True)
+    out["eval"] = frcnn_eval_path(device)
+    torch.cuda.empty_cache()
+    print("Faster R-CNN eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
+    out["cli"] = frcnn_cli_path(device)
+    print("Faster R-CNN CLI, Detector and FPS tool:", json.dumps(out["cli"]), f"[{card}]",
+          flush=True)
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"Faster R-CNN: a hand-written kernel launched: {launches}")
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
 # --- distributed phase: parallel/ on one card ---------------------------------------
 
 DIST = REPO / "build" / "chip_smoke_dist"
@@ -3445,6 +3921,9 @@ def main() -> int:
     print("serving path:", json.dumps(serving), f"[{card}]", flush=True)
     print(f"serving phase: {serving['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    frcnn, frcnn_launches = frcnn_path(device, card)
+    print(f"Faster R-CNN phase: {frcnn['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -3453,7 +3932,8 @@ def main() -> int:
                  "detector": api_launches, "ssl": ssl_launches, "score_pool_cli": sp_launches,
                  "al_ensemble_cli": al_ens["launches"],
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
-                 "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches}
+                 "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
+                 "faster_rcnn": frcnn_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

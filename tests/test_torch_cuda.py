@@ -6,8 +6,10 @@ sampled Dirichlet MI with a CUDA generator at small concentrations; the
 data-parallel step over NCCL at world size 1 against the plain step; the
 AL CLI's --mini run and a mid-cycle resume on the card; the ensemble and
 MC-dropout steps on the card against the CPU, a fused Detector's
-launches and results, and the fused eval step exported, saved and
-loaded. Skips, with the reason, where there is no card.
+launches and results, the fused eval step exported, saved and loaded,
+and the tiny Faster R-CNN's eval step and two train steps (under the
+same uniforms) on the card against the CPU. Skips, with the reason,
+where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -550,3 +552,127 @@ def test_exported_fused_program_launches_the_kernel(cuda, tmp_path):
     blk = random_block(128, 32, 128, False, cuda)
     with pytest.raises(RuntimeError, match="fused_bottleneck has no backward"):
         fused_bottleneck(x, blk).sum().backward()
+
+
+def _tiny_frcnn(device=None):
+    """tiny_faster_rcnn_config(), a seeded model with its RPN and class
+    heads sharpened on the CPU (logit std 1.5; random heads leave every
+    objectness near 0.5 and every class score near 1 / 7, where the card
+    and the CPU order near-ties differently), a batch with two boxes per
+    image that anchors match, and the state_dict to load on the card."""
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.engine.two_stage import (anchor_table, extract_rois,
+                                                    make_proposal_fn)
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
+    from aod_meh_hua_torch.utils.config import tiny_faster_rcnn_config
+
+    cfg = tiny_faster_rcnn_config()
+    g = torch.Generator().manual_seed(9)
+    h, w = cfg.canvas
+    boxes = torch.zeros((2, cfg.max_gt, 4))
+    boxes[:, :2] = torch.tensor([[10.0, 8.0, 50.0, 48.0], [60.0, 10.0, 112.0, 58.0]])
+    valid = torch.zeros((2, cfg.max_gt), dtype=torch.bool)
+    valid[:, :2] = True
+    shapes = torch.tensor([[h, w], [h - 4, w - 12]], dtype=torch.int32)
+    av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes.numpy())
+    batch = Batch(torch.randn((2, h, w, 3), generator=g), boxes,
+                  torch.tensor([[1, 4] + [0] * (cfg.max_gt - 2)] * 2), valid,
+                  torch.from_numpy(av), shapes)
+    model = build_faster_rcnn(cfg, device="cpu", seed=5)
+    with torch.no_grad():
+        feats, rpn_cls, rpn_reg = model(batch.images)
+        model.rpn_head.rpn_cls.weight.mul_(1.5 / rpn_cls.std().item())
+        feats, rpn_cls, rpn_reg = model(batch.images)
+        props = make_proposal_fn(cfg)(rpn_cls, rpn_reg, torch.from_numpy(anchor_table(cfg)),
+                                      shapes, cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)[0]
+        cls = model.roi_forward(extract_rois(cfg, feats, props))[0]
+        model.bbox_head.fc_cls.weight.mul_(1.5 / cls.std().item())
+    return cfg, batch, model.state_dict()
+
+
+def test_faster_rcnn_eval_on_the_card_matches_the_cpu(cuda):
+    """The two-stage eval step on the card against the CPU's: the same
+    valid slots, labels and proposals behind them, scores and boxes to
+    rtol 1e-4."""
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+
+    cfg, batch, sd = _tiny_frcnn()
+    ebatch = EvalBatch(batch.images, batch.img_shapes,
+                       torch.tensor([[1.0] * 4, [1.3] * 4]), torch.ones(2, dtype=torch.bool))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_faster_rcnn(cfg, device=dev)
+        model.load_state_dict(sd)
+        out[str(dev)] = [t.cpu() for t in make_faster_rcnn_eval_step(model, cfg, dev)(ebatch)]
+    c, g = out["cpu"], out[str(cuda)]
+    assert c[3].sum() > 10
+    for i in (2, 3, 4):  # labels, valid, the proposal behind each detection
+        assert torch.equal(g[i], c[i])
+    torch.testing.assert_close(g[1], c[1], rtol=1e-4, atol=0)
+    torch.testing.assert_close(g[0], c[0], rtol=1e-4, atol=1e-3)
+
+
+def test_faster_rcnn_train_steps_on_the_card_match_the_cpu(cuda):
+    """Two steps from the same weights, batch and uniforms (drawn once on
+    the CPU): losses and num_pos to rtol 1e-4, parameters to 1e-4 of each
+    tensor's max-abs, updates as test_train_steps_on_the_card_match_the_cpu."""
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
+    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    cfg, batch, sd = _tiny_frcnn()
+    gen = torch.Generator().manual_seed(4)
+    n = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
+    draws = [{k: tuple(torch.rand((2, m), generator=gen) for _ in range(2)) for k, m in n.items()}
+             for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_faster_rcnn(cfg, device=dev)
+        model.load_state_dict(sd)
+        initial = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        step = make_faster_rcnn_train_step(model, cfg, create_train_state(model, TrainConfig()),
+                                           device=dev)
+        losses = [{k: float(v) for k, v in step(
+            batch, uniforms=lambda stage, m, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
+        ).items()} for d in draws]
+        runs[str(dev)] = losses, {k: (initial[k], p.detach().cpu())
+                                  for k, p in model.named_parameters()}
+    (cpu_losses, cpu_params), (gpu_losses, gpu_params) = runs["cpu"], runs[str(cuda)]
+    assert cpu_losses[0]["num_pos"] > 0 and cpu_losses[0]["loss_rpn_bbox"] > 0
+    for c, g in zip(cpu_losses, gpu_losses):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4), k
+    for name, (c0, c) in cpu_params.items():
+        g0, g = gpu_params[name]
+        scale = c.abs().max().item()
+        assert (g - c).abs().max().item() <= 1e-4 * scale + 1e-12, name
+        dc, dg = c - c0, g - g0
+        ulp = torch.finfo(torch.float32).eps * scale
+        assert (dg - dc).abs().max().item() <= 1e-3 * dc.abs().max().item() + 2 * ulp, name
+
+
+def test_train_detector_mini_on_the_card(cuda, tmp_path):
+    """The model-zoo trainer's --mini run without --cpu, on the card: one
+    epoch with its eval, the JAX tool's files, the model on cuda, and its
+    checkpoint back through init_detector."""
+    import json
+
+    from aod_meh_hua_torch.api import init_detector
+    from aod_meh_hua_torch.tools import train_detector
+
+    voc = _fixture_voc(tmp_path)
+    work = tmp_path / "work"
+    model, cfg, metrics = train_detector.main(
+        ["--family", "faster_rcnn", "--mini", "--voc07", voc, "--work-dir", str(work),
+         "--epochs", "1"])
+    assert next(model.parameters()).device.type == "cuda"
+    rows = [json.loads(line) for line in (work / "train_log.jsonl").read_text().splitlines()]
+    assert rows == metrics and set(rows[0]) == {"epoch", "loss", "lr", "mAP"}
+    assert np.isfinite(rows[0]["loss"])
+    loaded = init_detector(cfg, checkpoint=str(work / "faster_rcnn_final.ckpt"), device=cuda)
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k

@@ -204,3 +204,74 @@ def tf32_off():
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         yield
+
+
+@functools.lru_cache(maxsize=None)
+def _frcnn_tree(overrides):
+    from aod_meh_hua_tpu.models import build_faster_rcnn
+    from aod_meh_hua_tpu.utils.config import tiny_faster_rcnn_config
+
+    cfg = tiny_faster_rcnn_config(**dict(overrides))
+    model = build_faster_rcnn(cfg)
+    h, w = cfg.canvas
+    return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                 jax.ShapeDtypeStruct((1, h, w, 3), np.float32))
+
+
+def jax_faster_rcnn(seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
+    """(Flax model, variables) of tiny_faster_rcnn_config(**overrides), a
+    seeded numpy draw in the tree model.init makes: convs and the shared
+    fcs N(0, 1/fan_in), fc_reg N(0, 0.1/fan_in), small biases, BN near
+    identity as jax_retinanet's. The rpn_cls kernel's draw is scaled by
+    `rpn_cls_std` and fc_cls's by `fc_cls_std` (objectness logits of std
+    0.7 on the tiny model's batch): the JAX initialisers' N(0, 0.01)
+    heads put every sigmoid and softmax score within an ulp or two of
+    its neighbours, where the two packages' roundings order near-ties
+    differently (a stand-in for trained heads, as `sharpen`)."""
+    model, shapes = _frcnn_tree(tuple(sorted(overrides.items())))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        keys = [getattr(k, "key", str(k)) for k in path]
+        shape, name = leaf.shape, keys[-1]
+        if name == "kernel":
+            std = float(np.prod(shape[:-1])) ** -0.5
+            if "rpn_cls" in keys:
+                std *= rpn_cls_std
+            elif "fc_cls" in keys:
+                std *= fc_cls_std
+            elif "fc_reg" in keys:
+                std *= 0.1
+            return (rng.randn(*shape) * std).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.7, 1.3, shape).astype(np.float32)
+        if name == "mean" or name == "bias":
+            return (rng.randn(*shape) * 0.05).astype(np.float32)
+        return np.zeros(shape, np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def two_stage_batch(cfg, seed=0, b=2, max_boxes=3, labels_up_to=None):
+    """A train_batch for the two-stage tiny canvas (64 x 128): boxes of
+    10-40 pixels inside each image's shape (the second image cut short),
+    labels below `labels_up_to` (cfg.num_classes by default)."""
+    rng = np.random.RandomState(seed)
+    h, w = cfg.canvas
+    images = rng.randn(b, h, w, 3).astype(np.float32) * 0.5
+    g = cfg.max_gt
+    gt_boxes = np.zeros((b, g, 4), np.float32)
+    gt_labels = np.zeros((b, g), np.int32)
+    gt_valid = np.zeros((b, g), bool)
+    shapes = np.tile([[h, w]], (b, 1)).astype(np.int32)
+    shapes[1:] = [h - 8, w - 24]
+    for i in range(b):
+        for j in range(rng.randint(1, max_boxes + 1)):
+            bw, bh = rng.uniform(10, 40), rng.uniform(10, 40)
+            x1 = rng.uniform(0, shapes[i, 1] - bw)
+            y1 = rng.uniform(0, shapes[i, 0] - bh)
+            gt_boxes[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            gt_labels[i, j] = rng.randint(0, labels_up_to or cfg.num_classes)
+            gt_valid[i, j] = True
+    av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
+    return images, gt_boxes, gt_labels, gt_valid, av, shapes
