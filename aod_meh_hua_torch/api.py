@@ -1,9 +1,10 @@
 """High-level inference API for the ported families (MEH-RetinaNet,
-MEH-SSD, Faster R-CNN).
+MEH-SSD, Faster, Cascade, Dynamic and Double-Head R-CNN).
 
 Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :112-205
-(`make_eval_step_for`), :214-341 (`_default_pipeline`, `Detector` with
-its dense `tta`) and :439-525 (`predict_batch`, `inference_detector`,
+(`make_eval_step_for`), :214-420 (`_default_pipeline`, `Detector` with
+its `tta` and `_tta_two_stage` but for the mask branch) and :439-525
+(`predict_batch`, `inference_detector`,
 `async_inference_detector`), which mirror the reference's
 mmdet/apis/inference.py:16 (init_detector), :89 (inference_detector) and
 :155 (async_inference_detector).
@@ -13,13 +14,16 @@ returns the model on its device, where the JAX function returns
 (model, variables), and `Detector` takes (cfg, model) where the JAX one
 takes (cfg, model, variables). Its steps run on the model's device. The
 other families of the JAX registry raise (ROADMAP Queue 1 item 15), and
-so do Faster R-CNN's test-time augmentation and uncertainty column (the
-JAX package's are the dense families' only), and drawing (item 13).
+so do the two-stage families' uncertainty column (the JAX package's is
+the dense families' only) and drawing (item 13). TTA covers the dense
+families, Faster R-CNN and Cascade R-CNN; Dynamic and Double-Head R-CNN
+raise there, as in the JAX package, whose TTA lacks them too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -29,16 +33,23 @@ from .data.pipeline import PipelineConfig, load_image, prepare_sample
 from .engine.batch import EvalBatch
 from .engine.checkpoint import load_model_state_dict
 from .engine.eval import detections_to_per_class, make_eval_step
-from .engine.tta import canvas_for_scale, make_tta_candidate_step, make_tta_merge_step
-from .engine.two_stage import make_faster_rcnn_eval_step
+from .engine.tta import (canvas_for_scale, make_tta_candidate_step, make_tta_cascade_roi_step,
+                         make_tta_merge_step, make_tta_proposal_merge, make_tta_roi_step,
+                         make_tta_rpn_step, make_tta_two_stage_merge)
+from .engine.two_stage import make_two_stage_eval_step
 from .models.detector import build_retinanet
 from .models.ssd_detector import build_ssd
-from .models.two_stage import build_faster_rcnn
+from .models.two_stage import TWO_STAGE_FAMILIES, build_two_stage
 from .utils.config import ALL_FAMILIES
 
 # the dense families: TTA and the per-detection uncertainty are theirs
 _DENSE = ("retinanet", "ssd")
-_BUILD = {"retinanet": build_retinanet, "ssd": build_ssd, "faster_rcnn": build_faster_rcnn}
+_BUILD = {"retinanet": build_retinanet, "ssd": build_ssd,
+          **{f: build_two_stage for f in TWO_STAGE_FAMILIES}}
+# the two-stage families with a TTA (the JAX package's list at api.py:296, less
+# the mask families, which are not ported)
+_TWO_STAGE_TTA = ("faster_rcnn", "cascade_rcnn")
+_MASK_FAMILIES = ("mask_rcnn", "mask_scoring_rcnn", "point_rend", "htc", "scnet")
 
 
 def _family(cfg) -> str:
@@ -61,14 +72,29 @@ def init_detector(cfg, checkpoint: Optional[str] = None, seed: int = 0,
         _not_ported(f"the {family} family", "15")
     model = _BUILD[family](cfg, device=device, seed=seed)
     if checkpoint:
-        model.load_state_dict(load_model_state_dict(checkpoint, family))
+        load_weights(model, load_model_state_dict(checkpoint, family))
     return model
+
+
+def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """model.load_state_dict, strict but for Dynamic R-CNN's statistics
+    (the `dynamic.` buffers): a file without them (another family's, a
+    JAX variables tree before its first dynamic step) leaves them at
+    their initial values, and a JAX variables tree, which keeps no step
+    counter, leaves the step at 0."""
+    missing = set(model.state_dict()) - set(state_dict)
+    if missing and all(k.startswith("dynamic.") for k in missing):
+        unexpected = model.load_state_dict(state_dict, strict=False).unexpected_keys
+        if unexpected:
+            raise RuntimeError(f"Unexpected key(s) in state_dict: {unexpected[:5]}")
+    else:
+        model.load_state_dict(state_dict)
 
 
 def make_eval_step_for(model, cfg, device="cuda"):
     """The family's eval step on `device`: step(EvalBatch) -> NMSResult."""
-    if _family(cfg) == "faster_rcnn":
-        return make_faster_rcnn_eval_step(model, cfg, device=device)
+    if _family(cfg) in TWO_STAGE_FAMILIES:
+        return make_two_stage_eval_step(model, cfg, device=device)
     return make_eval_step(model, cfg, device=device)
 
 
@@ -78,6 +104,12 @@ def _default_pipeline(cfg) -> PipelineConfig:
                               std=(1.0, 1.0, 1.0), keep_ratio=False,
                               device_normalize=True)
     return PipelineConfig(canvas=cfg.canvas, device_normalize=True)
+
+
+def _one(sample) -> EvalBatch:
+    """One prepared sample as a batch of one."""
+    return EvalBatch(sample["image"][None], sample["img_shape"][None],
+                     sample["scale_factor"][None], np.ones(1, bool))
 
 
 class Detector:
@@ -124,9 +156,7 @@ class Detector:
         with_uncertainty."""
         img = load_image(image) if isinstance(image, str) else image
         s = prepare_sample(img, None, self.pipeline, flip=False)
-        batch = EvalBatch(s["image"][None], s["img_shape"][None], s["scale_factor"][None],
-                          np.ones(1, bool))
-        return self._per_class(self._step(s["orientation"])(batch))[0]
+        return self._per_class(self._step(s["orientation"])(_one(s)))[0]
 
     def tta(self, image: Union[str, np.ndarray], scales: Optional[Sequence] = None,
             flip: bool = True, return_masks: bool = False) -> List[np.ndarray]:
@@ -139,23 +169,28 @@ class Detector:
         bounds, the pipeline's img_scale by default; the SSD warps to
         each scale's square input_size.
 
-        The dense families only: the two-stage, cascade and mask
-        families' TTA (and `return_masks`) come with the model zoo
-        (ROADMAP Queue 1 item 15); Sparse R-CNN raises, as the reference
-        does (sparse_roi_head.py:302)."""
+        Faster and Cascade R-CNN take `_tta_two_stage`. The mask families'
+        TTA (and `return_masks`) come with those families (ROADMAP Queue
+        1 item 15); Dynamic and Double-Head R-CNN raise, as the JAX
+        package does; Sparse R-CNN raises, as the reference does
+        (sparse_roi_head.py:302)."""
         img = load_image(image) if isinstance(image, str) else image
         scales = [tuple(s) for s in (scales or [self.pipeline.img_scale])]
         flips = [False, True] if flip else [False]
         fam = _family(self.cfg)
+        if fam in _TWO_STAGE_TTA:
+            return self._tta_two_stage(img, scales, flips, fam)
         if fam == "sparse_rcnn":
             raise NotImplementedError("Sparse R-CNN does not support `aug_test`")
-        if fam not in _DENSE:
+        if fam in _MASK_FAMILIES or fam not in ALL_FAMILIES:
             _not_ported(f"TTA of the {fam} family", "15")
+        if fam not in _DENSE:
+            raise NotImplementedError(
+                f"TTA is implemented for the dense MEH families, faster_rcnn and "
+                f"cascade_rcnn (the JAX package's coverage less the mask families); "
+                f"got {fam!r}")
         aug_boxes, aug_scores = [], []
-        for scale in scales:
-            canvas = (canvas_for_scale(scale) if self.pipeline.keep_ratio
-                      else (min(scale), max(scale)))
-            pipe = dataclasses.replace(self.pipeline, img_scale=scale, canvas=canvas)
+        for scale, pipe in self._tta_pipelines(scales):
             for f in flips:
                 s = prepare_sample(img, None, pipe, flip=f)
                 key = (scale, s["orientation"])
@@ -163,15 +198,60 @@ class Detector:
                     if fam == "ssd":
                         cfg_s = dataclasses.replace(self.cfg, input_size=max(scale))
                     else:
-                        cfg_s = dataclasses.replace(self.cfg, canvas=canvas)
+                        cfg_s = dataclasses.replace(self.cfg, canvas=pipe.canvas)
                     self._tta_steps[key] = make_tta_candidate_step(
                         self.model, cfg_s.for_orientation(s["orientation"]))
-                batch = EvalBatch(s["image"][None], s["img_shape"][None],
-                                  s["scale_factor"][None], np.ones(1, bool))
-                b, sc = self._tta_steps[key](batch, np.array([f], bool))
+                b, sc = self._tta_steps[key](_one(s), np.array([f], bool))
                 aug_boxes.append(b)
                 aug_scores.append(sc)
         dets = self._tta_merge(torch.cat(aug_boxes, dim=1), torch.cat(aug_scores, dim=1))
+        return detections_to_per_class(dets, self.cfg.num_fg_classes)[0]
+
+    def _tta_pipelines(self, scales):
+        """(scale, the pipeline resizing to it into its canvas) per scale."""
+        for scale in scales:
+            canvas = (canvas_for_scale(scale) if self.pipeline.keep_ratio
+                      else (min(scale), max(scale)))
+            yield scale, dataclasses.replace(self.pipeline, img_scale=scale, canvas=canvas)
+
+    @functools.cached_property
+    def _tta2_merges(self):
+        """The two-stage TTA's proposal merge and box merge (the cascade's
+        class-agnostic boxes take the same mean), built on first use."""
+        return make_tta_proposal_merge(self.cfg), make_tta_two_stage_merge(self.cfg)
+
+    def _tta_two_stage(self, img: np.ndarray, scales, flips, fam: str) -> List[np.ndarray]:
+        """Two-stage TTA (reference two_stage.py:184 aug_test:
+        aug_test_rpn, merge_aug_proposals, then the RoI stage's
+        aug_test_bboxes; JAX api.py:343-420 without its mask branch): the
+        RPN per augmentation, one merged proposal set in original
+        coordinates, the RoI stage per augmentation on that shared set
+        (the cascade's every stage with its refinement), the boxes and
+        probabilities meaned, one NMS."""
+        cascade = fam == "cascade_rcnn"
+        proposal_merge, box_merge = self._tta2_merges
+        runs = []  # (rpn step, roi step, batch, flipped)
+        for scale, pipe in self._tta_pipelines(scales):
+            for f in flips:
+                s = prepare_sample(img, None, pipe, flip=f)
+                key = (scale, s["orientation"])
+                if key not in self._tta_steps:
+                    cfg_s = dataclasses.replace(self.cfg, canvas=pipe.canvas).for_orientation(
+                        s["orientation"])
+                    self._tta_steps[key] = (
+                        make_tta_rpn_step(self.model, cfg_s),
+                        (make_tta_cascade_roi_step if cascade else make_tta_roi_step)(
+                            self.model, cfg_s))
+                runs.append((*self._tta_steps[key], _one(s), np.array([f], bool)))
+        # stage 1: the RPN per augmentation; its features stay on the device
+        stage1 = [rpn(batch, fl) for rpn, _, batch, fl in runs]
+        merged, merged_valid = proposal_merge(*(torch.cat([o[i] for o in stage1], dim=1)
+                                                for i in (1, 2, 3)))
+        # stage 2: the RoI stage per augmentation on the shared merged proposals
+        outs = [roi(feats, batch, fl, merged, merged_valid)
+                for (_, roi, batch, fl), (feats, _, _, _) in zip(runs, stage1)]
+        dets = box_merge(torch.stack([o[0] for o in outs]),
+                         torch.stack([o[1] for o in outs]), merged_valid)
         return detections_to_per_class(dets, self.cfg.num_fg_classes)[0]
 
     def predict_batch(self, images: Sequence[Union[str, np.ndarray]],

@@ -16,8 +16,10 @@ the JAX package's; the format the port writes is torch's own:
 SGD momentum buffers by parameter name and the step.
 
 The families' model files go by family (`load_model_state_dict(path,
-family)`): "retinanet", "ssd" and "faster_rcnn" (the generic trainer's
-{family}_final.ckpt, a JAX-written one included).
+family)`): "retinanet", "ssd" and the two-stage families (the generic
+trainer's {family}_final.ckpt, a JAX-written one included). Dynamic
+R-CNN's statistics are buffers of its model, so its files and train
+states carry them; a JAX TrainState's step becomes their step counter.
 
 It reads three formats, told apart by their first bytes (`sniff_format`):
 torch's zip and legacy pickle files (its own, or the reference's mmdet
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from ..models.convert import from_jax_variables
+from ..models.two_stage import TWO_STAGE_FAMILIES
 from ..models.reference_convert import (convert_reference_retinanet,
                                          convert_reference_ssd, is_reference_retinanet)
 from .flax_msgpack import msgpack_restore
@@ -90,10 +93,10 @@ def to_model_state_dict(obj: Any, family: str) -> Dict[str, torch.Tensor]:
         return from_jax_variables(obj)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
-    if family == "faster_rcnn":
+    if family in TWO_STAGE_FAMILIES:
         if any(k.startswith("roi_head.") for k in obj):
             raise NotImplementedError(
-                "an mmdet Faster R-CNN .pth: its import (the box head's (c, h, w) fc "
+                f"an mmdet {family} .pth: its import (the box head's (c, h, w) fc "
                 "input) is not ported yet (ROADMAP Queue 1 item 15)")
         return dict(obj)
     if family == "ssd":
@@ -171,6 +174,8 @@ def load_train_state(path_or_dir: str, map_location="cpu"):
         state = {"model": from_jax_variables(variables),
                  "momentum": from_jax_variables({"params": trace}),
                  "step": int(np.asarray(state["step"]))}
+        if "dynamic.iou_thr" in state["model"]:  # Dynamic R-CNN's ring slot is the step's
+            state["model"]["dynamic.step"] = torch.tensor(state["step"])
     with open(os.path.join(d, "train_state.json")) as f:
         progress = json.load(f)
     return state, progress

@@ -1,10 +1,16 @@
-"""Faster R-CNN engine: proposals, RPN targets, RoI sampling and the
-two-stage train and eval steps (torch).
+"""The two-stage engine: proposals, RPN targets, RoI sampling and the
+train and eval steps of Faster, Cascade, Dynamic and Double-Head R-CNN
+(torch).
 
-Port of aod_meh_hua_tpu/engine/two_stage.py (`make_proposal_fn` :55-97,
-`_rpn_targets_single` :100-119, `_roi_sample_single` :132-167,
-`_extract_rois` :170-186, `make_faster_rcnn_train_step` :202-288,
-`make_faster_rcnn_eval_step` :291-331), which mirrors the reference's
+Port of aod_meh_hua_tpu/engine/two_stage.py, whole but for the Faster
+R-CNN variants' GRoIE, Libra and balanced-L1 branches (ROADMAP Queue 1
+item 15): `make_proposal_fn` :55-97, `_rpn_targets_single` :100-119,
+`_roi_sample_single` :132-167, `_extract_rois` :170-186,
+`make_faster_rcnn_train_step` :202-288, `make_faster_rcnn_eval_step`
+:291-331, `make_cascade_train_step` and `make_cascade_eval_step`
+:336-472, `init_dynamic_state` (the port's models/two_stage.py
+`DynamicState`) and `make_dynamic_rcnn_train_step` :479-625, `_scale_rois`, `_extract_rois_routed` and the Double-Head
+train and eval steps :633-784. The Faster R-CNN step mirrors the reference's
 rpn_head.py:135-200 (per-level sigmoid + top-k, decode, level-grouped NMS
 at IoU 0.7), two_stage.py forward_train (RPN losses on 256 sampled
 anchors per image, proposals, StandardRoIHead: assign at 0.5 without
@@ -20,6 +26,18 @@ uniforms from a `torch.Generator` (`generator_uniforms`), or takes them
 from a caller's `uniforms(stage, n)` (a test passes the draws of JAX's
 key tree, and the selection is then JAX's index for index).
 
+Cascade R-CNN (cascade_roi_head.py) samples each of its three stages
+anew (stage names "roi0", "roi1", "roi2", where JAX splits k_roi once
+per stage) on the previous stage's detached, class-agnostic boxes,
+decoded with that stage's stds, its gt rows dropped; its eval averages
+the stages' raw logits and takes one softmax. Dynamic R-CNN
+(dynamic_roi_head.py) assigns at the model's `dynamic.iou_thr` and
+weighs SmoothL1 by `dynamic.beta`, and refreshes both every
+update_iter_interval steps from ring buffers on the card, with no read
+back to the host. Double-Head R-CNN (double_roi_head.py) extracts the
+regression branch's RoIs 1.3x rescaled, routed to their level by the
+unscaled RoI, and trains its head's BatchNorm.
+
 The train step is engine/train.py's: one forward, one backward, the
 optional global-norm clip, one torch-exact SGD step over the non-frozen
 parameters. The proposals are computed without gradient, as the
@@ -29,7 +47,7 @@ family's variants raise (models/two_stage.py check_two_stage_options).
 
 Each stage runs in a profiler range named in STAGES (a no-op unless
 torch.profiler records), so that a trace splits the device time by
-stage: chip_smoke.py's Faster R-CNN phase reads them.
+stage: chip_smoke.py's two-stage phases read them.
 """
 
 from __future__ import annotations
@@ -39,9 +57,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.two_stage import check_two_stage_options
+from ..models.two_stage import CONV_BRANCH_SPAN, check_two_stage_options
 from ..ops.assigner import max_iou_assign
-from ..ops.bbox import delta_decode, delta_encode
+from ..ops.bbox import bbox_overlaps, delta_decode, delta_encode
 from ..ops.losses import binary_cross_entropy_with_logits, softmax_cross_entropy
 from ..ops.nms import NMSResult, batched_multiclass_nms, grouped_nms
 from ..ops.roi_align import batched_multilevel_roi_align
@@ -51,15 +69,18 @@ from .batch import AnchorTable, Batch, EvalBatch, as_tensor, prepare_images
 from .eval import batch_on
 from .train import _clip_by_global_norm
 
-# the profiler ranges of the steps' stages, in order
+# the profiler ranges of the steps' stages, in order: the Faster R-CNN
+# stages every family shares, then the cascade's refinement, Dynamic
+# R-CNN's statistics, and the double head's rescaled extraction and conv branch
 STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposals",
           "faster_rcnn.roi_sample", "faster_rcnn.roi_align", "faster_rcnn.roi_head",
-          "faster_rcnn.detections")
+          "faster_rcnn.detections", "cascade_rcnn.refine", "dynamic_rcnn.statistics",
+          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN)
 _span = torch.profiler.record_function
 
 # uniforms(stage, n) -> (u_pos [B, n], u_neg [B, n]): the draws that rank
 # the positives and the negatives of each image's n candidates, stage
-# "rpn" (the anchors) or "roi" (gts + proposals)
+# "rpn" (the anchors), "roi" (gts + proposals) or the cascade's "roi{i}"
 Uniforms = Callable[[str, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -164,16 +185,23 @@ class RoISample(NamedTuple):
 
 
 def roi_sample(u_pos, u_neg, props, prop_valid, gt_boxes, gt_labels, gt_valid,
-               cfg) -> RoISample:
+               cfg, pos_iou_thr=None, stds=None) -> RoISample:
     """Assign and sample the RoIs of each image, the gts prepended to the
-    proposals (base_sampler.sample's order)."""
+    proposals (base_sampler.sample's order). `pos_iou_thr` (a float or a
+    0-d tensor: Dynamic R-CNN's) and `stds` override cfg.rcnn's for the
+    cascade's stages and Dynamic R-CNN, where the negative and
+    minimum-positive thresholds follow the positive one."""
     rc = cfg.rcnn
+    thr = rc.pos_iou_thr if pos_iou_thr is None else pos_iou_thr
+    stds = rc.target_stds if stds is None else stds
     num_gt = gt_boxes.shape[1]
     cands = torch.cat([gt_boxes, props], dim=1)
     cand_valid = torch.cat([gt_valid, prop_valid], dim=1)
     assigned = max_iou_assign(cands, gt_boxes, gt_valid, anchor_valid=cand_valid,
-                              pos_iou_thr=rc.pos_iou_thr, neg_iou_thr=rc.neg_iou_thr,
-                              min_pos_iou=rc.min_pos_iou, match_low_quality=False)
+                              pos_iou_thr=thr,
+                              neg_iou_thr=rc.neg_iou_thr if pos_iou_thr is None else thr,
+                              min_pos_iou=rc.min_pos_iou if pos_iou_thr is None else thr,
+                              match_low_quality=False)
     s = random_sample_pos_neg(u_pos, u_neg, assigned, cand_valid, rc.sampler_num,
                               rc.pos_fraction)
     rois = torch.gather(cands, 1, s.inds[..., None].expand(-1, -1, 4))
@@ -181,18 +209,31 @@ def roi_sample(u_pos, u_neg, props, prop_valid, gt_boxes, gt_labels, gt_valid,
     labels = torch.where(s.is_pos, torch.gather(gt_labels.long(), 1, gt_idx),
                          torch.full_like(gt_idx, cfg.num_classes))
     matched = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
-    deltas = delta_encode(rois, matched, stds=rc.target_stds, eps=1e-6)
+    deltas = delta_encode(rois, matched, stds=stds, eps=1e-6)
     bbox_t = torch.where(s.is_pos[..., None], deltas, torch.zeros_like(deltas))
     return RoISample(rois, labels, s.valid.float(), bbox_t, s.is_pos, s.valid,
                      (s.inds < num_gt) & s.valid, gt_idx)
 
 
-def extract_rois(cfg, feats, rois: torch.Tensor) -> torch.Tensor:
+def extract_rois(cfg, feats, rois: torch.Tensor,
+                 routing_rois: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-level RoIAlign of rois [B, S, 4] over the first
-    len(roi_strides) FPN levels: [B * S, roi, roi, C] float32."""
+    len(roi_strides) FPN levels: [B * S, roi, roi, C] float32, each RoI
+    on the level of its routing RoI (itself by default)."""
     rc = cfg.rcnn
     return batched_multilevel_roi_align(feats[:len(rc.roi_strides)], rois, rc.roi_strides,
-                                        rc.roi_size, rc.sampling_ratio, rc.finest_scale)
+                                        rc.roi_size, rc.sampling_ratio, rc.finest_scale,
+                                        routing_rois=routing_rois)
+
+
+def scale_rois(rois: torch.Tensor, factor: float) -> torch.Tensor:
+    """Each RoI's width and height times `factor` about its center
+    (single_level_roi_extractor.py roi_rescale; JAX _scale_rois)."""
+    cx = (rois[..., 0] + rois[..., 2]) * 0.5
+    cy = (rois[..., 1] + rois[..., 3]) * 0.5
+    hw = (rois[..., 2] - rois[..., 0]) * (0.5 * factor)
+    hh = (rois[..., 3] - rois[..., 1]) * (0.5 * factor)
+    return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
 
 
 def _check_step(model, cfg, device) -> torch.device:
@@ -202,6 +243,97 @@ def _check_step(model, cfg, device) -> torch.device:
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, the step on {dev}")
     return dev
+
+
+def _device_batch(batch: Batch, dev) -> Batch:
+    return Batch(images=as_tensor(batch.images, dev),
+                 gt_boxes=as_tensor(batch.gt_boxes, dev, torch.float32),
+                 gt_labels=as_tensor(batch.gt_labels, dev, torch.long),
+                 gt_valid=as_tensor(batch.gt_valid, dev, torch.bool),
+                 anchor_valid=as_tensor(batch.anchor_valid, dev, torch.bool),
+                 img_shapes=as_tensor(batch.img_shapes, dev))
+
+
+def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniforms):
+    """Stage 1 of every family's train step: the features, the RPN's two
+    losses over its sampled anchors, and the proposals without gradient
+    (the reference's detached proposal_list): (feats, loss_rpn_cls,
+    loss_rpn_bbox, props, prop_valid)."""
+    with _span(STAGES[0]):
+        feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
+    with _span(STAGES[1]):
+        t = rpn_targets(*uniforms("rpn", anchors.shape[0]), anchors, batch.anchor_valid,
+                        batch.gt_boxes, batch.gt_valid, cfg.rpn)
+    num_total = t.num_samples.sum().float().clamp(min=1.0)
+    loss_rpn_cls = (binary_cross_entropy_with_logits(
+        rpn_cls, t.is_pos.float(), reduction="none") * t.weights).sum() / num_total
+    loss_rpn_bbox = (torch.abs(rpn_reg - t.bbox_targets)
+                     * t.is_pos[..., None]).sum() / num_total
+    with torch.no_grad(), _span(STAGES[2]):
+        props, _, prop_valid = proposal_fn(rpn_cls.detach(), rpn_reg.detach(), anchors,
+                                           batch.img_shapes, cfg.rpn.train_nms_pre,
+                                           cfg.rpn.train_max_per_img)
+    return feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid
+
+
+def _sample(cfg, batch: Batch, uniforms: Uniforms, stage: str, props, prop_valid,
+            **kw) -> RoISample:
+    n_cands = batch.gt_boxes.shape[1] + props.shape[1]
+    with _span(STAGES[3]):
+        return roi_sample(*uniforms(stage, n_cands), props, prop_valid, batch.gt_boxes,
+                          batch.gt_labels, batch.gt_valid, cfg, **kw)
+
+
+def _cls_loss(cls, smp: RoISample) -> torch.Tensor:
+    """Softmax CE over the sampled RoIs, averaged over those with weight."""
+    label_w = smp.label_weights.reshape(-1)
+    avg_cls = (label_w > 0).sum().float().clamp(min=1.0)
+    return (softmax_cross_entropy(cls, smp.labels.reshape(-1), reduction="none")
+            * label_w).sum() / avg_cls
+
+
+def _reg_of_labels(reg, smp: RoISample, c: int) -> torch.Tensor:
+    """The class-specific deltas [R, C, 4] of each row's label (clipped
+    into range): [R, 4]."""
+    sel = smp.labels.reshape(-1).clamp(0, c - 1)
+    return torch.gather(reg, 1, sel[:, None, None].expand(-1, 1, 4))[:, 0]
+
+
+def _positive_mean(err, smp: RoISample) -> torch.Tensor:
+    """err [R, 4] summed over the positive rows, over the sampled RoIs
+    (bbox_head.py:302's avg_factor)."""
+    avg_reg = smp.valid.sum().float().clamp(min=1.0)
+    return (err * smp.is_pos.reshape(-1)[:, None]).sum() / avg_reg
+
+
+def _make_step(model, cfg, optimizer, device, loss_fn, after=None) -> Callable:
+    """The train step around loss_fn(batch, anchors, uniforms) -> (total,
+    aux): the batch on the device, the uniforms, one backward, the
+    optional clip, one optimizer step, then after(aux) (Dynamic R-CNN's
+    refresh); the detached aux out."""
+    dev = _check_step(model, cfg, device)
+    grad_clip = optimizer.defaults.get("grad_clip")
+    anchors = AnchorTable(anchor_table(cfg))
+
+    def step(batch: Batch, generator: Optional[torch.Generator] = None,
+             uniforms: Optional[Uniforms] = None) -> Dict[str, torch.Tensor]:
+        b = _device_batch(batch, dev)
+        if uniforms is None:
+            if generator is None:
+                raise ValueError("the two-stage step draws its samples: pass a "
+                                 "torch.Generator or uniforms")
+            uniforms = generator_uniforms(generator, b.images.shape[0])
+        model.zero_grad(set_to_none=True)
+        total, aux = loss_fn(b, anchors.get(dev), uniforms)
+        total.backward()
+        if grad_clip:
+            _clip_by_global_norm(model.parameters(), grad_clip)
+        optimizer.step()
+        if after is not None:
+            after(aux)
+        return {k: v.detach() for k, v in aux.items() if not k.startswith("_")}
+
+    return step
 
 
 def make_faster_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
@@ -214,82 +346,256 @@ def make_faster_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     grad_clip (engine/train.py make_optimizer) the gradients are clipped
     by their global norm first. cfg's canvas fixes the anchor table: one
     step per orientation (cfg.for_orientation)."""
-    dev = _check_step(model, cfg, device)
-    grad_clip = optimizer.defaults.get("grad_clip")
     proposal_fn = make_proposal_fn(cfg)
     c = cfg.num_classes
 
     def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
         """(total, aux), aux with loss, loss_rpn_cls, loss_rpn_bbox,
         loss_cls, loss_bbox and num_pos (the JAX step's keys)."""
-        with _span(STAGES[0]):
-            feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
-
-        # RPN losses over the sampled anchors
-        with _span(STAGES[1]):
-            t = rpn_targets(*uniforms("rpn", anchors.shape[0]), anchors, batch.anchor_valid,
-                            batch.gt_boxes, batch.gt_valid, cfg.rpn)
-        num_total = t.num_samples.sum().float().clamp(min=1.0)
-        loss_rpn_cls = (binary_cross_entropy_with_logits(
-            rpn_cls, t.is_pos.float(), reduction="none") * t.weights).sum() / num_total
-        loss_rpn_bbox = (torch.abs(rpn_reg - t.bbox_targets)
-                         * t.is_pos[..., None]).sum() / num_total
-
-        # proposals without gradient (the reference's detached proposal_list)
-        with torch.no_grad(), _span(STAGES[2]):
-            props, _, prop_valid = proposal_fn(rpn_cls.detach(), rpn_reg.detach(), anchors,
-                                               batch.img_shapes, cfg.rpn.train_nms_pre,
-                                               cfg.rpn.train_max_per_img)
-
-        # RoI sampling and the second stage's losses
-        n_cands = batch.gt_boxes.shape[1] + props.shape[1]
-        with _span(STAGES[3]):
-            smp = roi_sample(*uniforms("roi", n_cands), props, prop_valid, batch.gt_boxes,
-                             batch.gt_labels, batch.gt_valid, cfg)
+        feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
+            model, cfg, proposal_fn, batch, anchors, uniforms)
+        smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid)
         with _span(STAGES[4]):
             roi_feats = extract_rois(cfg, feats, smp.rois)
         with _span(STAGES[5]):
             cls, reg = model.roi_forward(roi_feats)
-        labels = smp.labels.reshape(-1)
-        label_w = smp.label_weights.reshape(-1)
-        avg_cls = (label_w > 0).sum().float().clamp(min=1.0)
-        loss_cls = (softmax_cross_entropy(cls, labels, reduction="none")
-                    * label_w).sum() / avg_cls
-        # the class-specific deltas of each row's label, clipped into range
-        sel = labels.clamp(0, c - 1)
-        reg_sel = torch.gather(reg, 1, sel[:, None, None].expand(-1, 1, 4))[:, 0]
-        pos = smp.is_pos.reshape(-1)
-        avg_reg = smp.valid.sum().float().clamp(min=1.0)  # the sampled RoIs (bbox_head.py:302)
-        loss_bbox = (torch.abs(reg_sel - smp.bbox_targets.reshape(-1, 4))
-                     * pos[:, None]).sum() / avg_reg
-
+        loss_cls = _cls_loss(cls, smp)
+        loss_bbox = _positive_mean(torch.abs(_reg_of_labels(reg, smp, c)
+                                             - smp.bbox_targets.reshape(-1, 4)), smp)
         total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
         aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
-               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": pos.sum().float()}
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox,
+               "num_pos": smp.is_pos.sum().float()}
         return total, aux
 
-    anchors = AnchorTable(anchor_table(cfg))
+    return _make_step(model, cfg, optimizer, device, loss_fn)
 
-    def step(batch: Batch, generator: Optional[torch.Generator] = None,
-             uniforms: Optional[Uniforms] = None) -> Dict[str, torch.Tensor]:
-        b = Batch(images=as_tensor(batch.images, dev),
-                  gt_boxes=as_tensor(batch.gt_boxes, dev, torch.float32),
-                  gt_labels=as_tensor(batch.gt_labels, dev, torch.long),
-                  gt_valid=as_tensor(batch.gt_valid, dev, torch.bool),
-                  anchor_valid=as_tensor(batch.anchor_valid, dev, torch.bool),
-                  img_shapes=as_tensor(batch.img_shapes, dev))
-        if uniforms is None:
-            if generator is None:
-                raise ValueError("the two-stage step draws its samples: pass a "
-                                 "torch.Generator or uniforms")
-            uniforms = generator_uniforms(generator, b.images.shape[0])
-        model.zero_grad(set_to_none=True)
-        total, aux = loss_fn(b, anchors.get(dev), uniforms)
-        total.backward()
-        if grad_clip:
-            _clip_by_global_norm(model.parameters(), grad_clip)
-        optimizer.step()
-        return {k: v.detach() for k, v in aux.items()}
+
+def make_cascade_train_step(model, cfg, optimizer: torch.optim.Optimizer,
+                            device="cuda") -> Callable:
+    """Cascade R-CNN's step (cascade_roi_head.forward_train +
+    refine_bboxes), the contract of make_faster_rcnn_train_step: the RPN,
+    then num_stages RoI stages, stage i sampled under uniforms "roi{i}"
+    at stage_pos_iou_thrs[i] with stage_stds[i], its class-agnostic
+    losses weighed by stage_loss_weights[i]. Each next stage takes this
+    stage's sampled RoIs decoded by its detached deltas and clipped, the
+    rows taken from gts dropped. aux: loss, loss_rpn_cls, loss_rpn_bbox,
+    s{i}.loss_cls, s{i}.loss_bbox and num_pos (over all stages)."""
+    proposal_fn = make_proposal_fn(cfg)
+
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+        feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
+            model, cfg, proposal_fn, batch, anchors, uniforms)
+        b = props.shape[0]
+        total = loss_rpn_cls + loss_rpn_bbox
+        aux = {"loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox}
+        num_pos = torch.zeros((), device=props.device)
+        for stage in range(cfg.num_stages):
+            stds = cfg.stage_stds[stage]
+            smp = _sample(cfg, batch, uniforms, f"roi{stage}", props, prop_valid,
+                          pos_iou_thr=cfg.stage_pos_iou_thrs[stage], stds=stds)
+            with _span(STAGES[4]):
+                roi_feats = extract_rois(cfg, feats, smp.rois)
+            with _span(STAGES[5]):
+                cls, reg = model.roi_forward(roi_feats, stage)
+            loss_cls = _cls_loss(cls, smp)
+            loss_bbox = _positive_mean(torch.abs(reg[:, 0] - smp.bbox_targets.reshape(-1, 4)),
+                                       smp)
+            total = total + cfg.stage_loss_weights[stage] * (loss_cls + loss_bbox)
+            aux[f"s{stage}.loss_cls"] = loss_cls
+            aux[f"s{stage}.loss_bbox"] = loss_bbox
+            num_pos = num_pos + smp.is_pos.sum()
+            if stage < cfg.num_stages - 1:
+                with torch.no_grad(), _span(STAGES[7]):
+                    props = delta_decode(smp.rois, reg[:, 0].detach().reshape(b, -1, 4),
+                                         stds=stds, max_shape=batch.img_shapes[:, None, :])
+                    prop_valid = smp.valid & ~smp.is_gt
+        aux["loss"] = total
+        aux["num_pos"] = num_pos
+        return total, aux
+
+    return _make_step(model, cfg, optimizer, device, loss_fn)
+
+
+# the refresh keeps the beta when the median is below this (dynamic_roi_head.py:143)
+DYNAMIC_EPS = 1e-15
+
+
+def even_median(x: torch.Tensor) -> torch.Tensor:
+    """The median of a 1-D tensor as jnp.median takes it: the mean of the
+    two middle values of an even-length one (torch.median returns the
+    lower), computed as (lo + hi) * 0.5."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def beta_statistic(targets: torch.Tensor, pos: torch.Tensor, k_max: int,
+                   initial_beta: float) -> torch.Tensor:
+    """Dynamic R-CNN's per-step beta statistic (dynamic_roi_head.py:119-125,
+    JAX :568-575): the min(k_max, num_pos)-th smallest mean |dx|, |dy|
+    target over the positives, initial_beta with none. The k-th value is
+    a gather at a device index, so nothing is read back to the host."""
+    num_pos = pos.sum()
+    xy = torch.abs(targets[:, :2]).mean(dim=1)
+    xy_sorted = torch.sort(torch.where(pos, xy, torch.full_like(xy, float("inf")))).values
+    k = num_pos.clamp(max=k_max).clamp(min=1)
+    return torch.where(num_pos > 0, xy_sorted.gather(0, (k - 1).reshape(1))[0],
+                       torch.full_like(xy[0], initial_beta))
+
+
+def make_dynamic_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
+                                 device="cuda") -> Callable:
+    """Faster R-CNN's step with Dynamic R-CNN's adapting hyperparameters
+    (dynamic_roi_head.py), on `model.dynamic`'s buffers: the RoI assigner
+    samples at iou_thr and SmoothL1 weighs by beta; each step writes its
+    IoU statistic (the iou_topk-th largest proposal max-IoU of each
+    image, averaged) and its beta statistic (the min(beta_topk * B,
+    num_pos)-th smallest mean |dx|, |dy| target of the positives, the
+    initial beta with none) into ring slot step % interval, and the step
+    in slot interval - 1 refreshes iou_thr to max(initial_iou, mean) and
+    beta to min(initial_beta, median) (the old beta kept where the median
+    is below DYNAMIC_EPS). All of it
+    stays on the device. aux adds iou_thr and beta, the step's values."""
+    dyn = model.dynamic
+    proposal_fn = make_proposal_fn(cfg)
+    interval, c = cfg.update_iter_interval, cfg.num_classes
+
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+        feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
+            model, cfg, proposal_fn, batch, anchors, uniforms)
+        b = props.shape[0]
+        with torch.no_grad(), _span(STAGES[8]):
+            ov = torch.where(batch.gt_valid[..., None], bbox_overlaps(batch.gt_boxes, props),
+                             torch.zeros((), device=props.device))
+            max_iou = torch.where(prop_valid, ov.amax(dim=1), torch.zeros((), device=ov.device))
+            k_iou = min(cfg.iou_topk, max_iou.shape[1])
+            cur_iou = torch.topk(max_iou, k_iou, dim=1).values[:, -1].mean()
+        iou_thr, beta = dyn.iou_thr.clone(), dyn.beta.clone()
+        smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid, pos_iou_thr=iou_thr)
+        with _span(STAGES[4]):
+            roi_feats = extract_rois(cfg, feats, smp.rois)
+        with _span(STAGES[5]):
+            cls, reg = model.roi_forward(roi_feats)
+        loss_cls = _cls_loss(cls, smp)
+        targets = smp.bbox_targets.reshape(-1, 4)
+        diff = torch.abs(_reg_of_labels(reg, smp, c) - targets)
+        loss_bbox = _positive_mean(torch.where(diff < beta, 0.5 * diff * diff / beta,
+                                               diff - 0.5 * beta), smp)
+        pos = smp.is_pos.reshape(-1)
+        num_pos = pos.sum()
+        with torch.no_grad(), _span(STAGES[8]):
+            cur_beta = beta_statistic(targets, pos, cfg.beta_topk * b, cfg.initial_beta)
+        total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
+        aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos.float(),
+               "iou_thr": iou_thr, "beta": beta, "_cur_iou": cur_iou, "_cur_beta": cur_beta}
+        return total, aux
+
+    @torch.no_grad()
+    def refresh(aux):
+        with _span(STAGES[8]):
+            idx = dyn.step % interval
+            slot = torch.arange(interval, device=idx.device) == idx
+            iou_hist = torch.where(slot, aux["_cur_iou"], dyn.iou_hist)
+            beta_hist = torch.where(slot, aux["_cur_beta"], dyn.beta_hist)
+            now = idx == interval - 1
+            med = even_median(beta_hist)
+            new_beta = torch.where(med < DYNAMIC_EPS, dyn.beta, med.clamp(max=cfg.initial_beta))
+            dyn.iou_thr.copy_(torch.where(now, iou_hist.mean().clamp(min=cfg.initial_iou),
+                                          dyn.iou_thr))
+            dyn.beta.copy_(torch.where(now, new_beta, dyn.beta))
+            dyn.iou_hist.copy_(iou_hist)
+            dyn.beta_hist.copy_(beta_hist)
+            dyn.step.add_(1)
+
+    return _make_step(model, cfg, optimizer, device, loss_fn, after=refresh)
+
+
+def _double_extract(cfg, feats, rois):
+    """The double head's two extractions: the classification branch's at
+    the RoIs, the regression branch's at the RoIs rescaled by
+    reg_roi_scale_factor, each routed to its level by the unscaled RoI."""
+    with _span(STAGES[4]):
+        cls_feats = extract_rois(cfg, feats, rois)
+    with _span(STAGES[9]):
+        reg_feats = extract_rois(cfg, feats, scale_rois(rois, cfg.reg_roi_scale_factor),
+                                 routing_rois=rois)
+    return cls_feats, reg_feats
+
+
+def make_double_head_train_step(model, cfg, optimizer: torch.optim.Optimizer,
+                                device="cuda") -> Callable:
+    """Double-Head R-CNN's step (double_roi_head.py:16-33 and
+    dh_faster_rcnn_r50_fpn_1x_coco.py), the contract of
+    make_faster_rcnn_train_step: the two extractions, the head with its
+    BatchNorm in training (its running statistics move, flax's way), CE
+    and SmoothL1 (beta 1) at weights cls_loss_weight and bbox_loss_weight."""
+    proposal_fn = make_proposal_fn(cfg)
+    c = cfg.num_classes
+
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+        feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
+            model, cfg, proposal_fn, batch, anchors, uniforms)
+        smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid)
+        cls_feats, reg_feats = _double_extract(cfg, feats, smp.rois)
+        with _span(STAGES[5]):
+            cls, reg = model.roi_forward(cls_feats, reg_feats, train=True)
+        loss_cls = cfg.cls_loss_weight * _cls_loss(cls, smp)
+        diff = torch.abs(_reg_of_labels(reg, smp, c) - smp.bbox_targets.reshape(-1, 4))
+        loss_bbox = cfg.bbox_loss_weight * _positive_mean(
+            torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5), smp)
+        total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
+        aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox,
+               "num_pos": smp.is_pos.sum().float()}
+        return total, aux
+
+    return _make_step(model, cfg, optimizer, device, loss_fn)
+
+
+# family -> its train step's maker (the JAX trainer's make_steps)
+TRAIN_STEPS = {"faster_rcnn": make_faster_rcnn_train_step,
+               "cascade_rcnn": make_cascade_train_step,
+               "dynamic_rcnn": make_dynamic_rcnn_train_step,
+               "double_head_rcnn": make_double_head_train_step}
+
+
+def make_two_stage_train_step(model, cfg, optimizer, device="cuda") -> Callable:
+    """cfg's family's train step."""
+    return TRAIN_STEPS[cfg.family](model, cfg, optimizer, device=device)
+
+
+def _class_specific_detections(cfg, props, prop_valid, cls, reg, batch: EvalBatch) -> NMSResult:
+    """Softmax, the per-class decode with the target stds, the rescale to
+    the original image, and multiclass NMS over the class-specific boxes."""
+    t, c = cfg.test, cfg.num_classes
+    b, p = props.shape[:2]
+    probs = torch.softmax(cls, dim=-1).reshape(b, p, c + 1)
+    boxes = delta_decode(props[:, :, None, :], reg.reshape(b, p, c, 4),
+                         stds=cfg.rcnn.target_stds, max_shape=batch.img_shapes[:, None, :])
+    boxes = boxes / batch.scale_factors[:, None, None, :]
+    fg = probs[..., :c] * prop_valid[..., None]
+    return batched_multiclass_nms(boxes, fg, t.score_thr, t.nms_iou_thr, t.max_per_img,
+                                  t.pre_nms_cands)
+
+
+def _make_eval(model, cfg, device, roi_stage) -> Callable:
+    """The eval step around roi_stage(feats, props, prop_valid, batch) ->
+    NMSResult: features and test proposals first."""
+    dev = _check_step(model, cfg, device)
+    proposal_fn = make_proposal_fn(cfg)
+    anchors = torch.from_numpy(anchor_table(cfg)).to(dev)
+
+    @torch.no_grad()
+    def step(batch: EvalBatch) -> NMSResult:
+        batch = batch_on(batch, dev)
+        with _span(STAGES[0]):
+            feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
+        with _span(STAGES[2]):
+            props, _, prop_valid = proposal_fn(rpn_cls, rpn_reg, anchors, batch.img_shapes,
+                                               cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)
+        return roi_stage(feats, props, prop_valid, batch)
 
     return step
 
@@ -301,33 +607,78 @@ def make_faster_rcnn_eval_step(model, cfg, device="cuda") -> Callable:
     test_max_per_img), RoIAlign, the box head, softmax, per-class decode
     with the target stds, the rescale, and multiclass NMS over the
     class-specific boxes. The same contract as engine/eval.py
-    make_eval_step, so detections_to_per_class reads it."""
-    dev = _check_step(model, cfg, device)
-    proposal_fn = make_proposal_fn(cfg)
-    anchors = torch.from_numpy(anchor_table(cfg)).to(dev)
-    t, c = cfg.test, cfg.num_classes
-
-    @torch.no_grad()
-    def step(batch: EvalBatch) -> NMSResult:
-        batch = batch_on(batch, dev)
-        with _span(STAGES[0]):
-            feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
-        with _span(STAGES[2]):
-            props, _, prop_valid = proposal_fn(rpn_cls, rpn_reg, anchors, batch.img_shapes,
-                                               cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)
+    make_eval_step, so detections_to_per_class reads it. Dynamic R-CNN
+    evaluates through it."""
+    def roi_stage(feats, props, prop_valid, batch):
         with _span(STAGES[4]):
             roi_feats = extract_rois(cfg, feats, props)
         with _span(STAGES[5]):
             cls, reg = model.roi_forward(roi_feats)
         with _span(STAGES[6]):
-            b, p = props.shape[:2]
-            probs = torch.softmax(cls, dim=-1).reshape(b, p, c + 1)
-            boxes = delta_decode(props[:, :, None, :], reg.reshape(b, p, c, 4),
-                                 stds=cfg.rcnn.target_stds,
-                                 max_shape=batch.img_shapes[:, None, :])
-            boxes = boxes / batch.scale_factors[:, None, None, :]
-            fg = probs[..., :c] * prop_valid[..., None]
-            return batched_multiclass_nms(boxes, fg, t.score_thr, t.nms_iou_thr,
-                                          t.max_per_img, t.pre_nms_cands)
+            return _class_specific_detections(cfg, props, prop_valid, cls, reg, batch)
 
-    return step
+    return _make_eval(model, cfg, device, roi_stage)
+
+
+def cascade_refine(model, cfg, feats, props, img_shapes):
+    """Every cascade stage on props [B, P, 4] (cascade_roi_head.simple_test):
+    each stage scores and refines the boxes with its class-agnostic
+    deltas and stds, clipped to img_shapes. Returns (the last stage's
+    boxes [B, P, 4], the stages' raw logits averaged [B, P, C + 1])."""
+    b, p = props.shape[:2]
+    logits = None
+    for stage in range(cfg.num_stages):
+        with _span(STAGES[4]):
+            roi_feats = extract_rois(cfg, feats, props)
+        with _span(STAGES[5]):
+            cls, reg = model.roi_forward(roi_feats, stage)
+        logits = cls if logits is None else logits + cls
+        with _span(STAGES[7]):
+            props = delta_decode(props, reg[:, 0].reshape(b, p, 4), stds=cfg.stage_stds[stage],
+                                 max_shape=img_shapes[:, None, :])
+    return props, (logits / cfg.num_stages).reshape(b, p, -1)
+
+
+def make_cascade_eval_step(model, cfg, device="cuda") -> Callable:
+    """Cascade inference, the contract of make_faster_rcnn_eval_step: the
+    last stage's boxes under one softmax of the stages' averaged raw
+    logits (the reference sums the cls_score logits,
+    cascade_roi_head.py:329-332, and get_bboxes takes one softmax), then
+    multiclass NMS over the class-agnostic boxes."""
+    t, c = cfg.test, cfg.num_classes
+
+    def roi_stage(feats, props, prop_valid, batch):
+        boxes, logits = cascade_refine(model, cfg, feats, props, batch.img_shapes)
+        with _span(STAGES[6]):
+            probs = torch.softmax(logits, dim=-1)
+            fg = probs[..., :c] * prop_valid[..., None]
+            return batched_multiclass_nms(boxes / batch.scale_factors[:, None, :], fg,
+                                          t.score_thr, t.nms_iou_thr, t.max_per_img,
+                                          t.pre_nms_cands)
+
+    return _make_eval(model, cfg, device, roi_stage)
+
+
+def make_double_head_eval_step(model, cfg, device="cuda") -> Callable:
+    """Faster R-CNN's eval with the double extraction and the head's
+    BatchNorm at its running statistics."""
+    def roi_stage(feats, props, prop_valid, batch):
+        cls_feats, reg_feats = _double_extract(cfg, feats, props)
+        with _span(STAGES[5]):
+            cls, reg = model.roi_forward(cls_feats, reg_feats, train=False)
+        with _span(STAGES[6]):
+            return _class_specific_detections(cfg, props, prop_valid, cls, reg, batch)
+
+    return _make_eval(model, cfg, device, roi_stage)
+
+
+# family -> its eval step's maker (JAX api.py make_eval_step_for)
+EVAL_STEPS = {"faster_rcnn": make_faster_rcnn_eval_step,
+              "cascade_rcnn": make_cascade_eval_step,
+              "dynamic_rcnn": make_faster_rcnn_eval_step,
+              "double_head_rcnn": make_double_head_eval_step}
+
+
+def make_two_stage_eval_step(model, cfg, device="cuda") -> Callable:
+    """cfg's family's eval step."""
+    return EVAL_STEPS[cfg.family](model, cfg, device=device)

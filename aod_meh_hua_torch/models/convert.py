@@ -1,16 +1,22 @@
 """JAX variables -> the port's state_dict.
 
-Takes the JAX package's MEH-RetinaNet, MEH-SSD or Faster R-CNN variables,
+Takes the JAX package's MEH-RetinaNet, MEH-SSD or two-stage variables,
 {"params": ..., "batch_stats": ...} as nested dicts of numpy arrays (the
 trees of aod_meh_hua_tpu/models/detector.py, ssd_detector.py and
 two_stage.py), and returns a state_dict for models/detector.py's
 MEHRetinaNet, models/ssd_detector.py's MEHSSD (mmdet's names, the mapping
-of aod_meh_hua_tpu/models/reference_convert.py:107-140) or
-models/two_stage.py's FasterRCNN. Conv kernels go HWIO -> OIHW and Dense
-kernels [in, out] -> [out, in]; the box head's first fc reads its input
-in the JAX head's (h, w, c) order, so its columns carry over as they are.
-BN scale/bias/mean/var and L2Norm's scale go to
-weight/bias/running_mean/running_var and weight. The JAX
+of aod_meh_hua_tpu/models/reference_convert.py:107-140) or the models of
+models/two_stage.py (the cascade's bbox_head_{i} to bbox_heads.{i}, the
+double head's conv_branch_{i} and fc_branch_{i} to their lists). Conv
+kernels go HWIO -> OIHW and Dense kernels [in, out] -> [out, in]; the
+box heads' first fc reads its input in the JAX head's (h, w, c) order,
+so its columns carry over as they are. BN scale/bias/mean/var (the
+frozen backbone's and the double head's trainable BN alike) and L2Norm's
+scale go to weight/bias/running_mean/running_var and weight. Dynamic
+R-CNN's statistics (batch_stats["__dynamic_rcnn__"]: iou_hist,
+beta_hist, iou_thr, beta) go to the `dynamic.` buffers of the same
+names; a variables tree holds no step counter (the train state does:
+engine/checkpoint.py load_train_state). The JAX
 package keeps one tree whether fused_blocks is on or off
 (models/resnet.py:93-122), and so does the port: the same tree loads
 into either.
@@ -36,9 +42,15 @@ _NAME_RULES = (
     (re.compile(r"^downsample_conv$"), "downsample.0"),
     (re.compile(r"^downsample_bn$"), "downsample.1"),
     (re.compile(r"^shared_fc_(\d+)$"), r"shared_fcs.\1"),
+    (re.compile(r"^bbox_head_(\d+)$"), r"bbox_heads.\1"),
+    (re.compile(r"^conv_branch_(\d+)$"), r"conv_branch.\1"),
+    (re.compile(r"^fc_branch_(\d+)$"), r"fc_branch.\1"),
 )
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
+# Dynamic R-CNN's state in batch_stats (JAX engine/two_stage.py:479)
+DYNAMIC_KEY = "__dynamic_rcnn__"
+DYNAMIC_LEAVES = ("iou_hist", "beta_hist", "iou_thr", "beta")
 
 
 def _module_name(name: str) -> str:
@@ -82,13 +94,22 @@ def _ssd_module(mods) -> str:
 def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} numpy tree -> the state_dict of the port
     model of its family (MEHRetinaNet, MEHSSD for a tree with VGG convs,
-    FasterRCNN for one with an RPN head). SSD has no batch_stats."""
+    the two-stage models for one with an RPN head). SSD has no
+    batch_stats. A leaf of no known kind raises."""
     ssd = "conv1_1" in tree.get("params", {}).get("backbone", {})
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(tree.get(collection, {})):
             *mods, name = path
             arr = np.asarray(leaf, dtype=np.float32)
+            if mods == [DYNAMIC_KEY]:
+                if collection != "batch_stats" or name not in DYNAMIC_LEAVES:
+                    raise KeyError(f"{collection}/{DYNAMIC_KEY}/{name}: not Dynamic "
+                                   "R-CNN's state")
+                out[f"dynamic.{name}"] = torch.from_numpy(np.array(arr, order="C"))
+                continue
+            if name not in _LEAF:
+                raise KeyError(f"{'/'.join(path)}: no port counterpart")
             if name == "kernel":
                 # HWIO -> OIHW; a Dense kernel [in, out] -> [out, in]
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T

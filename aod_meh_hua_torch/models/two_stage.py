@@ -1,23 +1,36 @@
-"""Faster R-CNN R50-FPN (torch): the RPN head, the shared 2-fc box head
-and the detector that holds them.
+"""The two-stage detectors (torch): Faster R-CNN R50-FPN and its Cascade,
+Dynamic and Double-Head forms; the RPN head, the shared 2-fc box head,
+the double head, and the detectors that hold them.
 
 Port of aod_meh_hua_tpu/models/two_stage.py (`RPNHead` :32-61,
 `Shared2FCBBoxHead` :64-97, `FasterRCNN` :100-212 in its ResNet + FPN
-form, `build_faster_rcnn` :273), which mirrors the reference's
-configs/_base_/models/faster_rcnn_r50_fpn.py: R50 + FPN (start_level 0,
-5 outputs, P6 by stride-2 subsampling), RPNHead (3x3 conv + ReLU, then
-1x1 objectness and deltas over 3 anchors, rpn_head.py:29-43) and
-Shared2FCBBoxHead (two fc1024, softmax C+1 classes with the background
-last, class-specific deltas, convfc_bbox_head.py).
+form, `CascadeRCNN` :215-256, `build_faster_rcnn` :273 as `build_two_stage`,
+`_HeadBottleneck`, `BasicResBlock`, `DoubleConvFCBBoxHead` and
+`DoubleHeadRCNN` :291-420),
+which mirrors the reference's configs/_base_/models/faster_rcnn_r50_fpn.py:
+R50 + FPN (start_level 0, 5 outputs, P6 by stride-2 subsampling), RPNHead
+(3x3 conv + ReLU, then 1x1 objectness and deltas over 3 anchors,
+rpn_head.py:29-43) and Shared2FCBBoxHead (two fc1024, softmax C+1
+classes with the background last, class-specific deltas,
+convfc_bbox_head.py); cascade_rcnn_r50_fpn.py's three class-agnostic
+heads; double_bbox_head.py's conv regression branch and fc
+classification branch. Dynamic R-CNN's model is Faster R-CNN's (JAX
+api.py:56) with its training statistics as buffers (`DynamicState`),
+which the JAX package keeps under batch_stats["__dynamic_rcnn__"]
+(engine/two_stage.py:479-495).
 
-The modules hold weights and the three stage forwards (`features`,
-`rpn`, `roi_forward`); the proposals, sampling and targets live in
+The modules hold weights and the stage forwards (`features`, `rpn`,
+`roi_forward`); the proposals, sampling and targets live in
 engine/two_stage.py. Public layouts are the JAX package's: images
 [B, H, W, 3] in; RPN outputs flattened to [B, A_tot] and [B, A_tot, 4]
 in ops/anchors.py's cell-major, anchor-minor order; RoI features
 [R, 7, 7, C], which the first fc reads flattened in (h, w, c) order, as
 the JAX head flattens them (an mmdet .pth reads (c, h, w): its import
 waits for the reference-checkpoint part of ROADMAP Queue 1 item 15).
+
+The double head's BatchNorm trains while the backbone's stays frozen,
+and the model is kept in eval mode, so its `roi_forward` takes `train`
+as the JAX head does (`HeadBatchNorm2d`: flax's statistics, below).
 """
 
 from __future__ import annotations
@@ -47,16 +60,16 @@ def check_two_stage_options(cfg) -> None:
     of the Faster R-CNN family (ROADMAP Queue 1 item 15), bfloat16 compute
     (item 16), remat or the space-to-depth stem (item 16)."""
     family = getattr(cfg, "family", None)
-    if family != "faster_rcnn":
+    if family not in TWO_STAGE_FAMILIES:
         raise NotImplementedError(
             f"the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
     defaults = {f.name: f.default for f in dataclasses.fields(FasterRCNNConfig)}
     for name in _VARIANT_FIELDS:
         if getattr(cfg, name) != defaults[name]:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r}: the port builds Faster R-CNN with the "
-                "ResNet + FPN trunk only; the family's variants are not ported yet "
-                "(ROADMAP Queue 1 item 15)")
+                f"{name}={getattr(cfg, name)!r}: the port builds the two-stage families "
+                "with the ResNet + FPN trunk only; the Faster R-CNN variants are not "
+                "ported yet (ROADMAP Queue 1 item 15)")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port's model runs float32 "
@@ -95,26 +108,25 @@ class RPNHead(nn.Module):
 
 class Shared2FCBBoxHead(nn.Module):
     """RoI features [R, S, S, C], flattened (h, w, c) -> fc -> fc ->
-    (cls [R, C + 1], class-specific deltas [R, num_classes, 4])."""
+    (cls [R, C + 1], deltas [R, num_classes, 4], or [R, 1, 4] when
+    reg_class_agnostic: the cascade heads)."""
 
     def __init__(self, num_classes: int, in_channels: int, roi_size: int = 7,
-                 fc_channels: int = 1024):
+                 fc_channels: int = 1024, reg_class_agnostic: bool = False):
         super().__init__()
-        self.num_classes = num_classes
+        self.reg_out = 1 if reg_class_agnostic else num_classes
         self.shared_fcs = nn.ModuleList([
             nn.Linear(roi_size * roi_size * in_channels, fc_channels),
             nn.Linear(fc_channels, fc_channels)])
         self.fc_cls = nn.Linear(fc_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_channels, num_classes * 4)
+        self.fc_reg = nn.Linear(fc_channels, self.reg_out * 4)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
         """Xavier-uniform shared fcs, Normal(0.01) fc_cls, Normal(0.001)
         fc_reg, zero biases (convfc_bbox_head.py's init_cfg)."""
         for fc in self.shared_fcs:
-            out_f, in_f = fc.weight.shape
-            bound = math.sqrt(6.0 / (in_f + out_f))
-            fc.weight.copy_((torch.rand(fc.weight.shape, generator=gen) * 2 - 1) * bound)
+            _xavier_uniform(fc, gen)
         self.fc_cls.weight.copy_(torch.randn(self.fc_cls.weight.shape, generator=gen) * 0.01)
         self.fc_reg.weight.copy_(torch.randn(self.fc_reg.weight.shape, generator=gen) * 0.001)
         for fc in (*self.shared_fcs, self.fc_cls, self.fc_reg):
@@ -124,11 +136,28 @@ class Shared2FCBBoxHead(nn.Module):
         x = roi_feats.reshape(roi_feats.shape[0], -1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
-        return self.fc_cls(x).float(), self.fc_reg(x).float().reshape(-1, self.num_classes, 4)
+        return self.fc_cls(x).float(), self.fc_reg(x).float().reshape(-1, self.reg_out, 4)
+
+
+def _lecun_normal_convs(modules, gen: torch.Generator) -> None:
+    """N(0, 1/fan_in) conv weights, zero conv biases."""
+    for m in modules:
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * fan_in ** -0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+def _xavier_uniform(fc: nn.Linear, gen: torch.Generator) -> None:
+    out_f, in_f = fc.weight.shape
+    bound = math.sqrt(6.0 / (in_f + out_f))
+    fc.weight.copy_((torch.rand(fc.weight.shape, generator=gen) * 2 - 1) * bound)
 
 
 class FasterRCNN(nn.Module):
-    """Weights and stage forwards; the orchestration is engine/two_stage.py."""
+    """Weights and stage forwards; the orchestration is engine/two_stage.py.
+    The subclasses replace the RoI head (`_build_roi_head`)."""
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
@@ -138,22 +167,24 @@ class FasterRCNN(nn.Module):
         self.neck = FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0,
                         num_outs=len(cfg.rpn.anchor_strides), add_extra_convs="maxpool")
         self.rpn_head = RPNHead(cfg.fpn_channels, cfg.rpn.num_anchors)
+        self._build_roi_head(cfg)
+
+    def _build_roi_head(self, cfg) -> None:
         self.bbox_head = Shared2FCBBoxHead(cfg.num_classes, cfg.fpn_channels,
                                            cfg.rcnn.roi_size, cfg.rcnn.fc_channels)
+
+    def _roi_heads(self):
+        return [self.bbox_head]
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         """Seeded init on the CPU: LeCun-normal backbone and neck convs,
         zero neck biases, the heads' own init; BN at identity statistics."""
         gen = torch.Generator().manual_seed(seed)
-        for m in list(self.backbone.modules()) + list(self.neck.modules()):
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * fan_in ** -0.5)
-                if m.bias is not None:
-                    m.bias.zero_()
+        _lecun_normal_convs(list(self.backbone.modules()) + list(self.neck.modules()), gen)
         self.rpn_head.init_weights(gen)
-        self.bbox_head.init_weights(gen)
+        for head in self._roi_heads():
+            head.init_weights(gen)
 
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """images [B, H, W, 3] -> the FPN levels P2..P6, NCHW (channels_last)."""
@@ -172,10 +203,198 @@ class FasterRCNN(nn.Module):
         return (feats,) + self.rpn(feats)
 
 
-def build_faster_rcnn(cfg: FasterRCNNConfig, device="cuda", seed: int = 0) -> FasterRCNN:
-    """A seeded Faster R-CNN in eval mode on `device` (channels_last).
-    Raises when device is CUDA and there is no card."""
+class CascadeRCNN(FasterRCNN):
+    """The Faster R-CNN trunk with num_stages class-agnostic Shared2FC
+    heads (`bbox_heads`, the JAX package's bbox_head_{i})."""
+
+    def _build_roi_head(self, cfg) -> None:
+        self.bbox_heads = nn.ModuleList([
+            Shared2FCBBoxHead(cfg.num_classes, cfg.fpn_channels, cfg.rcnn.roi_size,
+                              cfg.rcnn.fc_channels, reg_class_agnostic=True)
+            for _ in range(cfg.num_stages)])
+
+    def _roi_heads(self):
+        return list(self.bbox_heads)
+
+    def roi_forward(self, roi_feats: torch.Tensor, stage: int):
+        return self.bbox_heads[stage](roi_feats)
+
+
+class DynamicState(nn.Module):
+    """Dynamic R-CNN's training statistics, as buffers on the card (the
+    JAX package's batch_stats["__dynamic_rcnn__"]): ring buffers of the
+    last update_iter_interval per-step IoU and beta statistics, the
+    active assigner threshold and SmoothL1 beta, and the step counter
+    that picks each step's ring slot (the JAX TrainState's step)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        t = cfg.update_iter_interval
+        self.register_buffer("iou_hist", torch.zeros(t))
+        self.register_buffer("beta_hist", torch.zeros(t))
+        self.register_buffer("iou_thr", torch.tensor(float(cfg.rcnn.pos_iou_thr)))
+        self.register_buffer("beta", torch.tensor(float(cfg.initial_beta)))
+        self.register_buffer("step", torch.zeros((), dtype=torch.long))
+
+
+class DynamicRCNN(FasterRCNN):
+    """Faster R-CNN with Dynamic R-CNN's statistics (`dynamic`); the
+    adaptation lives in the train step."""
+
+    def _build_roi_head(self, cfg) -> None:
+        super()._build_roi_head(cfg)
+        self.dynamic = DynamicState(cfg)
+
+
+class HeadBatchNorm2d(nn.Module):
+    """A trainable BatchNorm with flax's nn.BatchNorm statistics (momentum
+    0.99, epsilon 1e-5): in training the batch mean and the BIASED batch
+    variance, as E[x^2] - E[x]^2 clipped at 0 (flax's fast variance),
+    normalise the input and move the running statistics by 1%; torch's
+    BatchNorm2d moves running_var by the unbiased variance. `train` is an
+    argument: the model stays in eval mode, its backbone BN frozen."""
+
+    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class _HeadBottleneck(nn.Module):
+    """The conv branch's bottleneck: 1x1 -> 3x3 -> 1x1 (x4 channels), each
+    with a trainable BN, ReLU after the residual sum."""
+
+    def __init__(self, planes: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(planes * 4, planes, 1, bias=False)
+        self.bn1 = HeadBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = HeadBatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = HeadBatchNorm2d(planes * 4)
+
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = torch.relu(self.bn2(self.conv2(y), train))
+        return torch.relu(self.bn3(self.conv3(y), train) + x)
+
+
+class BasicResBlock(nn.Module):
+    """double_bbox_head.py:10-73: 3x3 + BN + ReLU -> 1x1 + BN on the main
+    path, 1x1 + BN on the identity path, ReLU after the sum (the channel
+    lift 256 -> 1024)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, in_channels, 3, padding=1, bias=False)
+        self.bn1 = HeadBatchNorm2d(in_channels)
+        self.conv2 = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.bn2 = HeadBatchNorm2d(out_channels)
+        self.conv_identity = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.bn_identity = HeadBatchNorm2d(out_channels)
+
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
+        return torch.relu(y + self.bn_identity(self.conv_identity(x), train))
+
+
+# the profiler range of the conv branch (engine/two_stage.py STAGES)
+CONV_BRANCH_SPAN = "double_head_rcnn.conv_branch"
+
+
+class DoubleConvFCBBoxHead(nn.Module):
+    """double_bbox_head.py:76-177: the regression branch is convolutional
+    (BasicResBlock + num_convs bottlenecks + global average pool ->
+    fc_reg, class-specific), the classification branch fully connected
+    (num_fcs fcs + fc_cls)."""
+
+    def __init__(self, num_classes: int, in_channels: int, roi_size: int = 7,
+                 num_convs: int = 4, num_fcs: int = 2, conv_out_channels: int = 1024,
+                 fc_out_channels: int = 1024):
+        super().__init__()
+        self.num_classes = num_classes
+        self.res_block = BasicResBlock(in_channels, conv_out_channels)
+        self.conv_branch = nn.ModuleList([_HeadBottleneck(conv_out_channels // 4)
+                                          for _ in range(num_convs)])
+        self.fc_reg = nn.Linear(conv_out_channels, num_classes * 4)
+        dims = [roi_size * roi_size * in_channels] + [fc_out_channels] * num_fcs
+        self.fc_branch = nn.ModuleList([nn.Linear(i, o) for i, o in zip(dims, dims[1:])])
+        self.fc_cls = nn.Linear(dims[-1], num_classes + 1)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """The JAX head's initialisers: LeCun-normal convs, BN at identity,
+        Xavier-uniform fc_branch, Normal(0.01) fc_cls, Normal(0.001)
+        fc_reg, zero biases."""
+        _lecun_normal_convs(self.modules(), gen)
+        for fc in self.fc_branch:
+            _xavier_uniform(fc, gen)
+        self.fc_cls.weight.copy_(torch.randn(self.fc_cls.weight.shape, generator=gen) * 0.01)
+        self.fc_reg.weight.copy_(torch.randn(self.fc_reg.weight.shape, generator=gen) * 0.001)
+        for fc in (*self.fc_branch, self.fc_cls, self.fc_reg):
+            fc.bias.zero_()
+
+    def conv_branch_forward(self, x_reg: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """[R, S, S, C] -> the pooled [R, conv_out] features."""
+        with torch.profiler.record_function(CONV_BRANCH_SPAN):
+            y = self.res_block(x_reg.permute(0, 3, 1, 2), train)
+            for block in self.conv_branch:
+                y = block(y, train)
+            return y.mean(dim=(2, 3))
+
+    def forward(self, x_cls: torch.Tensor, x_reg: torch.Tensor, train: bool = False):
+        """(cls [R, C + 1], class-specific deltas [R, num_classes, 4]); in
+        training the BN statistics come from all R RoIs."""
+        reg = self.fc_reg(self.conv_branch_forward(x_reg, train))
+        f = x_cls.reshape(x_cls.shape[0], -1)
+        for fc in self.fc_branch:
+            f = torch.relu(fc(f))
+        return self.fc_cls(f).float(), reg.float().reshape(-1, self.num_classes, 4)
+
+
+class DoubleHeadRCNN(FasterRCNN):
+    """The Faster R-CNN trunk with the DoubleConvFCBBoxHead; the engine
+    feeds it two RoI extractions (cls at the RoI, reg at 1.3x the RoI)."""
+
+    def _build_roi_head(self, cfg) -> None:
+        self.bbox_head = DoubleConvFCBBoxHead(
+            cfg.num_classes, cfg.fpn_channels, cfg.rcnn.roi_size, cfg.dh_num_convs,
+            cfg.dh_num_fcs, cfg.dh_conv_out, cfg.dh_fc_out)
+
+    def roi_forward(self, cls_feats: torch.Tensor, reg_feats: torch.Tensor,
+                    train: bool = False):
+        return self.bbox_head(cls_feats, reg_feats, train)
+
+
+# family -> the port's model class
+_MODELS = {"faster_rcnn": FasterRCNN, "cascade_rcnn": CascadeRCNN,
+           "dynamic_rcnn": DynamicRCNN, "double_head_rcnn": DoubleHeadRCNN}
+# the two-stage families the port builds
+TWO_STAGE_FAMILIES = tuple(_MODELS)
+
+
+def build_two_stage(cfg, device="cuda", seed: int = 0) -> FasterRCNN:
+    """A seeded model of cfg's two-stage family in eval mode on `device`
+    (channels_last). Raises when device is CUDA and there is no card."""
+    check_two_stage_options(cfg)
     dev = resolve_device(device)
-    model = FasterRCNN(cfg)
+    model = _MODELS[cfg.family](cfg)
     model.init_weights(seed)
     return model.to(device=dev, memory_format=torch.channels_last).eval()

@@ -44,7 +44,8 @@ EXPORTED_FAMILIES = ("retinanet", "ssd")
 
 def config_for(family: str, mini: bool = False):
     """The JAX tools' config choice: --mini the tiny RetinaNet, else the
-    family's default; families other than retinanet and ssd raise."""
+    family's default; families other than retinanet and ssd raise (the
+    two-stage families' export waits for ROADMAP Queue 1 item 15)."""
     from ...utils.config import RetinaNetConfig, SSDConfig, tiny_test_config
 
     if mini:
@@ -54,7 +55,7 @@ def config_for(family: str, mini: bool = False):
     if family == "ssd":
         return SSDConfig()
     raise NotImplementedError(
-        f"the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
+        f"the export of the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
 
 
 def example_batch(cfg, batch: int, device) -> EvalBatch:
@@ -119,7 +120,8 @@ def fused_nodes(program: torch.export.ExportedProgram) -> int:
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description="Export the eval step with torch.export")
     ap.add_argument("--family", default="retinanet",
-                    help="retinanet or ssd (the other families: ROADMAP item 15)")
+                    help="retinanet or ssd (the two-stage families' export: ROADMAP "
+                         "Queue 1 item 15)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--out", default="detector_export.pt2")
     ap.add_argument("--batch", type=int, default=1)

@@ -20,7 +20,7 @@ JPEG gets the JAX server's reply to an undecodable payload, 400. The
 PNG and BMP payloads that the JAX server's cv2.imdecode also reads are
 not taken (ROADMAP Queue 3).
 
-    python -m aod_meh_hua_torch.tools.deployment.serve [--family retinanet] \\
+    python -m aod_meh_hua_torch.tools.deployment.serve [--family retinanet|cascade_rcnn|...] \\
         [--checkpoint c.ckpt | --archive model_store/m.tar] [--port 8080] \\
         [--score-thr 0.5] [--max-batch 8] [--batch-delay-ms 5] [--warmup] [--cpu]
     curl -X POST --data-binary @image.jpg localhost:8080/predictions
@@ -50,19 +50,20 @@ from ...utils.device import pin_numerics
 
 
 def build_detector(args):
-    """api.Detector of --family (the tiny model with --mini) with
+    """api.Detector of --family (retinanet, ssd or a family of
+    utils/config.py ZOO_FAMILIES; the tiny model with --mini) with
     --checkpoint's weights, on the card unless --cpu."""
     from ...api import Detector, init_detector
     from ...data.pipeline import PipelineConfig
-    from ...utils.config import RetinaNetConfig, SSDConfig, tiny_test_config
+    from ...utils.config import ZOO_FAMILIES, RetinaNetConfig, SSDConfig, tiny_test_config
 
     if args.family == "retinanet":
         cfg = tiny_test_config() if args.mini else RetinaNetConfig()
     elif args.family == "ssd":
         cfg = SSDConfig(width_mult=0.125) if args.mini else SSDConfig()
     else:
-        raise NotImplementedError(
-            f"the {args.family} family is not ported yet (ROADMAP Queue 1 item 15)")
+        full_cls, tiny_fn = ZOO_FAMILIES[args.family]
+        cfg = tiny_fn() if args.mini else full_cls()
     model = init_detector(cfg, checkpoint=args.checkpoint,
                           device="cpu" if args.cpu else "cuda")
     pipeline = None
@@ -280,10 +281,13 @@ def make_handler(batcher, classes, score_thr):
     return Handler
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def parse_args(argv: Optional[Sequence[str]] = None):
+    from ...utils.config import ALL_FAMILIES
+
     ap = argparse.ArgumentParser(description="HTTP detection server")
-    ap.add_argument("--family", default="retinanet",
-                    help="retinanet or ssd (the other families: ROADMAP item 15)")
+    ap.add_argument("--family", default="retinanet", choices=ALL_FAMILIES,
+                    help="retinanet, ssd or a ported zoo family (utils/config.py "
+                         "ZOO_FAMILIES)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--archive", default=None,
                     help="serve a package_model.py archive instead of (family, checkpoint)")
@@ -298,7 +302,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--batch-delay-ms", type=float, default=5.0,
                     help="dynamic batcher: max wait for stragglers after the first request "
                          "(TorchServe max_batch_delay)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
     from ...data.voc import VOC_CLASSES
 
     pin_numerics()

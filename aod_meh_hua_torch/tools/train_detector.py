@@ -4,7 +4,9 @@ card: a step-decayed SGD epoch loop with the VOC mAP evaluated every
 
 Port of tools/train_detector.py of the JAX package (:27-667; the
 reference's upstream mmdet tools/train.py over a VOC config) for the
-families of utils/config.py ZOO_FAMILIES: today `faster_rcnn`. It keeps
+families of utils/config.py ZOO_FAMILIES: `faster_rcnn`, `cascade_rcnn`,
+`dynamic_rcnn` and `double_head_rcnn`, each with its own train step
+(engine/two_stage.py TRAIN_STEPS, the JAX tool's make_steps). It keeps
 the JAX flags this family uses (--family, --voc07, --voc12, --work-dir,
 --epochs, --lr-steps, --batch-size, --lr, --momentum, --weight-decay,
 --seed, --eval-interval, --mini, --no-validate) and adds --cpu, the
@@ -12,7 +14,8 @@ port's way to ask for the CPU; it runs on the card otherwise. It writes
 the JAX tool's files: one `train_log.jsonl` row per epoch ({"epoch",
 "loss", "lr"} and "mAP" after an eval), `metrics.json`,
 `{family}_final.ckpt` (a torch state_dict, which api.init_detector and
-engine/checkpoint.py load, as they load the JAX tool's msgpack file) and
+engine/checkpoint.py load, as they load the JAX tool's msgpack file;
+Dynamic R-CNN's statistics are in it) and
 `{family}_meta.json`. main pins the numerics process-wide
 (utils/device.py pin_numerics). The flags of other data, families and
 modes raise NotImplementedError with their ROADMAP item.
@@ -23,7 +26,7 @@ orientation trains with its own step, whose anchor table is that
 canvas's; the JAX tool builds one step on the landscape canvas and feeds
 it the portrait batches too.
 
-    python -m aod_meh_hua_torch.tools.train_detector --family faster_rcnn \\
+    python -m aod_meh_hua_torch.tools.train_detector --family cascade_rcnn \\
         --voc07 .../VOC2007 [--voc12 .../VOC2012] --work-dir work [--mini] [--cpu]
 
 In process: main(argv) trains and returns the model, the config and the
@@ -157,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from aod_meh_hua_torch.data.voc import VOC_CLASSES, ConcatVOC, VOCDataset
     from aod_meh_hua_torch.engine.checkpoint import save_checkpoint
     from aod_meh_hua_torch.engine.train import create_train_state, set_learning_rate
-    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
     from aod_meh_hua_torch.utils.config import TrainConfig
 
     device = resolve_device("cpu" if args.cpu else "cuda")
@@ -196,7 +199,7 @@ def main(argv: Optional[Sequence[str]] = None):
         losses = []
         for orientation, batch in loader:
             if orientation not in steps:
-                steps[orientation] = make_faster_rcnn_train_step(
+                steps[orientation] = make_two_stage_train_step(
                     model, cfg.for_orientation(orientation), optimizer, device=device)
             losses.append(steps[orientation](batch, generator)["loss"])
         mean_loss = float(np.mean([float(v) for v in losses]))

@@ -5,8 +5,11 @@ Mirrors tools/train_retinanet.py:24-190 of the JAX package flag for flag
 --voc12 data roots, --work-dir, the HUA pool and aggregation flags, the
 zeroRate/score_thr/iou_thr knobs, the batch sizes, --cycles, the cycle,
 load and mid-cycle resume flags, --no-validate, --canvas-cache-dir, the
-deep-ensemble baseline (--baseline ensemble, --ensemble-size) and the
---mini smoke mode. It runs on the card; --cpu runs it on the CPU.
+deep-ensemble baseline (--baseline ensemble, --ensemble-size), --config
+(a reference-style config file, utils/config.py load_reference_config:
+its model, schedule and AL settings, and its data roots when neither
+--voc07 nor --voc12 is given) and the --mini smoke mode. It runs on the
+card; --cpu runs it on the CPU.
 main pins the numerics process-wide (utils/device.py pin_numerics): no
 TF32, deterministic cuDNN.
 The flags of modes the port does not have yet raise NotImplementedError
@@ -44,7 +47,8 @@ from aod_meh_hua_torch.utils.device import pin_numerics
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description="Train MEH-RetinaNet with active learning")
-    p.add_argument("--config", default=None, help="reference-style config file (not ported)")
+    p.add_argument("--config", default=None,
+                   help="reference-style config file (utils/config.py load_reference_config)")
     p.add_argument("--work-dir", default="work_dirs/retinanet_meh")
     p.add_argument("--voc07", default=None, help="path to .../VOC2007")
     p.add_argument("--voc12", default=None, help="path to .../VOC2012")
@@ -118,7 +122,6 @@ def refuse_unported(args) -> None:
     a flag one of them lacks counts as not given)."""
     get = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     refused = [
-        (args.config, "--config (reference-style config files)", "13"),
         (get("int8_scoring", False), "--int8-scoring", "16"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
@@ -179,11 +182,19 @@ def main(argv: Optional[Sequence[str]] = None):
     from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
     from aod_meh_hua_torch.data.pipeline import PipelineConfig
     from aod_meh_hua_torch.utils.config import (
-        ALConfig, RetinaNetConfig, TrainConfig, tiny_test_config)
+        ALConfig, RetinaNetConfig, TrainConfig, load_reference_config, reference_data_roots,
+        tiny_test_config)
 
+    if args.config:
+        model_cfg, train_cfg, al_cfg, ns = load_reference_config(args.config)
+        if not args.voc07 and not args.voc12:
+            # all or nothing: an explicit --voc07 must not pick up the
+            # config's (likely machine-specific) VOC2012 data_root
+            args.voc07, args.voc12 = reference_data_roots(ns)
+    else:
+        model_cfg, train_cfg, al_cfg = RetinaNetConfig(), TrainConfig(), ALConfig()
     if not args.voc07:
-        raise SystemExit("--voc07 is required")
-    model_cfg, train_cfg, al_cfg = RetinaNetConfig(), TrainConfig(), ALConfig()
+        raise SystemExit("--voc07 is required (no data_root in the config)")
     pipeline = None
     if args.mini:
         model_cfg = tiny_test_config()

@@ -6,8 +6,10 @@ the RetinaNet driver with the SSD schedule (Config_SSD.py:125-171):
 batch 8, outer_epoch 2, epoch_ratio (5, 1), the lr step at inner epoch
 1, a 500-iteration linear warmup from ratio 1e-3, and 11 cycles of
 1000-image acquisitions with X_L repeated 16 times; --mini shrinks the
-VGG to width 0.125 and the schedule to one epoch per run and two cycles.
-It runs on the card; --cpu runs it on the CPU. main pins the numerics
+VGG to width 0.125 and the schedule to one epoch per run and two cycles;
+--config reads a reference-style SSD config file instead (its model,
+schedule and AL settings, and its data roots when neither --voc07 nor
+--voc12 is given). It runs on the card; --cpu runs it on the CPU. main pins the numerics
 process-wide (utils/device.py pin_numerics): no TF32, deterministic
 cuDNN. The flags of modes the port does not have yet raise
 NotImplementedError with their ROADMAP item. Several ranks as in
@@ -41,7 +43,9 @@ from aod_meh_hua_torch.utils.device import pin_numerics
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description="Train MEH-SSD300 with active learning")
-    p.add_argument("--config", default=None, help="reference-style config file (not ported)")
+    p.add_argument("--config", default=None,
+                   help="reference-style SSD config file (utils/config.py "
+                        "load_reference_config)")
     p.add_argument("--work-dir", default="work_dirs/ssd_meh")
     p.add_argument("--voc07", default=None, help="path to .../VOC2007")
     p.add_argument("--voc12", default=None, help="path to .../VOC2012")
@@ -119,17 +123,28 @@ def main(argv: Optional[Sequence[str]] = None):
                                  args.num_devices, args.cpu)
     pin_numerics()
     from aod_meh_hua_torch.al.loop import ALDriver, ALPaths
-    from aod_meh_hua_torch.utils.config import ALConfig, SSDConfig, TrainConfig
+    from aod_meh_hua_torch.utils.config import (
+        ALConfig, SSDConfig, TrainConfig, load_reference_config, reference_data_roots)
 
+    if args.config:
+        model_cfg, train_cfg, al_cfg, ns = load_reference_config(args.config)
+        if model_cfg.family != "ssd":
+            raise SystemExit(f"{args.config} is not an SSD config (model.type dispatch)")
+        if not args.voc07 and not args.voc12:
+            args.voc07, args.voc12 = reference_data_roots(ns)
+        model_cfg = dataclasses.replace(model_cfg, compute_dtype=args.dtype)
+        train_cfg = dataclasses.replace(train_cfg, seed=args.seed, batch_size=args.batch_size)
+        al_cfg = dataclasses.replace(al_cfg, zero_rate=args.zero_rate)
+    else:
+        model_cfg = SSDConfig(compute_dtype=args.dtype)
+        # SSD schedule (Config_SSD.py:125-171)
+        train_cfg = TrainConfig(batch_size=args.batch_size, seed=args.seed, outer_epoch=2,
+                                epoch_ratio=(5, 1), lr_step_epoch=1, warmup_iters=500,
+                                warmup_ratio=1e-3)
+        al_cfg = ALConfig(cycles=tuple(range(11)), x_l_0_size=1000, x_s_size=1000,
+                          x_l_repeat=16, x_u_repeat=16, zero_rate=args.zero_rate)
     if not args.voc07:
-        raise SystemExit("--voc07 is required")
-    model_cfg = SSDConfig(compute_dtype=args.dtype)
-    # SSD schedule (Config_SSD.py:125-171)
-    train_cfg = TrainConfig(batch_size=args.batch_size, seed=args.seed, outer_epoch=2,
-                            epoch_ratio=(5, 1), lr_step_epoch=1, warmup_iters=500,
-                            warmup_ratio=1e-3)
-    al_cfg = ALConfig(cycles=tuple(range(11)), x_l_0_size=1000, x_s_size=1000,
-                      x_l_repeat=16, x_u_repeat=16, zero_rate=args.zero_rate)
+        raise SystemExit("--voc07 is required (no data_root in the config)")
     if args.mini:
         model_cfg = dataclasses.replace(model_cfg, width_mult=0.125, max_gt=8)
         train_cfg = dataclasses.replace(train_cfg, outer_epoch=1, epoch_ratio=(1,),

@@ -3,17 +3,22 @@
 A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
 `SSDAnchorCfg`, `SSDConfig`, `TrainConfig`, `ALConfig` and
 `tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-298,
-:2246-2294, :3545), and of the Faster R-CNN family's `RPNCfg`, `RCNNCfg`,
-`FasterRCNNConfig` and `tiny_faster_rcnn_config` (:301-434, :2513) with
-`ZOO_FAMILIES` (:3569) cut to the families the port has.
+:2246-2294, :3545), and of the two-stage families' `RPNCfg`, `RCNNCfg`, `FasterRCNNConfig`,
+`CascadeRCNNConfig`, `DynamicRCNNConfig`, `DoubleHeadRCNNConfig` and
+their tiny factories (:301-455, :823-860, :2513, :2570-2612, :3312)
+with `ZOO_FAMILIES` (:3569) cut to the families the port has, and the
+reference-config loader (`_cfg_get`, `_KNOWN_TOP_KEYS`, `_LOSS_CLS_MAP`,
+`_warn`, `reference_data_roots`, `load_reference_config`, :2297-2510).
 The port keeps its own copy because it imports nothing of the JAX
-package; tests/test_torch_ops.py and tests/test_torch_two_stage.py hold
-the copies equal field by field.
+package; tests/test_torch_ops.py, tests/test_torch_two_stage.py,
+tests/test_torch_rcnn_families.py and tests/test_torch_config_loader.py
+hold the copies equal field by field and the loaders equal file by file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import runpy
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -501,9 +506,9 @@ class FasterRCNNConfig:
         return bounds
 
 
-def tiny_faster_rcnn_config(**overrides) -> FasterRCNNConfig:
-    """A shrunken Faster R-CNN for fast CPU unit tests."""
-    base = dict(
+def _tiny_two_stage(rpn_kw=None, **base_extra):
+    """The shared fields of the JAX package's tiny two-stage factories."""
+    return dict(
         canvas=(64, 128),
         block_counts=(1, 1, 1, 1),
         stem_width=8,
@@ -512,21 +517,330 @@ def tiny_faster_rcnn_config(**overrides) -> FasterRCNNConfig:
         max_gt=8,
         rpn=RPNCfg(train_nms_pre=256, train_max_per_img=64,
                    test_nms_pre=256, test_max_per_img=64,
-                   sampler_num=64),
+                   sampler_num=64, **(rpn_kw or {})),
         rcnn=RCNNCfg(sampler_num=32, fc_channels=32),
         test=TestCfg(nms_pre=200, pre_nms_cands=128, max_per_img=20),
+        **base_extra,
     )
+
+
+def tiny_faster_rcnn_config(**overrides) -> FasterRCNNConfig:
+    """A shrunken Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
     base.update(overrides)
     return FasterRCNNConfig(**base)
 
 
+@dataclass(frozen=True)
+class CascadeRCNNConfig(FasterRCNNConfig):
+    """Cascade R-CNN R50-FPN (reference
+    configs/_base_/models/cascade_rcnn_r50_fpn.py): the Faster R-CNN
+    trunk with three progressively tighter RoI stages
+    (pos thr 0.5/0.6/0.7, stds 0.1/0.05/0.033, class-agnostic reg,
+    stage loss weights 1/0.5/0.25)."""
+
+    num_stages: int = 3
+    stage_pos_iou_thrs: Tuple[float, ...] = (0.5, 0.6, 0.7)
+    stage_stds: Tuple[Tuple[float, ...], ...] = (
+        (0.1, 0.1, 0.2, 0.2),
+        (0.05, 0.05, 0.1, 0.1),
+        (0.033, 0.033, 0.067, 0.067),
+    )
+    stage_loss_weights: Tuple[float, ...] = (1.0, 0.5, 0.25)
+
+    family = "cascade_rcnn"
+
+
+@dataclass(frozen=True)
+class DynamicRCNNConfig(FasterRCNNConfig):
+    """Dynamic R-CNN (reference
+    configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py +
+    mmdet/models/roi_heads/dynamic_roi_head.py): Faster R-CNN whose RoI
+    assigner IoU threshold and SmoothL1 beta adapt to the training
+    statistics every update_iter_interval iterations; proposal NMS at
+    IoU 0.85."""
+
+    iou_topk: int = 75
+    beta_topk: int = 10
+    update_iter_interval: int = 100
+    initial_iou: float = 0.4
+    initial_beta: float = 1.0
+    rpn: RPNCfg = field(default_factory=lambda: RPNCfg(nms_iou_thr=0.85))
+
+    family = "dynamic_rcnn"
+
+
+@dataclass(frozen=True)
+class DoubleHeadRCNNConfig(FasterRCNNConfig):
+    """Double-Head R-CNN (reference
+    configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py +
+    mmdet/models/roi_heads/double_roi_head.py + bbox_heads/
+    double_bbox_head.py): the RoI head splits into a convolutional
+    regression branch (BasicResBlock + 4 bottlenecks, fed 1.3x-rescaled
+    RoIs) and a fully connected classification branch; both losses at
+    weight 2.0."""
+
+    reg_roi_scale_factor: float = 1.3
+    dh_num_convs: int = 4
+    dh_num_fcs: int = 2
+    dh_conv_out: int = 1024
+    dh_fc_out: int = 1024
+    cls_loss_weight: float = 2.0
+    bbox_loss_weight: float = 2.0
+
+    family = "double_head_rcnn"
+
+
+def tiny_dynamic_rcnn_config(**overrides) -> DynamicRCNNConfig:
+    """A shrunken Dynamic R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(dict(nms_iou_thr=0.85), iou_topk=8, beta_topk=2,
+                           update_iter_interval=4)
+    base.update(overrides)
+    return DynamicRCNNConfig(**base)
+
+
+def tiny_double_head_config(**overrides) -> DoubleHeadRCNNConfig:
+    """A shrunken Double-Head R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(dh_num_convs=1, dh_num_fcs=1, dh_conv_out=16, dh_fc_out=32)
+    base.update(overrides)
+    return DoubleHeadRCNNConfig(**base)
+
+
+def tiny_cascade_config(**overrides) -> CascadeRCNNConfig:
+    """A shrunken Cascade R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return CascadeRCNNConfig(**base)
+
+
 # The model-zoo families the port has: name -> (full-size config class,
 # tiny test-config factory), the JAX package's ZOO_FAMILIES (:3569) cut to
-# them. Every port CLI reads its --family choices here; the other 51
+# them. Every port CLI reads its --family choices here; the other 48
 # families of the JAX registry come with ROADMAP Queue 1 item 15.
 ZOO_FAMILIES = {
     "faster_rcnn": (FasterRCNNConfig, tiny_faster_rcnn_config),
+    "dynamic_rcnn": (DynamicRCNNConfig, tiny_dynamic_rcnn_config),
+    "double_head_rcnn": (DoubleHeadRCNNConfig, tiny_double_head_config),
+    "cascade_rcnn": (CascadeRCNNConfig, tiny_cascade_config),
 }
 
 # the two AL families and the zoo: every family init_detector builds
 ALL_FAMILIES = ("retinanet", "ssd") + tuple(ZOO_FAMILIES)
+
+
+# --- the reference-config loader (JAX utils/config.py:2297-2510) -------------------
+
+def _cfg_get(ns: dict, path: str, default=None):
+    cur = ns
+    for part in path.split("."):
+        if isinstance(cur, dict) and part in cur:
+            cur = cur[part]
+        else:
+            return default
+    return cur
+
+
+# top-level keys the loader understands (or knowingly ignores: log, dist and
+# runner settings are the host loop's business here); the JAX list verbatim
+_KNOWN_TOP_KEYS = {
+    "checkpoint_config", "log_config", "custom_hooLoks", "custom_hooks",
+    "dist_params", "log_level", "load_from", "resume_from", "workflow",
+    "uncertainty_pool", "uncertainty_type", "uncertainty_pool2",
+    "input_size", "model", "optimizer", "optimizer_config", "lr_config",
+    "runner", "dataset_type", "data_root", "img_norm_cfg",
+    "train_pipeline", "test_pipeline", "data", "evaluation",
+    "X_S_size", "X_L_0_size", "cycles", "epoch_ratio", "outer_epoch",
+    "X_L_repeat", "X_U_repeat", "train_cfg", "k",
+}
+
+_LOSS_CLS_MAP = {
+    "EDL_Softmax_FocalLoss": "edl_softmax_focal",
+    "EDL_FocalLoss": "edl_focal",
+    "EDL_ReLU": "edl_relu",
+    "FocalLoss": "focal",
+    "MyFocalLoss": "focal",
+}
+
+
+def _warn(msg: str):
+    import warnings
+
+    warnings.warn(f"load_reference_config: {msg}", stacklevel=3)
+
+
+def reference_data_roots(ns: dict):
+    """Extract (voc07, voc12) dataset roots from a loaded reference
+    config's data.train.dataset.img_prefix / data_root
+    (Config_RetinaNet.py:98,133-139). Returns (voc07, voc12-or-None)."""
+    prefixes = _cfg_get(ns, "data.train.dataset.img_prefix") or \
+        _cfg_get(ns, "data.train.img_prefix")
+    if prefixes is None and ns.get("data_root"):
+        root = ns["data_root"]
+        prefixes = [root + "VOC2007/", root + "VOC2012/"]
+    if prefixes is None:
+        return None, None
+    if isinstance(prefixes, str):
+        prefixes = [prefixes]
+    voc07 = next((p.rstrip("/") for p in prefixes if "2007" in p), None)
+    voc12 = next((p.rstrip("/") for p in prefixes if "2012" in p), None)
+    return voc07, voc12
+
+
+def load_reference_config(path: str):
+    """Load a reference-style plain-python config file.
+
+    Executes the file (the mmcv Config.fromfile semantic for the two live
+    monolithic configs, Config_RetinaNet.py / Config_SSD.py) and maps
+    every AL-relevant key onto the dataclasses above; dispatches on
+    model.type to build a RetinaNetConfig or SSDConfig. Unrecognized
+    top-level keys and un-honorable settings warn loudly; an optimizer
+    or classification loss the engine cannot reproduce raises.
+    Returns (model_cfg, TrainConfig, ALConfig, raw namespace).
+    """
+    ns = runpy.run_path(path)
+    for key in sorted(k for k in ns if not k.startswith("__")):
+        if key not in _KNOWN_TOP_KEYS and not callable(ns[key]) \
+                and not isinstance(ns[key], type(runpy)):
+            _warn(f"unrecognized top-level key {key!r} is ignored")
+
+    model = ns.get("model", {})
+    mtype = str(model.get("type", "SSL_L_RetinaNet"))
+    if "SSD" in mtype.upper():
+        family = "ssd"
+    elif "RETINANET" in mtype.upper():
+        family = "retinanet"
+    else:
+        raise ValueError(
+            f"model.type {mtype!r}: the reference-config loader maps the two "
+            f"live AL configs (Config_RetinaNet.py / Config_SSD.py). Zoo "
+            f"families (FasterRCNN/CascadeRCNN/FCOS/ATSS) are configured via "
+            f"their dataclasses + tools/train_detector.py, not mmcv-style "
+            f"_base_-inheriting config files.")
+    ag = _cfg_get(model, "bbox_head.anchor_generator", {}) or {}
+    test_cfg = model.get("test_cfg", {}) or {}
+    train_cfg = model.get("train_cfg", {}) or {}
+    assigner = train_cfg.get("assigner", {}) or {}
+    coder = _cfg_get(model, "bbox_head.bbox_coder", {}) or {}
+    loss_cls = _cfg_get(model, "bbox_head.loss_cls", {}) or {}
+    nms = test_cfg.get("nms", {}) or {}
+    neck = model.get("neck", {}) or {}
+
+    hua = HUACfg(
+        pool=ns.get("uncertainty_pool", "Entropy_NMS"),
+        unc_type=ns.get("uncertainty_type", "Epistemic").lower(),
+        agg=ns.get("uncertainty_pool2", "objectSum_scaleMax_classSum"),
+    )
+
+    if family == "ssd":
+        tcfg_defaults = dict(max_per_img=200, score_thr=0.02)
+        model_cfg = SSDConfig(
+            num_classes=_cfg_get(model, "bbox_head.num_classes", 20),
+            input_size=ns.get("input_size", ag.get("input_size", 300)),
+            neck_out_channels=tuple(neck.get("out_channels",
+                                             (512, 1024, 512, 256, 256, 256))),
+            level_strides=tuple(neck.get("level_strides", (2, 2, 1, 1))),
+            level_paddings=tuple(neck.get("level_paddings", (1, 1, 0, 0))),
+            l2_norm_scale=neck.get("l2_norm_scale", 20.0),
+            anchor=SSDAnchorCfg(
+                strides=tuple(ag.get("strides", (8, 16, 32, 64, 100, 300))),
+                ratios=tuple(tuple(r) for r in ag.get(
+                    "ratios", ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)))),
+                basesize_ratio_range=tuple(ag.get("basesize_ratio_range", (0.15, 0.9))),
+                input_size=ag.get("input_size", ns.get("input_size", 300)),
+            ),
+            target_means=tuple(coder.get("target_means", (0.0,) * 4)),
+            target_stds=tuple(coder.get("target_stds", (0.1, 0.1, 0.2, 0.2))),
+            pos_iou_thr=assigner.get("pos_iou_thr", 0.5),
+            neg_iou_thr=assigner.get("neg_iou_thr", 0.5),
+            min_pos_iou=assigner.get("min_pos_iou", 0.0),
+            gt_max_assign_all=assigner.get("gt_max_assign_all", False),
+            neg_pos_ratio=train_cfg.get("neg_pos_ratio", 3),
+            smoothl1_beta=train_cfg.get("smoothl1_beta", 1.0),
+            test=TestCfg(
+                nms_pre=test_cfg.get("nms_pre", 1000),
+                score_thr=test_cfg.get("score_thr", tcfg_defaults["score_thr"]),
+                nms_iou_thr=nms.get("iou_threshold", 0.5),
+                max_per_img=test_cfg.get("max_per_img", tcfg_defaults["max_per_img"]),
+            ),
+            hua=hua,
+        )
+    else:
+        if loss_cls:
+            lc_type = loss_cls.get("type", "EDL_Softmax_FocalLoss")
+            if lc_type not in _LOSS_CLS_MAP:
+                raise ValueError(
+                    f"loss_cls.type {lc_type!r} has no engine equivalent "
+                    f"(known: {sorted(_LOSS_CLS_MAP)})")
+            cls_loss = _LOSS_CLS_MAP[lc_type]
+        else:
+            cls_loss = "edl_softmax_focal"
+        model_cfg = RetinaNetConfig(
+            num_classes=_cfg_get(model, "bbox_head.num_classes", 20),
+            frozen_stages=_cfg_get(model, "backbone.frozen_stages", 1),
+            fpn_channels=neck.get("out_channels", 256),
+            stacked_convs=_cfg_get(model, "bbox_head.stacked_convs", 4),
+            feat_channels=_cfg_get(model, "bbox_head.feat_channels", 256),
+            anchor=AnchorConfig(
+                strides=tuple(ag.get("strides", (8, 16, 32, 64, 128))),
+                ratios=tuple(ag.get("ratios", (0.5, 1.0, 2.0))),
+                octave_base_scale=ag.get("octave_base_scale", 4),
+                scales_per_octave=ag.get("scales_per_octave", 3),
+            ),
+            target_means=tuple(coder.get("target_means", (0.0,) * 4)),
+            target_stds=tuple(coder.get("target_stds", (1.0,) * 4)),
+            pos_iou_thr=assigner.get("pos_iou_thr", 0.5),
+            neg_iou_thr=assigner.get("neg_iou_thr", 0.4),
+            min_pos_iou=assigner.get("min_pos_iou", 0.0),
+            gt_max_assign_all=assigner.get("gt_max_assign_all", True),
+            cls_loss=cls_loss,
+            focal_gamma=loss_cls.get("gamma", 2.0),
+            focal_alpha=loss_cls.get("alpha", 0.25),
+            test=TestCfg(
+                nms_pre=test_cfg.get("nms_pre", 1000),
+                score_thr=test_cfg.get("score_thr", 0.05),
+                nms_iou_thr=nms.get("iou_threshold", 0.5),
+                max_per_img=test_cfg.get("max_per_img", 100),
+            ),
+            hua=hua,
+        )
+
+    opt = ns.get("optimizer", {})
+    if opt.get("type", "SGD") != "SGD":
+        raise ValueError(
+            f"optimizer.type {opt.get('type')!r}: the engine implements the "
+            f"reference's SGD(momentum, wd) exactly; other optimizers would "
+            f"silently change training semantics")
+    lr_cfg = ns.get("lr_config", {}) or {}
+    if lr_cfg.get("policy", "step") != "step":
+        _warn(f"lr_config.policy {lr_cfg.get('policy')!r} unsupported; using 'step'")
+    steps = lr_cfg.get("step", [2])
+    if len(steps) > 1:
+        _warn(f"lr_config.step {steps}: only the first step epoch is honored "
+              f"(the AL schedule re-inits per run; train_RetinaNet.py:179-200)")
+    warmup = lr_cfg.get("warmup")
+    if warmup not in (None, "linear"):
+        _warn(f"lr_config.warmup {warmup!r} unsupported; using linear")
+    opt_cfg = ns.get("optimizer_config", {}) or {}
+    train = TrainConfig(
+        lr=opt.get("lr", 0.001),
+        momentum=opt.get("momentum", 0.9),
+        weight_decay=opt.get("weight_decay", 1e-4),
+        batch_size=_cfg_get(ns, "data.samples_per_gpu", 2),
+        outer_epoch=ns.get("outer_epoch", 2),
+        epoch_ratio=tuple(ns.get("epoch_ratio", (3, 1))),
+        lr_step_epoch=steps[0],
+        grad_clip=(opt_cfg.get("grad_clip") or {}).get("max_norm")
+        if isinstance(opt_cfg.get("grad_clip"), dict) else opt_cfg.get("grad_clip"),
+        warmup_iters=lr_cfg.get("warmup_iters", 0) if warmup else 0,
+        warmup_ratio=lr_cfg.get("warmup_ratio", 1e-3),
+    )
+    al = ALConfig(
+        cycles=tuple(ns.get("cycles", range(7))),
+        x_l_0_size=ns.get("X_L_0_size", 16551 // 20),
+        x_s_size=ns.get("X_S_size", 16551 // 40),
+        # X_L_repeat overrides RepeatDataset times (active_datasets.py:63)
+        x_l_repeat=ns.get("X_L_repeat", 2),
+        x_u_repeat=ns.get("X_U_repeat", 2),
+        eval_interval=_cfg_get(ns, "evaluation.interval", 3),
+    )
+    return model_cfg, train, al, ns

@@ -136,7 +136,23 @@
    predict_batch on the 8 test JPEGs against the eval step's rows; the
    FPS tool with --family faster_rcnn. Neither kernel lies on this path:
    both launch counts must read 0.
-19. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+19. The other two-stage families at full width, the same readings as
+   Faster R-CNN's (zoo_path): Cascade R-CNN (CascadeRCNNConfig(): three
+   class-agnostic heads at IoU 0.5/0.6/0.7) trained, its tiny config's
+   two steps on the card against the CPU (uniforms per stage), and its
+   eval (RoIAlign x3); Dynamic R-CNN (proposal NMS at IoU 0.85) trained
+   with the fixpoint's depth, and its tiny config's five steps (interval
+   4) on card and CPU with the threshold and beta after the refresh
+   equal; Double-Head R-CNN (the conv branch on 1.3x RoIs, its BN
+   training) trained, its tiny steps with the BN running statistics, and
+   its eval. Then Detector.tta of Faster and Cascade R-CNN at
+   TTA_SCALES with the flip (ms per image, one image against the CPU's
+   TTA), serve.py's build_detector for --family cascade_rcnn --mini
+   behind the HTTP server (each reply equal to the Detector's rows), and
+   the trainer's CLI with --family cascade_rcnn for one epoch on a
+   fixture tree (build/chip_smoke_zoo/), its Detector and the FPS tool.
+   Each path's launch counts must read 0.
+20. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -154,7 +170,7 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-20. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+21. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -2798,12 +2814,15 @@ def serving_path(device, voc07: Path) -> tuple:
 FRCNN = REPO / "build" / "chip_smoke_frcnn"
 FRCNN_RTOL = 1e-4       # card against CPU detections; the Detector against the eval step
 RPN_LOGIT_STD = 1.5     # the sharpened objectness logits, as CLS_LOGIT_STD for the classes
-FRCNN_LOSS_KEYS = ("loss", "loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox")
 # the eval step's profiler ranges (engine/two_stage.py STAGES) -> the split's groups
 FRCNN_GROUPS = {"faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
                 "faster_rcnn.proposals": "proposal top-k, decode and NMS",
                 "faster_rcnn.roi_align": "RoIAlign gathers",
                 "faster_rcnn.roi_head": "RoI-head matmuls",
+                "cascade_rcnn.refine": "cascade refinement decode",
+                "dynamic_rcnn.statistics": "Dynamic R-CNN statistics",
+                "double_head_rcnn.roi_align_reg": "RoIAlign gathers, 1.3x regression RoIs",
+                "double_head_rcnn.conv_branch": "double head conv branch",
                 # prefixes of the autograd engine's and torch.optim's host ops
                 "autograd::engine": "backward", "Optimizer.step": "optimizer"}
 # proposals of one image the card may keep and the CPU not, or the other way
@@ -2812,18 +2831,34 @@ FRCNN_GROUPS = {"faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
 FRCNN_MAX_PROPOSAL_FLIPS = 4
 
 
+def class_logits(model, cfg, feats, props, head: int):
+    """The class logits of the model's RoI head `head` on props: the
+    cascade's stage `head`, the double head with its rescaled regression
+    extraction, Faster (and Dynamic) R-CNN's one head."""
+    from aod_meh_hua_torch.engine.two_stage import extract_rois, scale_rois
+
+    f = extract_rois(cfg, feats, props)
+    if cfg.family == "cascade_rcnn":
+        return model.roi_forward(f, head)[0]
+    if cfg.family == "double_head_rcnn":
+        reg = extract_rois(cfg, feats, scale_rois(props, cfg.reg_roi_scale_factor),
+                           routing_rois=props)
+        return model.roi_forward(f, reg)[0]
+    return model.roi_forward(f)[0]
+
+
 def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
     """Scale rpn_cls so that the objectness logits on `images` have a std
-    of RPN_LOGIT_STD, and (classes) zero fc_cls's bias and background row
-    and scale its weight so that the class logits on the eval proposals'
-    RoIs have a std of CLS_LOGIT_STD: random heads put every objectness
-    near 0.5 (near-ties in the top-k) and every class score near 1/21,
-    under the 0.05 score gate, and a head trained a few steps from random
-    weights scores the background alone."""
+    of RPN_LOGIT_STD, and (classes) zero each RoI head's fc_cls bias and
+    background row and scale its weight so that the class logits on the
+    eval proposals' RoIs have a std of CLS_LOGIT_STD: random heads put
+    every objectness near 0.5 (near-ties in the top-k) and every class
+    score near 1/21, under the 0.05 score gate, and a head trained a few
+    steps from random weights scores the background alone. Any two-stage
+    family (the cascade's three heads each)."""
     import torch
     from aod_meh_hua_torch.engine.batch import prepare_images
-    from aod_meh_hua_torch.engine.two_stage import (anchor_table, extract_rois,
-                                                    make_proposal_fn)
+    from aod_meh_hua_torch.engine.two_stage import anchor_table, make_proposal_fn
 
     with torch.no_grad():
         x = prepare_images(images, img_shapes, cfg)
@@ -2834,10 +2869,11 @@ def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
         anchors = torch.from_numpy(anchor_table(cfg)).to(rpn_cls.device)
         props = make_proposal_fn(cfg)(rpn_cls, rpn_reg, anchors, img_shapes,
                                       cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)[0]
-        model.bbox_head.fc_cls.bias.zero_()
-        model.bbox_head.fc_cls.weight[-1].zero_()
-        cls = model.roi_forward(extract_rois(cfg, feats, props))[0]
-        model.bbox_head.fc_cls.weight.mul_(CLS_LOGIT_STD / cls.std().item())
+        for i, head in enumerate(model._roi_heads()):
+            head.fc_cls.bias.zero_()
+            head.fc_cls.weight[-1].zero_()
+            cls = class_logits(model, cfg, feats, props, i)
+            head.fc_cls.weight.mul_(CLS_LOGIT_STD / cls.std().item())
 
 
 @contextlib.contextmanager
@@ -2912,28 +2948,30 @@ def profile_stages(fn, groups: dict) -> dict:
             "by_kernel_name_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
 
 
-def frcnn_train_path(device) -> dict:
-    """FasterRCNNConfig() (R50-FPN, frozen_stages 1, 3 anchors, RoIAlign 7,
-    2-fc 1024 head, 20 classes), seed 0, its RPN cls head sharpened,
-    TrainConfig() (batch 2): 2 warm-up and 10 timed steps on one seeded
-    landscape batch, then one step profiled by stage, one under the
-    fixpoint-depth recorder and one portrait step."""
+def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
+    """The family's full-width config (FasterRCNNConfig(): R50-FPN,
+    frozen_stages 1, 3 anchors, RoIAlign 7, 2-fc 1024 head, 20 classes;
+    or the cascade's, Dynamic R-CNN's, the double head's), seed 0, its
+    RPN cls head sharpened, TrainConfig() (batch 2): 2 warm-up and 10
+    timed steps on one seeded landscape batch, then one step profiled by
+    stage, one under the fixpoint-depth recorder and one portrait step."""
     import torch
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask
-    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
-    from aod_meh_hua_torch.utils.config import FasterRCNNConfig, TrainConfig
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
-    cfg, tcfg = FasterRCNNConfig(), TrainConfig()
-    model = build_faster_rcnn(cfg, device=device, seed=0)
+    cfg, tcfg = ZOO_FAMILIES[family][0](), TrainConfig()
+    what = f"{family} training"
+    model = build_two_stage(cfg, device=device, seed=0)
     lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
     batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
     sharpen_frcnn(model, lcfg, batch.images, batch.img_shapes, classes=False)
     opt = create_train_state(model, tcfg, frozen_stages=cfg.frozen_stages)
     mask = frozen_mask(model, cfg.frozen_stages)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    step = make_faster_rcnn_train_step(model, lcfg, opt, device=device)
+    step = make_two_stage_train_step(model, lcfg, opt, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
 
     auxes = [step(batch, gen) for _ in range(TRAIN_WARMUP)]
@@ -2946,28 +2984,33 @@ def frcnn_train_path(device) -> dict:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated(device)
-    traj = {k: [float(a[k]) for a in auxes] for k in FRCNN_LOSS_KEYS + ("num_pos",)}
+    traj = {k: [float(a[k]) for a in auxes] for k in auxes[0]}
     for k, v in traj.items():
         if not np.isfinite(v).all():
-            fail(f"Faster R-CNN training: {k} is not finite: {v}")
+            fail(f"{what}: {k} is not finite: {v}")
     if not min(traj["num_pos"]) > 0:
-        fail(f"Faster R-CNN training: a step sampled no positive RoI: {traj['num_pos']}")
+        fail(f"{what}: a step sampled no positive RoI: {traj['num_pos']}")
     for name, p in model.named_parameters():  # weight decay moves every trained weight
         moved = not torch.equal(p.detach(), before[name])
         if moved if mask[name] else (name.endswith("weight") and not moved):
-            fail(f"Faster R-CNN training: {name} (frozen: {mask[name]}) moved: {moved}")
+            fail(f"{what}: {name} (frozen: {mask[name]}) moved: {moved}")
     prof = profile_stages(lambda: float(step(batch, gen)["loss"]), FRCNN_GROUPS)
     with fixpoint_depths() as depths:
         float(step(batch, gen)["loss"])
     pcfg, pbatch = synthetic_train_batch(cfg, "portrait", tcfg.batch_size, seed=6)
-    paux = make_faster_rcnn_train_step(model, pcfg, opt, device=device)(pbatch, gen)
+    paux = make_two_stage_train_step(model, pcfg, opt, device=device)(pbatch, gen)
     if not all(np.isfinite(float(v)) for v in paux.values()):
-        fail(f"Faster R-CNN training: a portrait loss is not finite: {paux}")
-    return dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
-                steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
-                peak_mem_bytes=peak, trajectory=traj, proposal_fixpoints=depths,
-                portrait=(pcfg.canvas, {k: float(v) for k, v in paux.items()}),
-                profile_of_one_step=prof)
+        fail(f"{what}: a portrait loss is not finite: {paux}")
+    out = dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
+               steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+               peak_mem_bytes=peak, proposal_nms_iou=cfg.rpn.nms_iou_thr,
+               numerics=numerics_flags(), trajectory=traj, proposal_fixpoints=depths,
+               portrait=(pcfg.canvas, {k: float(v) for k, v in paux.items()}),
+               profile_of_one_step=prof)
+    if family == "dynamic_rcnn":
+        out["dynamic_state"] = {k: v.tolist() for k, v in model.dynamic.state_dict().items()
+                                if k != "iou_hist" and k != "beta_hist"}
+    return out
 
 
 def proposal_flips(got, want, iou_thr: float) -> list:
@@ -2992,33 +3035,50 @@ def proposal_flips(got, want, iou_thr: float) -> list:
     return flips
 
 
-def frcnn_card_vs_cpu(device) -> dict:
-    """Two steps of tiny_faster_rcnn_config() from the same weights (its RPN
-    cls head sharpened on the CPU), batch and uniforms (drawn once on the
-    CPU) on the card and on the CPU, held by train_card_vs_cpu's rules.
-    Greedy NMS decides at a threshold, so the card's proposals are first
-    held to the CPU's with every difference named (proposal_flips, at
-    most FRCNN_MAX_PROPOSAL_FLIPS, one of each step's at the threshold),
-    and then the card's step carries on from the CPU's proposals: the rest
-    of the step (sampling, RoIAlign, the head, the losses, backward, SGD)
-    is compared on the same input."""
+# the card-vs-CPU steps of each family's tiny config: Dynamic R-CNN's five
+# cross its refresh at update_iter_interval 4
+CARD_VS_CPU_STEPS = {"faster_rcnn": 2, "cascade_rcnn": 2, "dynamic_rcnn": 5,
+                     "double_head_rcnn": 2}
+DYNAMIC_TOL = 1e-6  # Dynamic R-CNN's threshold and beta, card against CPU
+
+
+def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
+    """CARD_VS_CPU_STEPS[family] steps of the family's tiny config from the
+    same weights (its RPN cls head sharpened on the CPU), batch and
+    uniforms (drawn once on the CPU, the cascade's per stage) on the card
+    and on the CPU, held by train_card_vs_cpu's rules; the double head's
+    BN running statistics with the parameters. Greedy NMS decides at a
+    threshold, so the card's proposals are first held to the CPU's with
+    every difference named (proposal_flips, at most
+    FRCNN_MAX_PROPOSAL_FLIPS, one of each step's at the threshold), and
+    then the card's step carries on from the CPU's proposals: the rest of
+    the step (sampling, RoIAlign, the head, the losses, backward, SGD) is
+    compared on the same input. Dynamic R-CNN's threshold and beta after
+    every step, across the refresh, to DYNAMIC_TOL."""
     import torch
     from aod_meh_hua_torch.engine import two_stage
     from aod_meh_hua_torch.engine.train import create_train_state
-    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
-    from aod_meh_hua_torch.utils.config import TrainConfig, tiny_faster_rcnn_config
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
-    cfg, tcfg = tiny_faster_rcnn_config(), TrainConfig()
+    cfg, tcfg = ZOO_FAMILIES[family][1](), TrainConfig()
+    what = f"{family} training"
     _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
-    seed_model = build_faster_rcnn(cfg, device="cpu", seed=1)
+    seed_model = build_two_stage(cfg, device="cpu", seed=1)
     sharpen_frcnn(seed_model, cfg, torch.from_numpy(batch.images),
                   torch.from_numpy(batch.img_shapes), classes=False)
     weights = seed_model.state_dict()
     gen = torch.Generator().manual_seed(3)
-    n = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
+    n_props = cfg.max_gt + cfg.rpn.train_max_per_img
+    n = {"rpn": cfg.level_bounds()[-1][1]}
+    if family == "cascade_rcnn":
+        n.update({f"roi{i}": n_props if i == 0 else cfg.max_gt + cfg.rcnn.sampler_num
+                  for i in range(cfg.num_stages)})
+    else:
+        n["roi"] = n_props
     draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(2))
-              for k, m in n.items()} for _ in range(2)]
+              for k, m in n.items()} for _ in range(CARD_VS_CPU_STEPS[family])]
 
     real_proposals = two_stage.make_proposal_fn
     cpu_props, flips = [], []
@@ -3037,29 +3097,45 @@ def frcnn_card_vs_cpu(device) -> dict:
 
         return proposals
 
-    def two_steps(dev):
-        model = build_faster_rcnn(cfg, device=dev)
+    def tracked(model):  # the parameters and the head BN's running statistics
+        return {**dict(model.named_parameters()),
+                **{k: b for k, b in model.named_buffers() if k.startswith("bbox_head")}}
+
+    def steps(dev):
+        model = build_two_stage(cfg, device=dev)
         model.load_state_dict(weights)
-        initial = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        initial = {k: p.detach().cpu().clone() for k, p in tracked(model).items()}
         with mock.patch.object(two_stage, "make_proposal_fn",
                                lambda c: pinned(c, reference=not cpu_props)):
-            step = make_faster_rcnn_train_step(model, cfg, create_train_state(model, tcfg), dev)
-        losses = []
+            step = make_two_stage_train_step(model, cfg, create_train_state(model, tcfg), dev)
+        losses, dyn = [], []
         for d in draws:
             aux = step(batch, uniforms=lambda stage, m, d=d: tuple(u.to(dev) for u in d[stage]))
             losses.append({k: float(v) for k, v in aux.items()})
-        return losses, {k: (initial[k], p.detach().cpu()) for k, p in model.named_parameters()}
+            if family == "dynamic_rcnn":
+                dyn.append((float(model.dynamic.iou_thr), float(model.dynamic.beta),
+                            int(model.dynamic.step)))
+        return (losses, {k: (initial[k], p.detach().cpu()) for k, p in tracked(model).items()},
+                dyn)
 
-    out = steps_card_vs_cpu("Faster R-CNN training", FRCNN_LOSS_KEYS + ("num_pos",),
-                            two_steps("cpu"), two_steps(device))
+    cpu, gpu = steps("cpu"), steps(device)
+    out = steps_card_vs_cpu(what, list(cpu[0][0]), cpu[:2], gpu[:2])
     # each step's differences must start at a decision at the threshold
     # (the rest follow from it: a box suppressed no longer suppresses)
     at_thr = [any(abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) < 1e-4 for f in step)
               for step in flips if step]
     if (len(flips) != len(draws) or max(len(f) for f in flips) > FRCNN_MAX_PROPOSAL_FLIPS
             or not all(at_thr)):
-        fail(f"Faster R-CNN training card vs CPU: the proposals differ: {flips}")
-    return {**out, "proposal_flips_per_step": flips}
+        fail(f"{what} card vs CPU: the proposals differ: {flips}")
+    out["proposal_flips_per_step"] = flips
+    if family == "dynamic_rcnn":
+        err = max(max(abs(g[0] - c[0]), abs(g[1] - c[1])) for c, g in zip(cpu[2], gpu[2]))
+        refreshed = cpu[2][-1][0] != cfg.rcnn.pos_iou_thr
+        if err > DYNAMIC_TOL or [c[2] for c in cpu[2]] != [g[2] for g in gpu[2]] or \
+                not refreshed:
+            fail(f"{what} card vs CPU: iou_thr, beta, step {gpu[2]} vs {cpu[2]}")
+        out["dynamic_card"], out["dynamic_cpu"], out["dynamic_max_err"] = gpu[2], cpu[2], err
+    return out
 
 
 def _dets_agree(a, b, i, rtol) -> bool:
@@ -3076,28 +3152,29 @@ def _host_dets(d):
     return type(d)(*(t.cpu().numpy() for t in d))
 
 
-def frcnn_eval_path(device) -> dict:
-    """The eval step over the 26 synthetic canvases at batch 8, both
-    orientations: FasterRCNNConfig(), seed 0, its RPN and class heads
-    sharpened on the first batch. img/s and peak memory over a sweep
-    that also reads the detections to the host per class, after a
-    warm-up sweep; the split of one batch's device time by stage; each
-    NMS fixpoint's depth; the first two canvases of the timed sweep's
-    first batch held to the CPU's eval step on those two canvases: the
-    same valid slots, labels and sources, boxes and scores to FRCNN_RTOL,
-    with no difference allowed."""
+def frcnn_eval_path(device, family: str = "faster_rcnn") -> dict:
+    """The family's eval step over the 26 synthetic canvases at batch 8,
+    both orientations: the family's full-width config, seed 0, its RPN
+    and class heads sharpened on the first batch. img/s and peak memory
+    over a sweep that also reads the detections to the host per class,
+    after a warm-up sweep; the split of one batch's device time by stage;
+    each NMS fixpoint's depth; the first two canvases of the timed
+    sweep's first batch held to the CPU's eval step on those two
+    canvases: the same valid slots, labels and sources, boxes and scores
+    to FRCNN_RTOL, with no difference allowed."""
     import torch
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
-    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
-    from aod_meh_hua_torch.utils.config import FasterRCNNConfig
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 
-    cfg = FasterRCNNConfig()
-    model = build_faster_rcnn(cfg, device=device, seed=0)
+    cfg = ZOO_FAMILIES[family][0]()
+    what = f"{family} eval"
+    model = build_two_stage(cfg, device=device, seed=0)
     triples, n = synthetic_pool(cfg)
     first = upload(triples[0][1], device)
     sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
-    steps = {o: make_faster_rcnn_eval_step(model, cfg.for_orientation(o), device=device)
+    steps = {o: make_two_stage_eval_step(model, cfg.for_orientation(o), device=device)
              for o in ("landscape", "portrait")}
     batches = [(o, upload(b, device)) for o, b, _ in triples]
 
@@ -3116,10 +3193,10 @@ def frcnn_eval_path(device) -> dict:
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated(device)
     if len(rows) != n or not all(np.isfinite(a).all() for r in rows for a in r):
-        fail(f"Faster R-CNN eval: {len(rows)} images of {n}, or a detection not finite")
+        fail(f"{what}: {len(rows)} images of {n}, or a detection not finite")
     n_dets = sum(len(a) for r in rows for a in r)
     if n_dets == 0:
-        fail("Faster R-CNN eval: no detection in the pool")
+        fail(f"{what}: no detection in the pool")
     o0, b0 = batches[0]
     prof = profile_stages(lambda: steps[o0](b0).valid.cpu(), FRCNN_GROUPS)
     with fixpoint_depths() as depths:
@@ -3127,11 +3204,11 @@ def frcnn_eval_path(device) -> dict:
 
     # the timed sweep's first two canvases against the CPU's eval step on
     # those canvases, with the same weights
-    cpu_model = build_faster_rcnn(cfg, device="cpu")
+    cpu_model = build_two_stage(cfg, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     two = type(triples[0][1])(*(a[:2] for a in triples[0][1]))
-    want = _host_dets(make_faster_rcnn_eval_step(cpu_model, cfg.for_orientation(o0),
-                                                 device="cpu")(two))
+    want = _host_dets(make_two_stage_eval_step(cpu_model, cfg.for_orientation(o0),
+                                               device="cpu")(two))
     got = _host_dets(type(timed_first)(*(t[:2] for t in timed_first)))
     flips = [{"image": i, "card_valid": int(got.valid[i].sum()),
               "cpu_valid": int(want.valid[i].sum()),
@@ -3140,35 +3217,37 @@ def frcnn_eval_path(device) -> dict:
                                                 & (got.labels[i] == want.labels[i]))))}
              for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
     if flips:
-        fail(f"Faster R-CNN eval card vs CPU: {flips}")
+        fail(f"{what} card vs CPU: {flips}")
     return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
                 detections=n_dets, fixpoints=depths, profile_of_one_batch=prof,
                 card_vs_cpu={"images": 2, "flips": flips,
                              "detections": int(got.valid.sum())})
 
 
-def frcnn_cli_path(device) -> dict:
+def frcnn_cli_path(device, family: str = "faster_rcnn", root: Path = None) -> dict:
     """The trainer's CLI (python -m aod_meh_hua_torch.tools.train_detector,
-    in process) at full width for one epoch with eval on a VOC07 tree of
-    the fixture JPEGs (32 trainval, 8 test); its checkpoint back through
-    init_detector (equal to the CLI's model), then, its heads sharpened, a
-    Detector's predict_batch on the 8 test JPEGs against the eval step's
-    rows on the same canvases; last the FPS tool."""
+    in process) with --family at full width for one epoch with eval on a
+    VOC07 tree of the fixture JPEGs (32 trainval, 8 test) under `root`;
+    its checkpoint back through init_detector (equal to the CLI's
+    model), then, its heads sharpened, a Detector's predict_batch on the
+    8 test JPEGs against the eval step's rows on the same canvases; last
+    the FPS tool."""
     import torch
     from aod_meh_hua_torch.api import Detector, init_detector
     from aod_meh_hua_torch.data.jpeg import imread
     from aod_meh_hua_torch.data.pipeline import prepare_sample
     from aod_meh_hua_torch.engine.batch import EvalBatch
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
-    from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
     from aod_meh_hua_torch.tools import benchmark, train_detector
 
-    shutil.rmtree(FRCNN, ignore_errors=True)
-    voc07 = synthetic_voc(FRCNN)
-    work = FRCNN / "work"
+    root = root or FRCNN
+    shutil.rmtree(root, ignore_errors=True)
+    voc07 = synthetic_voc(root)
+    work = root / "work"
     t0 = time.time()
     (model, cfg, metrics), flags = run_cli(train_detector.main, [
-        "--family", "faster_rcnn", "--voc07", str(voc07), "--work-dir", str(work),
+        "--family", family, "--voc07", str(voc07), "--work-dir", str(work),
         "--epochs", "1"])
     cli_s = time.time() - t0
     if len(metrics) != 1 or not np.isfinite(metrics[0]["loss"]) or "mAP" not in metrics[0]:
@@ -3176,7 +3255,7 @@ def frcnn_cli_path(device) -> dict:
     log = [json.loads(line) for line in (work / "train_log.jsonl").read_text().splitlines()]
     if log != metrics:
         fail(f"train_detector CLI: train_log.jsonl {log} against {metrics}")
-    loaded = init_detector(cfg, checkpoint=str(work / "faster_rcnn_final.ckpt"), device=device)
+    loaded = init_detector(cfg, checkpoint=str(work / f"{family}_final.ckpt"), device=device)
     loaded_sd = loaded.state_dict()
     for k, v in model.state_dict().items():
         if not torch.equal(loaded_sd[k], v):
@@ -3198,7 +3277,7 @@ def frcnn_cli_path(device) -> dict:
         pad = idx + [idx[0]] * (8 - len(idx))
         stack = lambda k: np.stack([samples[i][k] for i in pad])  # noqa: E731
         valid = np.arange(8) < len(idx)
-        out = make_faster_rcnn_eval_step(loaded, cfg.for_orientation(o), device=device)(
+        out = make_two_stage_eval_step(loaded, cfg.for_orientation(o), device=device)(
             EvalBatch(stack("image"), stack("img_shape"), stack("scale_factor"), valid))
         for i, per in zip(idx, detections_to_per_class(out, cfg.num_classes, batch_valid=valid)):
             want[i] = per
@@ -3210,7 +3289,7 @@ def frcnn_cli_path(device) -> dict:
     empty = [i for i, r in enumerate(rows) if sum(len(a) for a in r) == 0]
     if empty:  # two empty answers agree: each image must give detections
         fail(f"Detector.predict_batch: no detection on images {empty}")
-    fps = benchmark.main(["--family", "faster_rcnn", "--batch", str(BATCH), "--iters", "10",
+    fps = benchmark.main(["--family", family, "--batch", str(BATCH), "--iters", "10",
                           "--warmup", "2"])
     return dict(cli_s=cli_s, metrics=metrics, flags_after=flags,
                 detector_images=len(rows), detector_detections=sum(len(a) for r in rows
@@ -3219,28 +3298,201 @@ def frcnn_cli_path(device) -> dict:
 
 
 def frcnn_path(device, card: str) -> tuple:
-    """The Faster R-CNN phase, with the kernels' launch counts reset just
-    before and read just after: neither kernel lies on this path, so both
-    must read 0. Returns (result, launches)."""
-    import torch
-
+    """The Faster R-CNN phase (zoo_family_path with the eval, then the
+    trainer's CLI), with the kernels' launch counts reset just before and
+    read just after: neither kernel lies on this path, so both must read
+    0. Returns (result, launches)."""
     t0 = time.time()
     reset_launches()
-    out = {"train": frcnn_train_path(device)}
-    torch.cuda.empty_cache()
-    print("Faster R-CNN training:", json.dumps(out["train"]), f"[{card}]", flush=True)
-    out["card_vs_cpu"] = frcnn_card_vs_cpu(device)
-    print("Faster R-CNN training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
-          flush=True)
-    out["eval"] = frcnn_eval_path(device)
-    torch.cuda.empty_cache()
-    print("Faster R-CNN eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
+    out = zoo_family_path(device, card, "faster_rcnn", True)
     out["cli"] = frcnn_cli_path(device)
     print("Faster R-CNN CLI, Detector and FPS tool:", json.dumps(out["cli"]), f"[{card}]",
           flush=True)
     launches = read_launches()
     if any(launches.values()):
         fail(f"Faster R-CNN: a hand-written kernel launched: {launches}")
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
+# --- the other two-stage families, their TTA, server and trainer ----------------
+
+ZOO = REPO / "build" / "chip_smoke_zoo"
+ZOO_SERVE_THR = 0.05    # the tiny heads' scores sit near 1/7: rows above this gate
+ZOO_REQUESTS, ZOO_CLIENTS = 12, 4
+TTA_REPS = 3            # timed TTA calls per family, after one warm-up
+
+
+def zoo_family_path(device, card: str, family: str, with_eval: bool) -> dict:
+    """One family at full width: its training (frcnn_train_path), its tiny
+    config's steps card against CPU (frcnn_card_vs_cpu) and, with_eval,
+    its eval over the synthetic pool (frcnn_eval_path). Each reading is
+    printed as it comes."""
+    import torch
+
+    out = {"train": frcnn_train_path(device, family)}
+    torch.cuda.empty_cache()
+    print(f"{family} training:", json.dumps(out["train"]), f"[{card}]", flush=True)
+    out["card_vs_cpu"] = frcnn_card_vs_cpu(device, family)
+    print(f"{family} training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
+          flush=True)
+    if with_eval:
+        out["eval"] = frcnn_eval_path(device, family)
+        torch.cuda.empty_cache()
+        print(f"{family} eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
+    return out
+
+
+def two_stage_tta_path(device) -> dict:
+    """Detector.tta of Faster and Cascade R-CNN at full width, seed 0, the
+    heads sharpened on the image's canvas, at TTA_SCALES with the flip
+    (four augmentations) on a fixture JPEG: ms per image over TTA_REPS
+    calls after a warm-up, and the image's detections against the same
+    TTA on the CPU with the same weights (the same rows per class, boxes
+    and scores to FRCNN_RTOL; no flipped decision allowed)."""
+    import torch
+    from aod_meh_hua_torch.api import Detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig, prepare_sample
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    img = imread(str(sorted(FIXTURES.glob("*.jpg"))[3]))
+    out = {}
+    for family in ("faster_rcnn", "cascade_rcnn"):
+        cfg = ZOO_FAMILIES[family][0]()
+        model = build_two_stage(cfg, device=device, seed=0)
+        # the default pipeline: the first scale into the config's canvas
+        det = Detector(cfg, model, pipeline=PipelineConfig(
+            img_scale=TTA_SCALES[0], canvas=cfg.canvas, device_normalize=True))
+        s = prepare_sample(img, None, det.pipeline, flip=False)
+        sharpen_frcnn(model, cfg.for_orientation(s["orientation"]),
+                      torch.from_numpy(s["image"][None]).to(device),
+                      torch.from_numpy(s["img_shape"][None]).to(device))
+        det.tta(img, scales=TTA_SCALES, flip=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TTA_REPS):
+            got = det.tta(img, scales=TTA_SCALES, flip=True)
+        ms = (time.perf_counter() - t0) * 1e3 / TTA_REPS
+        cpu_model = build_two_stage(cfg, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        want = Detector(cfg, cpu_model, pipeline=det.pipeline).tta(img, scales=TTA_SCALES,
+                                                                    flip=True)
+        agree = _agree(got, want, FRCNN_RTOL)
+        n_dets = sum(len(a) for a in got)
+        if agree == "flip" or n_dets == 0:
+            fail(f"{family} TTA card vs CPU: {agree}, {n_dets} detections on the card, "
+                 f"{sum(len(a) for a in want)} on the CPU")
+        out[family] = dict(scales=TTA_SCALES, flip=True, augmentations=2 * len(TTA_SCALES),
+                           image=list(img.shape), ms_per_image=ms, reps=TTA_REPS,
+                           detections=n_dets, card_vs_cpu=agree)
+        del model, det, cpu_model
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_server_path(device) -> dict:
+    """serve.py's build_detector for --family cascade_rcnn --mini on the
+    card (its heads sharpened), behind the Batcher and the HTTP handler
+    on 127.0.0.1:0: ZOO_REQUESTS POSTs of the fixture JPEGs from
+    ZOO_CLIENTS threads, raw and base64 in turns, each reply held to the
+    Detector's rows for that image."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import prepare_sample
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES
+    from aod_meh_hua_torch.tools.deployment import serve
+
+    det = serve.build_detector(serve.parse_args(["--family", "cascade_rcnn", "--mini"]))
+    if det.device.type != torch.device(device).type:
+        fail(f"serve --family cascade_rcnn --mini: the Detector is on {det.device}")
+    files = sorted(FIXTURES.glob("*.jpg"))
+    imgs = [imread(str(f)) for f in files]
+    s = prepare_sample(imgs[0], None, det.pipeline, flip=False)
+    sharpen_frcnn(det.model, det.cfg.for_orientation(s["orientation"]),
+                  torch.from_numpy(s["image"][None]).to(device),
+                  torch.from_numpy(s["img_shape"][None]).to(device))
+    classes = VOC_CLASSES[:det.cfg.num_fg_classes]
+    expected = [_rows(det(im), classes, ZOO_SERVE_THR) for im in imgs]
+    payloads = [f.read_bytes() for f in files]
+    batcher = serve.Batcher(det, max_batch=BATCH, delay_ms=5.0)
+    handler = serve.make_handler(batcher, classes, ZOO_SERVE_THR)
+    handler.log_message = lambda *a: None
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predictions"
+    agree, errors = [None] * ZOO_REQUESTS, []
+
+    def client(k):
+        for i in range(k, ZOO_REQUESTS, ZOO_CLIENTS):
+            raw = payloads[i % len(payloads)]
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        url, data=raw if i % 2 == 0 else base64.b64encode(raw)),
+                        timeout=300) as r:
+                    agree[i] = _rows_agree(json.load(r), expected[i % len(payloads)], API_RTOL)
+            except Exception as e:  # recorded, and the phase fails below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(ZOO_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        thread.join(60)
+    rows = sum(len(expected[i % len(payloads)]) for i in range(ZOO_REQUESTS))
+    if errors or any(a not in ("exact", "close") for a in agree) or rows == 0:
+        fail(f"serve --family cascade_rcnn: {errors[:3]}, replies {agree}, {rows} rows")
+    return dict(requests=ZOO_REQUESTS, clients=ZOO_CLIENTS, wall_s=wall, rows=rows,
+                score_thr=ZOO_SERVE_THR,
+                replies={k: agree.count(k) for k in ("exact", "close")})
+
+
+def zoo_path(device, card: str) -> tuple:
+    """The phase of Cascade, Dynamic and Double-Head R-CNN, the two-stage
+    TTA, and the zoo's server and trainer, each path's kernel launch
+    counts reset just before it and read just after: neither kernel lies
+    on these paths, so each must read 0. Returns (result, launches by
+    path)."""
+    import torch
+
+    t0 = time.time()
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        reset_launches()
+        out[name] = fn()
+        launches[name] = read_launches()
+        if any(launches[name].values()):
+            fail(f"{name}: a hand-written kernel launched: {launches[name]}")
+        torch.cuda.empty_cache()
+
+    counted("cascade_rcnn", lambda: zoo_family_path(device, card, "cascade_rcnn", True))
+    counted("dynamic_rcnn", lambda: zoo_family_path(device, card, "dynamic_rcnn", False))
+    counted("double_head_rcnn", lambda: zoo_family_path(device, card, "double_head_rcnn",
+                                                        True))
+    counted("two_stage_tta", lambda: two_stage_tta_path(device))
+    print("two-stage TTA:", json.dumps(out["two_stage_tta"]), f"[{card}]", flush=True)
+    counted("zoo_server", lambda: zoo_server_path(device))
+    print("serve --family cascade_rcnn --mini:", json.dumps(out["zoo_server"]), f"[{card}]",
+          flush=True)
+    counted("cascade_rcnn_cli", lambda: frcnn_cli_path(device, "cascade_rcnn", ZOO / "cli"))
+    print("train_detector --family cascade_rcnn, Detector and FPS tool:",
+          json.dumps(out["cascade_rcnn_cli"]), f"[{card}]", flush=True)
     out["phase_s"] = time.time() - t0
     return out, launches
 
@@ -3924,6 +4176,10 @@ def main() -> int:
     frcnn, frcnn_launches = frcnn_path(device, card)
     print(f"Faster R-CNN phase: {frcnn['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    zoo, zoo_launches = zoo_path(device, card)
+    print(f"Cascade, Dynamic and Double-Head R-CNN, two-stage TTA, server and trainer phase: "
+          f"{zoo['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -3933,7 +4189,7 @@ def main() -> int:
                  "al_ensemble_cli": al_ens["launches"],
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
                  "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
-                 "faster_rcnn": frcnn_launches}
+                 "faster_rcnn": frcnn_launches, **zoo_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

@@ -388,7 +388,7 @@ def test_pretrained_backbone_loads_torchvision_names(tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags", [
-    ("train", ["--config", "c.py"]), ("train", ["--int8-scoring"]),
+    ("train", ["--int8-scoring"]),
     ("train", ["--dtype", "bfloat16"]), ("score_pool", ["--int8"]),
     ("score_pool", ["--dtype", "bfloat16"])])
 def test_unported_cli_flags_raise(cli, flags):

@@ -7,9 +7,11 @@ data-parallel step over NCCL at world size 1 against the plain step; the
 AL CLI's --mini run and a mid-cycle resume on the card; the ensemble and
 MC-dropout steps on the card against the CPU, a fused Detector's
 launches and results, the fused eval step exported, saved and loaded,
-and the tiny Faster R-CNN's eval step and two train steps (under the
-same uniforms) on the card against the CPU. Skips, with the reason,
-where there is no card.
+the tiny Faster R-CNN's eval step and two train steps (under the same
+uniforms) on the card against the CPU, the tiny Cascade, Dynamic and
+Double-Head R-CNN's train steps (Dynamic R-CNN's five, across its
+refresh) and the two-stage TTA on the card against the CPU. Skips, with
+the reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -563,7 +565,7 @@ def _tiny_frcnn(device=None):
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.two_stage import (anchor_table, extract_rois,
                                                     make_proposal_fn)
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
     from aod_meh_hua_torch.utils.config import tiny_faster_rcnn_config
 
@@ -579,7 +581,7 @@ def _tiny_frcnn(device=None):
     batch = Batch(torch.randn((2, h, w, 3), generator=g), boxes,
                   torch.tensor([[1, 4] + [0] * (cfg.max_gt - 2)] * 2), valid,
                   torch.from_numpy(av), shapes)
-    model = build_faster_rcnn(cfg, device="cpu", seed=5)
+    model = build_two_stage(cfg, device="cpu", seed=5)
     with torch.no_grad():
         feats, rpn_cls, rpn_reg = model(batch.images)
         model.rpn_head.rpn_cls.weight.mul_(1.5 / rpn_cls.std().item())
@@ -597,14 +599,14 @@ def test_faster_rcnn_eval_on_the_card_matches_the_cpu(cuda):
     rtol 1e-4."""
     from aod_meh_hua_torch.engine.batch import EvalBatch
     from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_eval_step
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
 
     cfg, batch, sd = _tiny_frcnn()
     ebatch = EvalBatch(batch.images, batch.img_shapes,
                        torch.tensor([[1.0] * 4, [1.3] * 4]), torch.ones(2, dtype=torch.bool))
     out = {}
     for dev in ("cpu", cuda):
-        model = build_faster_rcnn(cfg, device=dev)
+        model = build_two_stage(cfg, device=dev)
         model.load_state_dict(sd)
         out[str(dev)] = [t.cpu() for t in make_faster_rcnn_eval_step(model, cfg, dev)(ebatch)]
     c, g = out["cpu"], out[str(cuda)]
@@ -621,7 +623,7 @@ def test_faster_rcnn_train_steps_on_the_card_match_the_cpu(cuda):
     tensor's max-abs, updates as test_train_steps_on_the_card_match_the_cpu."""
     from aod_meh_hua_torch.engine.train import create_train_state
     from aod_meh_hua_torch.engine.two_stage import make_faster_rcnn_train_step
-    from aod_meh_hua_torch.models.two_stage import build_faster_rcnn
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import TrainConfig
 
     cfg, batch, sd = _tiny_frcnn()
@@ -631,7 +633,7 @@ def test_faster_rcnn_train_steps_on_the_card_match_the_cpu(cuda):
              for _ in range(2)]
     runs = {}
     for dev in ("cpu", cuda):
-        model = build_faster_rcnn(cfg, device=dev)
+        model = build_two_stage(cfg, device=dev)
         model.load_state_dict(sd)
         initial = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
         step = make_faster_rcnn_train_step(model, cfg, create_train_state(model, TrainConfig()),
@@ -676,3 +678,91 @@ def test_train_detector_mini_on_the_card(cuda, tmp_path):
     loaded = init_detector(cfg, checkpoint=str(work / "faster_rcnn_final.ckpt"), device=cuda)
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+def _tiny_family(family):
+    """_tiny_frcnn's weights and batch for the tiny config of a two-stage
+    family (its RPN head sharpened to logit std 1.5, and each RoI head's
+    class logits, the cascade's three alike)."""
+    import chip_smoke
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    _, batch, _ = _tiny_frcnn()
+    cfg = ZOO_FAMILIES[family][1]()
+    model = build_two_stage(cfg, device="cpu", seed=5)
+    chip_smoke.sharpen_frcnn(model, cfg, batch.images, batch.img_shapes)
+    return cfg, batch, model.state_dict()
+
+
+@pytest.mark.parametrize("family", ["cascade_rcnn", "dynamic_rcnn", "double_head_rcnn"])
+def test_rcnn_family_train_steps_on_the_card_match_the_cpu(cuda, family):
+    """The family's train steps (two; Dynamic R-CNN's five, across its
+    refresh at interval 4) from the same weights, batch and uniforms on
+    the card and on the CPU: losses to rtol 1e-4, the parameters and the
+    double head's BN running statistics to 1e-4 of each tensor's max-abs,
+    Dynamic R-CNN's threshold and beta to 1e-6."""
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    cfg, batch, sd = _tiny_family(family)
+    gen = torch.Generator().manual_seed(4)
+    n = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
+    if family == "cascade_rcnn":
+        n.update({f"roi{i}": cfg.max_gt + (cfg.rpn.train_max_per_img if i == 0
+                                           else cfg.rcnn.sampler_num) for i in range(3)})
+    draws = [{k: tuple(torch.rand((2, m), generator=gen) for _ in range(2)) for k, m in n.items()}
+             for _ in range(5 if family == "dynamic_rcnn" else 2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_two_stage(cfg, device=dev)
+        model.load_state_dict(sd)
+        step = make_two_stage_train_step(model, cfg, create_train_state(model, TrainConfig()),
+                                         device=dev)
+        losses = [{k: float(v) for k, v in step(
+            batch, uniforms=lambda stage, m, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
+        ).items()} for d in draws]
+        runs[str(dev)] = losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    (cpu_losses, cpu_sd), (gpu_losses, gpu_sd) = runs["cpu"], runs[str(cuda)]
+    assert cpu_losses[0]["num_pos"] > 0
+    for c, g in zip(cpu_losses, gpu_losses):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4), k
+    for name, c in cpu_sd.items():
+        g = gpu_sd[name]
+        if name.startswith("dynamic."):
+            assert torch.allclose(g.double(), c.double(), rtol=0, atol=1e-6), name
+            continue
+        assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item() + 1e-12, name
+    if family == "double_head_rcnn":
+        assert not torch.equal(cpu_sd["bbox_head.res_block.bn1.running_var"],
+                               sd["bbox_head.res_block.bn1.running_var"])
+    if family == "dynamic_rcnn":
+        assert int(gpu_sd["dynamic.step"]) == 5
+        assert float(cpu_sd["dynamic.iou_thr"]) != cfg.rcnn.pos_iou_thr  # refreshed
+
+
+@pytest.mark.parametrize("family", ["faster_rcnn", "cascade_rcnn"])
+def test_two_stage_tta_on_the_card_matches_the_cpu(cuda, family):
+    """Detector.tta of the tiny config, two scales with the flip, on the
+    card against the CPU: the same rows per class, boxes and scores to
+    rtol 1e-4."""
+    from aod_meh_hua_torch.api import Detector
+    from aod_meh_hua_torch.data.pipeline import PipelineConfig
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+
+    cfg, _, sd = _tiny_family(family)
+    img = (np.random.RandomState(2).rand(70, 110, 3) * 255).astype(np.uint8)
+    pipe = PipelineConfig(img_scale=(128, 64), canvas=cfg.canvas, device_normalize=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_two_stage(cfg, device=dev)
+        model.load_state_dict(sd)
+        out[str(dev)] = Detector(cfg, model, pipeline=pipe).tta(
+            img, scales=[(128, 64), (96, 48)], flip=True)
+    assert sum(len(a) for a in out["cpu"]) > 0
+    for c, g in zip(out["cpu"], out[str(cuda)]):
+        assert c.shape == g.shape
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-3)

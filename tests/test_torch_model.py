@@ -167,10 +167,11 @@ def test_backward_through_a_fused_block_raises():
 
 
 def _two_stage_tta(image):
-    """Detector.tta of a two-stage family (the dense families' TTA is
-    ported; tests/test_torch_tta.py)."""
+    """Detector.tta of a mask family (the dense families' TTA is ported,
+    tests/test_torch_tta.py; Faster and Cascade R-CNN's too,
+    tests/test_torch_tta_two_stage.py)."""
     det = Detector(ttiny(), build_retinanet(ttiny(), device="cpu"))
-    det.cfg = SimpleNamespace(family="faster_rcnn")
+    det.cfg = SimpleNamespace(family="mask_rcnn")
     return det.tta(image)
 
 

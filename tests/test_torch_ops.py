@@ -333,12 +333,12 @@ def test_port_imports_no_jax():
     what the machine with the card lacks (OpenCV, PIL, torchvision,
     msgpack)."""
     files = sorted((REPO / "aod_meh_hua_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 75
-    # the Faster R-CNN family's modules among them
+    assert len(files) > 76
+    # the two-stage families' modules and the config printer among them
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"aod_meh_hua_torch/{m}.py" for m in (
         "ops/roi_align", "ops/sampler", "models/two_stage", "engine/two_stage",
-        "tools/train_detector")} <= names
+        "engine/tta", "tools/train_detector", "tools/print_config")} <= names
     refused = ("jax", "jaxlib", "flax", "aod_meh_hua_tpu", "cv2", "PIL", "torchvision",
                "msgpack",
                # the root `tools` too: the port copies from tools/analysis, it does not import it

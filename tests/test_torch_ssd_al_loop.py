@@ -249,7 +249,7 @@ def test_ssd_sweeps_match_jax_on_shared_weights(runs):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("flags", [["--config", "c.py"], ["--dtype", "bfloat16"]])
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"]])
 def test_unported_ssd_cli_flags_raise(flags):
     """The JAX SSD CLI's flags of modes the port does not have are parsed
     and refused with their ROADMAP item, never ignored."""

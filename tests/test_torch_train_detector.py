@@ -45,6 +45,7 @@ from aod_meh_hua_torch.data.voc import VOC_CLASSES, VOCDataset
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.tools import benchmark, train_detector
 from aod_meh_hua_torch.utils import voc_eval as tvoc_eval
+from aod_meh_hua_torch.utils.config import tiny_dynamic_rcnn_config
 from aod_meh_hua_torch.utils.config import tiny_faster_rcnn_config as ttiny
 from torch_parity import jax_faster_rcnn, mini_voc, numerics_flags_kept
 from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
@@ -204,11 +205,18 @@ def test_predict_batch_matches_jax(shared, voc):
 
 
 def test_two_stage_detector_limits(shared):
+    """The uncertainty column is the dense families'; Faster R-CNN's TTA
+    gives the per-class rows (held to JAX's in
+    tests/test_torch_tta_two_stage.py), Dynamic R-CNN's raises as the
+    JAX package's does."""
     _, _, model = shared
     with pytest.raises(ValueError, match="retinanet/ssd"):
         tapi.Detector(TC, model, with_uncertainty=True)
     det = tapi.Detector(TC, model, pipeline=train_detector.pipeline_for(TC, True))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    rows = det.tta(np.zeros((60, 100, 3), np.uint8))
+    assert len(rows) == TC.num_classes and all(r.shape[1] == 5 for r in rows)
+    det.cfg = tiny_dynamic_rcnn_config()
+    with pytest.raises(NotImplementedError, match="got 'dynamic_rcnn'"):
         det.tta(np.zeros((60, 100, 3), np.uint8))
 
 

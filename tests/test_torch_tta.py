@@ -148,12 +148,15 @@ def test_ssd_flip_tta_matches_jax():
 
 
 @pytest.mark.parametrize("family,match", [
-    ("faster_rcnn", "item 15"), ("cascade_rcnn", "item 15"), ("mask_rcnn", "item 15"),
-    ("fcos", "item 15"), ("sparse_rcnn", "does not support `aug_test`")])
+    ("dynamic_rcnn", "got 'dynamic_rcnn'"), ("double_head_rcnn", "got 'double_head_rcnn'"),
+    ("mask_rcnn", "item 15"), ("fcos", "item 15"),
+    ("sparse_rcnn", "does not support `aug_test`")])
 def test_other_families_raise(shared, family, match):
-    """The families the port has no model for raise from tta, the
-    two-stage and mask ones naming the model zoo's item, Sparse R-CNN as
-    the reference does."""
+    """The families without a TTA raise from tta: those the port has no
+    model for naming the model zoo's item, Dynamic and Double-Head R-CNN
+    as the JAX package does (its TTA lacks them too), Sparse R-CNN as
+    the reference does. Faster and Cascade R-CNN's TTA:
+    tests/test_torch_tta_two_stage.py."""
     _, tdet = shared
     det = tapi.Detector(ttiny(), tdet.model, pipeline=_pipe(PipelineConfig))
     det.cfg = SimpleNamespace(family=family, num_fg_classes=6)

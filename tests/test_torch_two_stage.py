@@ -43,7 +43,7 @@ from aod_meh_hua_torch.engine.batch import EvalBatch as TEvalBatch
 from aod_meh_hua_torch.engine.train import create_train_state as tcreate_state
 from aod_meh_hua_torch.models.convert import from_jax_variables
 from aod_meh_hua_torch.models.fpn import FPN as TFPN
-from aod_meh_hua_torch.models.two_stage import FasterRCNN, build_faster_rcnn
+from aod_meh_hua_torch.models.two_stage import FasterRCNN, build_two_stage
 from aod_meh_hua_torch.ops import losses as tlosses
 from aod_meh_hua_torch.ops import nms as tnms
 from aod_meh_hua_torch.ops import roi_align as troi
@@ -130,7 +130,7 @@ def test_variants_raise(field, value, item):
     cfg = tcfg.tiny_faster_rcnn_config(**{field: value})
     with pytest.raises(NotImplementedError, match=item):
         FasterRCNN(cfg)
-    model = build_faster_rcnn(tcfg.tiny_faster_rcnn_config(), device="cpu")
+    model = build_two_stage(tcfg.tiny_faster_rcnn_config(), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         tts.make_faster_rcnn_eval_step(model, cfg, device="cpu")
 
@@ -397,7 +397,7 @@ def shared():
     """One JAX variables draw, the port's model carrying it, a batch, and
     JAX's stage-1 outputs on it."""
     jmodel, variables = jax_faster_rcnn()
-    model = build_faster_rcnn(TC, device="cpu")
+    model = build_two_stage(TC, device="cpu")
     model.load_state_dict(from_jax_variables(variables))
     arrays = two_stage_batch(JC, seed=1)
     stage1 = jax.jit(functools.partial(jmodel.apply, method=jts._stage1))
@@ -406,7 +406,7 @@ def shared():
 
 
 def test_port_init_follows_the_jax_initialisers():
-    model = build_faster_rcnn(tcfg.FasterRCNNConfig(), device="cpu", seed=3)
+    model = build_two_stage(tcfg.FasterRCNNConfig(), device="cpu", seed=3)
     head, rpn = model.bbox_head, model.rpn_head
     for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
         assert abs(conv.weight.std().item() - 0.01) < 1e-3 and not conv.bias.any()
@@ -558,7 +558,7 @@ def two_steps(shared):
                               JTrainConfig(batch_size=2), frozen_stages=JC.frozen_stages)
     state = jax.device_put(state, jax.devices()[0])
     jstep = jts.make_faster_rcnn_train_step(jmodel, JC, tx)
-    model = build_faster_rcnn(TC, device="cpu")
+    model = build_two_stage(TC, device="cpu")
     model.load_state_dict(from_jax_variables(variables))
     initial = {k: v.clone() for k, v in model.state_dict().items()}
     opt = tcreate_state(model, tcfg.TrainConfig(batch_size=2), frozen_stages=TC.frozen_stages)

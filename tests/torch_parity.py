@@ -207,12 +207,15 @@ def tf32_off():
 
 
 @functools.lru_cache(maxsize=None)
-def _frcnn_tree(overrides):
-    from aod_meh_hua_tpu.models import build_faster_rcnn
-    from aod_meh_hua_tpu.utils.config import tiny_faster_rcnn_config
+def _two_stage_tree(family, overrides):
+    from aod_meh_hua_tpu.models import (build_cascade_rcnn, build_double_head_rcnn,
+                                        build_faster_rcnn)
+    from aod_meh_hua_tpu.utils.config import ZOO_FAMILIES
 
-    cfg = tiny_faster_rcnn_config(**dict(overrides))
-    model = build_faster_rcnn(cfg)
+    cfg = ZOO_FAMILIES[family][1](**dict(overrides))
+    build = {"cascade_rcnn": build_cascade_rcnn,
+             "double_head_rcnn": build_double_head_rcnn}.get(family, build_faster_rcnn)
+    model = build(cfg)
     h, w = cfg.canvas
     return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
                                  jax.ShapeDtypeStruct((1, h, w, 3), np.float32))
@@ -228,7 +231,15 @@ def jax_faster_rcnn(seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
     heads put every sigmoid and softmax score within an ulp or two of
     its neighbours, where the two packages' roundings order near-ties
     differently (a stand-in for trained heads, as `sharpen`)."""
-    model, shapes = _frcnn_tree(tuple(sorted(overrides.items())))
+    return jax_two_stage("faster_rcnn", seed, rpn_cls_std, fc_cls_std, **overrides)
+
+
+def jax_two_stage(family, seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
+    """jax_faster_rcnn's draw for the tiny config of any ported two-stage
+    family of the JAX registry (its model: Faster R-CNN's for
+    dynamic_rcnn, the cascade's three heads, the double head with its
+    BN), every fc_cls sharpened alike."""
+    model, shapes = _two_stage_tree(family, tuple(sorted(overrides.items())))
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
@@ -250,6 +261,21 @@ def jax_faster_rcnn(seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
         return np.zeros(shape, np.float32)
 
     return model, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def two_stage_pair(family):
+    """(Flax model, variables, the port's model carrying them) of the
+    family's tiny config: one jax_two_stage draw, shared by a test file."""
+    from aod_meh_hua_torch.api import load_weights
+    from aod_meh_hua_torch.models.convert import from_jax_variables
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    jmodel, variables = jax_two_stage(family)
+    model = build_two_stage(ZOO_FAMILIES[family][1](), device="cpu")
+    load_weights(model, from_jax_variables(variables))
+    return jmodel, variables, model
 
 
 def two_stage_batch(cfg, seed=0, b=2, max_boxes=3, labels_up_to=None):
