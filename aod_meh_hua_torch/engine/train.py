@@ -120,6 +120,8 @@ class DataAxis:
 
     def __init__(self, group=None, size: int = 1):
         self.group, self.size = group, size
+        # this rank's block of the global batch's rows
+        self.index = 0 if group is None else dist.get_rank(group)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over the axis (a new tensor, outside autograd)."""
@@ -128,6 +130,40 @@ class DataAxis:
         t = t.detach().clone()
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
+
+    def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the axis inside autograd: the gradient that reaches
+        t is the sum over the ranks of the gradients of the sum, as every
+        rank's loss reads the global value."""
+        if self.group is None:
+            return t
+        return _AllReduceSum.apply(t, self.group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's t (a 1-D tensor of the same length on each),
+        concatenated in rank order (outside autograd)."""
+        if self.group is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.detach().contiguous(), group=self.group)
+        return torch.cat(parts)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce(SUM) whose backward all-reduces the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
 
 
 def _meh_regression(lam: torch.Tensor, target: torch.Tensor, w: torch.Tensor,

@@ -8,7 +8,7 @@ item 15): `make_proposal_fn` :55-97, `_rpn_targets_single` :100-119,
 `_roi_sample_single` :132-167, `_extract_rois` :170-186,
 `make_faster_rcnn_train_step` :202-288, `make_faster_rcnn_eval_step`
 :291-331, `make_cascade_train_step` and `make_cascade_eval_step`
-:336-472, `init_dynamic_state` (the port's models/two_stage.py
+:336-472 (the eval steps as one module, `TwoStageEvalStep`), `init_dynamic_state` (the port's models/two_stage.py
 `DynamicState`) and `make_dynamic_rcnn_train_step` :479-625, `_scale_rois`, `_extract_rois_routed` and the Double-Head
 train and eval steps :633-784. The Faster R-CNN step mirrors the reference's
 rpn_head.py:135-200 (per-level sigmoid + top-k, decode, level-grouped NMS
@@ -44,10 +44,22 @@ parameters. The proposals are computed without gradient, as the
 reference's detached proposal_list. Both steps run on the model's device
 and take batches of numpy arrays or tensors; a model and config of the
 family's variants raise (models/two_stage.py check_two_stage_options).
+Under a data mesh the train step on N ranks is the one-process step on
+the global batch, as the JAX step (one jit over the sharded batch,
+aod_meh_hua_tpu/parallel/mesh.py) is: the global batch's uniforms, every
+normaliser and Dynamic R-CNN's two statistics over the global batch, the
+double head's BatchNorm on the global batch's statistics, gradients
+summed (_make_step).
+
+The eval step is one module for every family (TwoStageEvalStep): the
+eager step and the step that torch.export traces
+(tools/deployment/export_model.py) are the same code, the NMS fixpoints
+a device while_loop in the latter.
 
 Each stage runs in a profiler range named in STAGES (a no-op unless
 torch.profiler records), so that a trace splits the device time by
-stage: chip_smoke.py's two-stage phases read them.
+stage: chip_smoke.py's two-stage phases read them. An exported program
+holds no range (utils/profiling.py span).
 """
 
 from __future__ import annotations
@@ -65,9 +77,10 @@ from ..ops.nms import NMSResult, batched_multiclass_nms, grouped_nms
 from ..ops.roi_align import batched_multilevel_roi_align
 from ..ops.sampler import random_sample_pos_neg
 from ..utils.device import resolve_device
+from ..utils.profiling import span as _span
 from .batch import AnchorTable, Batch, EvalBatch, as_tensor, prepare_images
 from .eval import batch_on
-from .train import _clip_by_global_norm
+from .train import DataAxis, _clip_by_global_norm, _sum_gradients
 
 # the profiler ranges of the steps' stages, in order: the Faster R-CNN
 # stages every family shares, then the cascade's refinement, Dynamic
@@ -76,7 +89,6 @@ STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposal
           "faster_rcnn.roi_sample", "faster_rcnn.roi_align", "faster_rcnn.roi_head",
           "faster_rcnn.detections", "cascade_rcnn.refine", "dynamic_rcnn.statistics",
           "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN)
-_span = torch.profiler.record_function
 
 # uniforms(stage, n) -> (u_pos [B, n], u_neg [B, n]): the draws that rank
 # the positives and the negatives of each image's n candidates, stage
@@ -100,12 +112,13 @@ def anchor_table(cfg) -> np.ndarray:
     return np.concatenate(gen.grid_anchors(cfg.featmap_sizes())).astype(np.float32)
 
 
-def make_proposal_fn(cfg) -> Callable:
+def make_proposal_fn(cfg, device_loop: bool = False) -> Callable:
     """Returns proposals(rpn_cls [B, A], rpn_reg [B, A, 4], anchors [A, 4],
     img_shapes [B, 2], nms_pre, max_out) -> (boxes [B, P, 4], scores
     [B, P], valid [B, P]): per level the nms_pre best sigmoid scores
     (ties by index, as lax.top_k), decoded and clipped to each image,
-    then the level-grouped greedy NMS. Call it without gradient."""
+    then the level-grouped greedy NMS (its fixpoint a device while_loop
+    with `device_loop`, for torch.export). Call it without gradient."""
     bounds = cfg.level_bounds()
 
     def proposals(rpn_cls, rpn_reg, anchors, img_shapes, nms_pre: int, max_out: int):
@@ -132,7 +145,7 @@ def make_proposal_fn(cfg) -> Callable:
         lvl = torch.cat(lvls)[None].expand(b, -1)
         # min_bbox_size = 0: strictly positive extents survive
         ok = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
-        dets = grouped_nms(boxes, scores, lvl, ok, cfg.rpn.nms_iou_thr, max_out)
+        dets = grouped_nms(boxes, scores, lvl, ok, cfg.rpn.nms_iou_thr, max_out, device_loop)
         return dets.boxes, dets.scores, dets.valid
 
     return proposals
@@ -254,17 +267,19 @@ def _device_batch(batch: Batch, dev) -> Batch:
                  img_shapes=as_tensor(batch.img_shapes, dev))
 
 
-def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniforms):
+def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniforms,
+               data: DataAxis):
     """Stage 1 of every family's train step: the features, the RPN's two
     losses over its sampled anchors, and the proposals without gradient
     (the reference's detached proposal_list): (feats, loss_rpn_cls,
-    loss_rpn_bbox, props, prop_valid)."""
+    loss_rpn_bbox, props, prop_valid). The losses divide by the global
+    batch's sample count (`data`)."""
     with _span(STAGES[0]):
         feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
     with _span(STAGES[1]):
         t = rpn_targets(*uniforms("rpn", anchors.shape[0]), anchors, batch.anchor_valid,
                         batch.gt_boxes, batch.gt_valid, cfg.rpn)
-    num_total = t.num_samples.sum().float().clamp(min=1.0)
+    num_total = data.sum(t.num_samples.sum().float()).clamp(min=1.0)
     loss_rpn_cls = (binary_cross_entropy_with_logits(
         rpn_cls, t.is_pos.float(), reduction="none") * t.weights).sum() / num_total
     loss_rpn_bbox = (torch.abs(rpn_reg - t.bbox_targets)
@@ -284,10 +299,18 @@ def _sample(cfg, batch: Batch, uniforms: Uniforms, stage: str, props, prop_valid
                           batch.gt_labels, batch.gt_valid, cfg, **kw)
 
 
-def _cls_loss(cls, smp: RoISample) -> torch.Tensor:
+def roi_counts(smp: RoISample, data: DataAxis):
+    """A sample's normalisers over the global batch, in one all-reduce:
+    (avg_cls, the RoIs with label weight; avg_reg, the sampled RoIs,
+    bbox_head.py:302's avg_factor; each at least 1), and num_pos."""
+    c = data.sum(torch.stack([(smp.label_weights > 0).sum(), smp.valid.sum(),
+                              smp.is_pos.sum()]).float())
+    return c[0].clamp(min=1.0), c[1].clamp(min=1.0), c[2]
+
+
+def _cls_loss(cls, smp: RoISample, avg_cls) -> torch.Tensor:
     """Softmax CE over the sampled RoIs, averaged over those with weight."""
     label_w = smp.label_weights.reshape(-1)
-    avg_cls = (label_w > 0).sum().float().clamp(min=1.0)
     return (softmax_cross_entropy(cls, smp.labels.reshape(-1), reduction="none")
             * label_w).sum() / avg_cls
 
@@ -299,33 +322,61 @@ def _reg_of_labels(reg, smp: RoISample, c: int) -> torch.Tensor:
     return torch.gather(reg, 1, sel[:, None, None].expand(-1, 1, 4))[:, 0]
 
 
-def _positive_mean(err, smp: RoISample) -> torch.Tensor:
-    """err [R, 4] summed over the positive rows, over the sampled RoIs
-    (bbox_head.py:302's avg_factor)."""
-    avg_reg = smp.valid.sum().float().clamp(min=1.0)
+def _positive_mean(err, smp: RoISample, avg_reg) -> torch.Tensor:
+    """err [R, 4] summed over the positive rows, over the sampled RoIs."""
     return (err * smp.is_pos.reshape(-1)[:, None]).sum() / avg_reg
 
 
-def _make_step(model, cfg, optimizer, device, loss_fn, after=None) -> Callable:
-    """The train step around loss_fn(batch, anchors, uniforms) -> (total,
-    aux): the batch on the device, the uniforms, one backward, the
+def _rank_rows(uniforms: Uniforms, lo: int, b: int) -> Uniforms:
+    """The global batch's uniforms -> rows lo:lo + b, this rank's images."""
+    return lambda stage, n: tuple(u[lo:lo + b] for u in uniforms(stage, n))
+
+
+def _make_step(model, cfg, optimizer, device, loss_fn, after=None, mesh=None) -> Callable:
+    """The train step around loss_fn(batch, anchors, uniforms, data) ->
+    (total, aux): the batch on the device, the uniforms, one backward, the
     optional clip, one optimizer step, then after(aux) (Dynamic R-CNN's
-    refresh); the detached aux out."""
+    refresh); the detached aux out.
+
+    Under a data mesh (parallel/mesh.py; data parallel, the model
+    replicated) `batch` is this rank's rows of the global batch
+    (shard_batch) and the step is the one-process step on the global
+    batch, as the JAX step is one jit over the sharded batch: the
+    uniforms are the global batch's (every rank draws them all from the
+    same seeded generator) and each rank keeps its rows, so that it
+    samples what the one process samples for its images; every loss
+    divides by the global normaliser (DataAxis.sum); the gradients are
+    summed, never averaged, and clipped after the sum; aux holds the
+    global values (the losses summed over the ranks)."""
     dev = _check_step(model, cfg, device)
     grad_clip = optimizer.defaults.get("grad_clip")
     anchors = AnchorTable(anchor_table(cfg))
+    if mesh is None:
+        data = DataAxis()
+    else:
+        from ..parallel.mesh import data_axis_of
+
+        data = DataAxis(*data_axis_of(mesh))
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None,
              uniforms: Optional[Uniforms] = None) -> Dict[str, torch.Tensor]:
         b = _device_batch(batch, dev)
+        rows = b.images.shape[0]
         if uniforms is None:
             if generator is None:
                 raise ValueError("the two-stage step draws its samples: pass a "
                                  "torch.Generator or uniforms")
-            uniforms = generator_uniforms(generator, b.images.shape[0])
+            uniforms = generator_uniforms(generator, rows * data.size)
+        if data.group is not None:
+            uniforms = _rank_rows(uniforms, data.index * rows, rows)
         model.zero_grad(set_to_none=True)
-        total, aux = loss_fn(b, anchors.get(dev), uniforms)
+        total, aux = loss_fn(b, anchors.get(dev), uniforms, data)
         total.backward()
+        if data.group is not None:
+            _sum_gradients(model.parameters(), data)
+            losses = [k for k in aux if "loss" in k]
+            summed = data.sum(torch.stack([aux[k].detach() for k in losses]))
+            aux = {**aux, **dict(zip(losses, summed.unbind()))}
         if grad_clip:
             _clip_by_global_norm(model.parameters(), grad_clip)
         optimizer.step()
@@ -337,7 +388,7 @@ def _make_step(model, cfg, optimizer, device, loss_fn, after=None) -> Callable:
 
 
 def make_faster_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
-                                device="cuda") -> Callable:
+                                device="cuda", mesh=None) -> Callable:
     """Returns step(batch: Batch, generator=None, uniforms=None) -> aux
     (detached scalar tensors on `device`): one forward, one backward and
     one optimizer step on `model`, which lives on `device`. The samplers'
@@ -345,47 +396,49 @@ def make_faster_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     torch.Generator on `device`). Where the optimizer carries a
     grad_clip (engine/train.py make_optimizer) the gradients are clipped
     by their global norm first. cfg's canvas fixes the anchor table: one
-    step per orientation (cfg.for_orientation)."""
+    step per orientation (cfg.for_orientation). mesh: a data mesh
+    (_make_step); `uniforms` then gives the global batch's draws."""
     proposal_fn = make_proposal_fn(cfg)
     c = cfg.num_classes
 
-    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms, data: DataAxis):
         """(total, aux), aux with loss, loss_rpn_cls, loss_rpn_bbox,
         loss_cls, loss_bbox and num_pos (the JAX step's keys)."""
         feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
-            model, cfg, proposal_fn, batch, anchors, uniforms)
+            model, cfg, proposal_fn, batch, anchors, uniforms, data)
         smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid)
+        avg_cls, avg_reg, num_pos = roi_counts(smp, data)
         with _span(STAGES[4]):
             roi_feats = extract_rois(cfg, feats, smp.rois)
         with _span(STAGES[5]):
             cls, reg = model.roi_forward(roi_feats)
-        loss_cls = _cls_loss(cls, smp)
+        loss_cls = _cls_loss(cls, smp, avg_cls)
         loss_bbox = _positive_mean(torch.abs(_reg_of_labels(reg, smp, c)
-                                             - smp.bbox_targets.reshape(-1, 4)), smp)
+                                             - smp.bbox_targets.reshape(-1, 4)), smp, avg_reg)
         total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
         aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
-               "loss_cls": loss_cls, "loss_bbox": loss_bbox,
-               "num_pos": smp.is_pos.sum().float()}
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos}
         return total, aux
 
-    return _make_step(model, cfg, optimizer, device, loss_fn)
+    return _make_step(model, cfg, optimizer, device, loss_fn, mesh=mesh)
 
 
 def make_cascade_train_step(model, cfg, optimizer: torch.optim.Optimizer,
-                            device="cuda") -> Callable:
+                            device="cuda", mesh=None) -> Callable:
     """Cascade R-CNN's step (cascade_roi_head.forward_train +
     refine_bboxes), the contract of make_faster_rcnn_train_step: the RPN,
     then num_stages RoI stages, stage i sampled under uniforms "roi{i}"
     at stage_pos_iou_thrs[i] with stage_stds[i], its class-agnostic
-    losses weighed by stage_loss_weights[i]. Each next stage takes this
-    stage's sampled RoIs decoded by its detached deltas and clipped, the
-    rows taken from gts dropped. aux: loss, loss_rpn_cls, loss_rpn_bbox,
-    s{i}.loss_cls, s{i}.loss_bbox and num_pos (over all stages)."""
+    losses weighed by stage_loss_weights[i], each over its own global
+    counts. Each next stage takes this stage's sampled RoIs decoded by its
+    detached deltas and clipped, the rows taken from gts dropped. aux:
+    loss, loss_rpn_cls, loss_rpn_bbox, s{i}.loss_cls, s{i}.loss_bbox and
+    num_pos (over all stages)."""
     proposal_fn = make_proposal_fn(cfg)
 
-    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms, data: DataAxis):
         feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
-            model, cfg, proposal_fn, batch, anchors, uniforms)
+            model, cfg, proposal_fn, batch, anchors, uniforms, data)
         b = props.shape[0]
         total = loss_rpn_cls + loss_rpn_bbox
         aux = {"loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox}
@@ -394,17 +447,18 @@ def make_cascade_train_step(model, cfg, optimizer: torch.optim.Optimizer,
             stds = cfg.stage_stds[stage]
             smp = _sample(cfg, batch, uniforms, f"roi{stage}", props, prop_valid,
                           pos_iou_thr=cfg.stage_pos_iou_thrs[stage], stds=stds)
+            avg_cls, avg_reg, stage_pos = roi_counts(smp, data)  # every stage, on every rank
             with _span(STAGES[4]):
                 roi_feats = extract_rois(cfg, feats, smp.rois)
             with _span(STAGES[5]):
                 cls, reg = model.roi_forward(roi_feats, stage)
-            loss_cls = _cls_loss(cls, smp)
+            loss_cls = _cls_loss(cls, smp, avg_cls)
             loss_bbox = _positive_mean(torch.abs(reg[:, 0] - smp.bbox_targets.reshape(-1, 4)),
-                                       smp)
+                                       smp, avg_reg)
             total = total + cfg.stage_loss_weights[stage] * (loss_cls + loss_bbox)
             aux[f"s{stage}.loss_cls"] = loss_cls
             aux[f"s{stage}.loss_bbox"] = loss_bbox
-            num_pos = num_pos + smp.is_pos.sum()
+            num_pos = num_pos + stage_pos
             if stage < cfg.num_stages - 1:
                 with torch.no_grad(), _span(STAGES[7]):
                     props = delta_decode(smp.rois, reg[:, 0].detach().reshape(b, -1, 4),
@@ -414,7 +468,7 @@ def make_cascade_train_step(model, cfg, optimizer: torch.optim.Optimizer,
         aux["num_pos"] = num_pos
         return total, aux
 
-    return _make_step(model, cfg, optimizer, device, loss_fn)
+    return _make_step(model, cfg, optimizer, device, loss_fn, mesh=mesh)
 
 
 # the refresh keeps the beta when the median is below this (dynamic_roi_head.py:143)
@@ -431,64 +485,71 @@ def even_median(x: torch.Tensor) -> torch.Tensor:
 
 
 def beta_statistic(targets: torch.Tensor, pos: torch.Tensor, k_max: int,
-                   initial_beta: float) -> torch.Tensor:
+                   initial_beta: float, data: Optional[DataAxis] = None) -> torch.Tensor:
     """Dynamic R-CNN's per-step beta statistic (dynamic_roi_head.py:119-125,
     JAX :568-575): the min(k_max, num_pos)-th smallest mean |dx|, |dy|
-    target over the positives, initial_beta with none. The k-th value is
-    a gather at a device index, so nothing is read back to the host."""
-    num_pos = pos.sum()
+    target over the positives, initial_beta with none. Across a `data`
+    axis the positives are every rank's: each rank's fixed-length
+    where(pos, xy, inf) is gathered, so every rank selects the same
+    global value (k_max is then beta_topk times the global batch). The
+    k-th value is a gather at a device index, so nothing is read back to
+    the host."""
+    data = data or DataAxis()
     xy = torch.abs(targets[:, :2]).mean(dim=1)
-    xy_sorted = torch.sort(torch.where(pos, xy, torch.full_like(xy, float("inf")))).values
+    xy_all = data.gather(torch.where(pos, xy, torch.full_like(xy, float("inf"))))
+    num_pos = torch.isfinite(xy_all).sum()
+    xy_sorted = torch.sort(xy_all).values
     k = num_pos.clamp(max=k_max).clamp(min=1)
     return torch.where(num_pos > 0, xy_sorted.gather(0, (k - 1).reshape(1))[0],
                        torch.full_like(xy[0], initial_beta))
 
 
 def make_dynamic_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
-                                 device="cuda") -> Callable:
+                                 device="cuda", mesh=None) -> Callable:
     """Faster R-CNN's step with Dynamic R-CNN's adapting hyperparameters
     (dynamic_roi_head.py), on `model.dynamic`'s buffers: the RoI assigner
     samples at iou_thr and SmoothL1 weighs by beta; each step writes its
     IoU statistic (the iou_topk-th largest proposal max-IoU of each
-    image, averaged) and its beta statistic (the min(beta_topk * B,
-    num_pos)-th smallest mean |dx|, |dy| target of the positives, the
-    initial beta with none) into ring slot step % interval, and the step
-    in slot interval - 1 refreshes iou_thr to max(initial_iou, mean) and
-    beta to min(initial_beta, median) (the old beta kept where the median
-    is below DYNAMIC_EPS). All of it
-    stays on the device. aux adds iou_thr and beta, the step's values."""
+    image, averaged over the global batch) and its beta statistic (the
+    min(beta_topk * B, num_pos)-th smallest mean |dx|, |dy| target of the
+    global batch's positives, the initial beta with none) into ring slot
+    step % interval, and the step in slot interval - 1 refreshes iou_thr
+    to max(initial_iou, mean) and beta to min(initial_beta, median) (the
+    old beta kept where the median is below DYNAMIC_EPS). All of it stays
+    on the device, and across ranks it is the same on every rank. aux
+    adds iou_thr and beta, the step's values."""
     dyn = model.dynamic
     proposal_fn = make_proposal_fn(cfg)
     interval, c = cfg.update_iter_interval, cfg.num_classes
 
-    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms, data: DataAxis):
         feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
-            model, cfg, proposal_fn, batch, anchors, uniforms)
-        b = props.shape[0]
+            model, cfg, proposal_fn, batch, anchors, uniforms, data)
+        b_global = props.shape[0] * data.size
         with torch.no_grad(), _span(STAGES[8]):
             ov = torch.where(batch.gt_valid[..., None], bbox_overlaps(batch.gt_boxes, props),
                              torch.zeros((), device=props.device))
             max_iou = torch.where(prop_valid, ov.amax(dim=1), torch.zeros((), device=ov.device))
             k_iou = min(cfg.iou_topk, max_iou.shape[1])
-            cur_iou = torch.topk(max_iou, k_iou, dim=1).values[:, -1].mean()
+            cur_iou = data.sum(torch.topk(max_iou, k_iou, dim=1).values[:, -1].sum()) / b_global
         iou_thr, beta = dyn.iou_thr.clone(), dyn.beta.clone()
         smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid, pos_iou_thr=iou_thr)
+        avg_cls, avg_reg, num_pos = roi_counts(smp, data)
         with _span(STAGES[4]):
             roi_feats = extract_rois(cfg, feats, smp.rois)
         with _span(STAGES[5]):
             cls, reg = model.roi_forward(roi_feats)
-        loss_cls = _cls_loss(cls, smp)
+        loss_cls = _cls_loss(cls, smp, avg_cls)
         targets = smp.bbox_targets.reshape(-1, 4)
         diff = torch.abs(_reg_of_labels(reg, smp, c) - targets)
         loss_bbox = _positive_mean(torch.where(diff < beta, 0.5 * diff * diff / beta,
-                                               diff - 0.5 * beta), smp)
-        pos = smp.is_pos.reshape(-1)
-        num_pos = pos.sum()
+                                               diff - 0.5 * beta), smp, avg_reg)
         with torch.no_grad(), _span(STAGES[8]):
-            cur_beta = beta_statistic(targets, pos, cfg.beta_topk * b, cfg.initial_beta)
+            cur_beta = beta_statistic(targets, smp.is_pos.reshape(-1), cfg.beta_topk * b_global,
+                                      cfg.initial_beta, data)
         total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
         aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
-               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos.float(),
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos,
                "iou_thr": iou_thr, "beta": beta, "_cur_iou": cur_iou, "_cur_beta": cur_beta}
         return total, aux
 
@@ -509,7 +570,7 @@ def make_dynamic_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
             dyn.beta_hist.copy_(beta_hist)
             dyn.step.add_(1)
 
-    return _make_step(model, cfg, optimizer, device, loss_fn, after=refresh)
+    return _make_step(model, cfg, optimizer, device, loss_fn, after=refresh, mesh=mesh)
 
 
 def _double_extract(cfg, feats, rois):
@@ -525,33 +586,34 @@ def _double_extract(cfg, feats, rois):
 
 
 def make_double_head_train_step(model, cfg, optimizer: torch.optim.Optimizer,
-                                device="cuda") -> Callable:
+                                device="cuda", mesh=None) -> Callable:
     """Double-Head R-CNN's step (double_roi_head.py:16-33 and
     dh_faster_rcnn_r50_fpn_1x_coco.py), the contract of
     make_faster_rcnn_train_step: the two extractions, the head with its
-    BatchNorm in training (its running statistics move, flax's way), CE
-    and SmoothL1 (beta 1) at weights cls_loss_weight and bbox_loss_weight."""
+    BatchNorm in training (its running statistics move, flax's way; under
+    a mesh by the global batch's statistics), CE and SmoothL1 (beta 1) at
+    weights cls_loss_weight and bbox_loss_weight."""
     proposal_fn = make_proposal_fn(cfg)
     c = cfg.num_classes
 
-    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms):
+    def loss_fn(batch: Batch, anchors: torch.Tensor, uniforms: Uniforms, data: DataAxis):
         feats, loss_rpn_cls, loss_rpn_bbox, props, prop_valid = _rpn_stage(
-            model, cfg, proposal_fn, batch, anchors, uniforms)
+            model, cfg, proposal_fn, batch, anchors, uniforms, data)
         smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid)
+        avg_cls, avg_reg, num_pos = roi_counts(smp, data)
         cls_feats, reg_feats = _double_extract(cfg, feats, smp.rois)
         with _span(STAGES[5]):
-            cls, reg = model.roi_forward(cls_feats, reg_feats, train=True)
-        loss_cls = cfg.cls_loss_weight * _cls_loss(cls, smp)
+            cls, reg = model.roi_forward(cls_feats, reg_feats, train=True, data=data)
+        loss_cls = cfg.cls_loss_weight * _cls_loss(cls, smp, avg_cls)
         diff = torch.abs(_reg_of_labels(reg, smp, c) - smp.bbox_targets.reshape(-1, 4))
         loss_bbox = cfg.bbox_loss_weight * _positive_mean(
-            torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5), smp)
+            torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5), smp, avg_reg)
         total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
         aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
-               "loss_cls": loss_cls, "loss_bbox": loss_bbox,
-               "num_pos": smp.is_pos.sum().float()}
+               "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos}
         return total, aux
 
-    return _make_step(model, cfg, optimizer, device, loss_fn)
+    return _make_step(model, cfg, optimizer, device, loss_fn, mesh=mesh)
 
 
 # family -> its train step's maker (the JAX trainer's make_steps)
@@ -561,63 +623,9 @@ TRAIN_STEPS = {"faster_rcnn": make_faster_rcnn_train_step,
                "double_head_rcnn": make_double_head_train_step}
 
 
-def make_two_stage_train_step(model, cfg, optimizer, device="cuda") -> Callable:
-    """cfg's family's train step."""
-    return TRAIN_STEPS[cfg.family](model, cfg, optimizer, device=device)
-
-
-def _class_specific_detections(cfg, props, prop_valid, cls, reg, batch: EvalBatch) -> NMSResult:
-    """Softmax, the per-class decode with the target stds, the rescale to
-    the original image, and multiclass NMS over the class-specific boxes."""
-    t, c = cfg.test, cfg.num_classes
-    b, p = props.shape[:2]
-    probs = torch.softmax(cls, dim=-1).reshape(b, p, c + 1)
-    boxes = delta_decode(props[:, :, None, :], reg.reshape(b, p, c, 4),
-                         stds=cfg.rcnn.target_stds, max_shape=batch.img_shapes[:, None, :])
-    boxes = boxes / batch.scale_factors[:, None, None, :]
-    fg = probs[..., :c] * prop_valid[..., None]
-    return batched_multiclass_nms(boxes, fg, t.score_thr, t.nms_iou_thr, t.max_per_img,
-                                  t.pre_nms_cands)
-
-
-def _make_eval(model, cfg, device, roi_stage) -> Callable:
-    """The eval step around roi_stage(feats, props, prop_valid, batch) ->
-    NMSResult: features and test proposals first."""
-    dev = _check_step(model, cfg, device)
-    proposal_fn = make_proposal_fn(cfg)
-    anchors = torch.from_numpy(anchor_table(cfg)).to(dev)
-
-    @torch.no_grad()
-    def step(batch: EvalBatch) -> NMSResult:
-        batch = batch_on(batch, dev)
-        with _span(STAGES[0]):
-            feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
-        with _span(STAGES[2]):
-            props, _, prop_valid = proposal_fn(rpn_cls, rpn_reg, anchors, batch.img_shapes,
-                                               cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)
-        return roi_stage(feats, props, prop_valid, batch)
-
-    return step
-
-
-def make_faster_rcnn_eval_step(model, cfg, device="cuda") -> Callable:
-    """Returns step(batch: EvalBatch) -> NMSResult ([B, max_per_img]
-    fields, boxes in original-image coordinates), under torch.no_grad(),
-    on `device` where `model` lives: features, proposals (test_nms_pre,
-    test_max_per_img), RoIAlign, the box head, softmax, per-class decode
-    with the target stds, the rescale, and multiclass NMS over the
-    class-specific boxes. The same contract as engine/eval.py
-    make_eval_step, so detections_to_per_class reads it. Dynamic R-CNN
-    evaluates through it."""
-    def roi_stage(feats, props, prop_valid, batch):
-        with _span(STAGES[4]):
-            roi_feats = extract_rois(cfg, feats, props)
-        with _span(STAGES[5]):
-            cls, reg = model.roi_forward(roi_feats)
-        with _span(STAGES[6]):
-            return _class_specific_detections(cfg, props, prop_valid, cls, reg, batch)
-
-    return _make_eval(model, cfg, device, roi_stage)
+def make_two_stage_train_step(model, cfg, optimizer, device="cuda", mesh=None) -> Callable:
+    """cfg's family's train step (on a data mesh with `mesh`)."""
+    return TRAIN_STEPS[cfg.family](model, cfg, optimizer, device=device, mesh=mesh)
 
 
 def cascade_refine(model, cfg, feats, props, img_shapes):
@@ -639,46 +647,109 @@ def cascade_refine(model, cfg, feats, props, img_shapes):
     return props, (logits / cfg.num_stages).reshape(b, p, -1)
 
 
-def make_cascade_eval_step(model, cfg, device="cuda") -> Callable:
-    """Cascade inference, the contract of make_faster_rcnn_eval_step: the
-    last stage's boxes under one softmax of the stages' averaged raw
-    logits (the reference sums the cls_score logits,
-    cascade_roi_head.py:329-332, and get_bboxes takes one softmax), then
-    multiclass NMS over the class-agnostic boxes."""
-    t, c = cfg.test, cfg.num_classes
+class TwoStageEvalStep(torch.nn.Module):
+    """The eval step of every two-stage family as a module (engine/eval.py
+    EvalStep's contract): forward(batch: EvalBatch of tensors on the
+    model's device) -> NMSResult ([B, max_per_img] fields, boxes in
+    original-image coordinates), so detections_to_per_class reads it. The
+    features and the test proposals (test_nms_pre, test_max_per_img), then
+    the family's RoI stage:
+    - faster_rcnn (and dynamic_rcnn, whose statistics buffers ride along
+      unused): RoIAlign, the box head, softmax, the per-class decode with
+      the target stds, the rescale, multiclass NMS over the class-specific
+      boxes;
+    - cascade_rcnn: every stage in turn (cascade_refine), the last
+      stage's boxes under one softmax of the stages' averaged raw logits
+      (the reference sums the cls_score logits, cascade_roi_head.py:329-332,
+      and get_bboxes takes one softmax), then multiclass NMS over the
+      class-agnostic boxes;
+    - double_head_rcnn: Faster R-CNN's with the double extraction and the
+      head's BatchNorm at its running statistics.
 
-    def roi_stage(feats, props, prop_valid, batch):
-        boxes, logits = cascade_refine(model, cfg, feats, props, batch.img_shapes)
+    The anchor table is a buffer. The eager steps run it under
+    torch.no_grad() (make_two_stage_eval_step); torch.export traces it
+    with `device_loop`, which runs every NMS fixpoint (the proposals', the
+    detections') as a device-side while_loop where the eager step checks
+    for convergence on the host: the same detections. Each stage runs in
+    its profiler range (STAGES) eagerly; the exported program holds none."""
+
+    _ROI_STAGES = {"cascade_rcnn": "_cascade", "double_head_rcnn": "_double_head"}
+
+    def __init__(self, model, cfg, device_loop: bool = False):
+        super().__init__()
+        check_two_stage_options(cfg)
+        self.model, self.cfg, self.device_loop = model, cfg, device_loop
+        self.proposals = make_proposal_fn(cfg, device_loop)
+        self.roi_stage = getattr(self, self._ROI_STAGES.get(cfg.family, "_faster"))
+        device = next(model.parameters()).device
+        self.register_buffer("anchors", torch.from_numpy(anchor_table(cfg)).to(device))
+
+    def forward(self, batch: EvalBatch) -> NMSResult:
+        cfg = self.cfg
+        with _span(STAGES[0]):
+            feats, rpn_cls, rpn_reg = self.model(prepare_images(batch.images, batch.img_shapes,
+                                                                cfg))
+        with _span(STAGES[2]):
+            props, _, prop_valid = self.proposals(rpn_cls, rpn_reg, self.anchors,
+                                                  batch.img_shapes, cfg.rpn.test_nms_pre,
+                                                  cfg.rpn.test_max_per_img)
+        return self.roi_stage(feats, props, prop_valid, batch)
+
+    def _nms(self, boxes, fg) -> NMSResult:
+        t = self.cfg.test
+        return batched_multiclass_nms(boxes, fg, t.score_thr, t.nms_iou_thr, t.max_per_img,
+                                      t.pre_nms_cands, self.device_loop)
+
+    def _class_specific(self, props, prop_valid, cls, reg, batch: EvalBatch) -> NMSResult:
+        """Softmax, the per-class decode with the target stds, the rescale to
+        the original image, and multiclass NMS over the class-specific boxes."""
+        cfg, c = self.cfg, self.cfg.num_classes
+        b, p = props.shape[:2]
         with _span(STAGES[6]):
-            probs = torch.softmax(logits, dim=-1)
-            fg = probs[..., :c] * prop_valid[..., None]
-            return batched_multiclass_nms(boxes / batch.scale_factors[:, None, :], fg,
-                                          t.score_thr, t.nms_iou_thr, t.max_per_img,
-                                          t.pre_nms_cands)
+            probs = torch.softmax(cls, dim=-1).reshape(b, p, c + 1)
+            boxes = delta_decode(props[:, :, None, :], reg.reshape(b, p, c, 4),
+                                 stds=cfg.rcnn.target_stds, max_shape=batch.img_shapes[:, None, :])
+            boxes = boxes / batch.scale_factors[:, None, None, :]
+            return self._nms(boxes, probs[..., :c] * prop_valid[..., None])
 
-    return _make_eval(model, cfg, device, roi_stage)
-
-
-def make_double_head_eval_step(model, cfg, device="cuda") -> Callable:
-    """Faster R-CNN's eval with the double extraction and the head's
-    BatchNorm at its running statistics."""
-    def roi_stage(feats, props, prop_valid, batch):
-        cls_feats, reg_feats = _double_extract(cfg, feats, props)
+    def _faster(self, feats, props, prop_valid, batch: EvalBatch) -> NMSResult:
+        with _span(STAGES[4]):
+            roi_feats = extract_rois(self.cfg, feats, props)
         with _span(STAGES[5]):
-            cls, reg = model.roi_forward(cls_feats, reg_feats, train=False)
+            cls, reg = self.model.roi_forward(roi_feats)
+        return self._class_specific(props, prop_valid, cls, reg, batch)
+
+    def _cascade(self, feats, props, prop_valid, batch: EvalBatch) -> NMSResult:
+        c = self.cfg.num_classes
+        boxes, logits = cascade_refine(self.model, self.cfg, feats, props, batch.img_shapes)
         with _span(STAGES[6]):
-            return _class_specific_detections(cfg, props, prop_valid, cls, reg, batch)
+            fg = torch.softmax(logits, dim=-1)[..., :c] * prop_valid[..., None]
+            return self._nms(boxes / batch.scale_factors[:, None, :], fg)
 
-    return _make_eval(model, cfg, device, roi_stage)
-
-
-# family -> its eval step's maker (JAX api.py make_eval_step_for)
-EVAL_STEPS = {"faster_rcnn": make_faster_rcnn_eval_step,
-              "cascade_rcnn": make_cascade_eval_step,
-              "dynamic_rcnn": make_faster_rcnn_eval_step,
-              "double_head_rcnn": make_double_head_eval_step}
+    def _double_head(self, feats, props, prop_valid, batch: EvalBatch) -> NMSResult:
+        cls_feats, reg_feats = _double_extract(self.cfg, feats, props)
+        with _span(STAGES[5]):
+            cls, reg = self.model.roi_forward(cls_feats, reg_feats, train=False)
+        return self._class_specific(props, prop_valid, cls, reg, batch)
 
 
 def make_two_stage_eval_step(model, cfg, device="cuda") -> Callable:
-    """cfg's family's eval step."""
-    return EVAL_STEPS[cfg.family](model, cfg, device=device)
+    """Returns step(batch: EvalBatch) -> NMSResult ([B, max_per_img]
+    fields, boxes in original-image coordinates): cfg's family's
+    TwoStageEvalStep under torch.no_grad(), on `device` where `model`
+    lives, on a batch of numpy arrays or tensors. The same contract as
+    engine/eval.py make_eval_step."""
+    dev = _check_step(model, cfg, device)
+    module = TwoStageEvalStep(model, cfg)
+
+    @torch.no_grad()
+    def step(batch: EvalBatch) -> NMSResult:
+        return module(batch_on(batch, dev))
+
+    return step
+
+
+# the Faster R-CNN eval step's name (a TwoStageEvalStep, as every family's)
+make_faster_rcnn_eval_step = make_two_stage_eval_step
+# family -> its eval step's maker (JAX api.py make_eval_step_for)
+EVAL_STEPS = {family: make_two_stage_eval_step for family in TRAIN_STEPS}

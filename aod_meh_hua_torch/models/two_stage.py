@@ -44,6 +44,7 @@ from torch import nn
 
 from ..utils.config import FasterRCNNConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .detector import flatten_levels
 from .fpn import FPN
 from .resnet import ResNet
@@ -252,7 +253,9 @@ class HeadBatchNorm2d(nn.Module):
     variance, as E[x^2] - E[x]^2 clipped at 0 (flax's fast variance),
     normalise the input and move the running statistics by 1%; torch's
     BatchNorm2d moves running_var by the unbiased variance. `train` is an
-    argument: the model stays in eval mode, its backbone BN frozen."""
+    argument: the model stays in eval mode, its backbone BN frozen. Across
+    ranks every rank moves its running statistics by the same global
+    values."""
 
     def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -262,16 +265,28 @@ class HeadBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    def forward(self, x: torch.Tensor, train: bool = False, data=None) -> torch.Tensor:
+        """`data`, in training: the data axis (engine/train.py DataAxis)
+        whose ranks hold the rest of the global batch. The statistics are
+        then the global batch's, as the JAX step's BatchNorm takes them
+        under jit over a sharded batch: the per-channel sums of x and x^2
+        and the element count all-reduced, with their gradient."""
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if data is None or data.group is None:
+                mean, ex2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            else:
+                c = x.shape[1]
+                count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+                sums = data.sum_with_grad(torch.cat([x.sum(dim=(0, 2, 3)),
+                                                     (x * x).sum(dim=(0, 2, 3)), count]))
+                mean, ex2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+            var = (ex2 - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
                 self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
-        else:
-            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
@@ -289,10 +304,10 @@ class _HeadBottleneck(nn.Module):
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = HeadBatchNorm2d(planes * 4)
 
-    def forward(self, x, train: bool = False):
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = torch.relu(self.bn2(self.conv2(y), train))
-        return torch.relu(self.bn3(self.conv3(y), train) + x)
+    def forward(self, x, train: bool = False, data=None):
+        y = torch.relu(self.bn1(self.conv1(x), train, data))
+        y = torch.relu(self.bn2(self.conv2(y), train, data))
+        return torch.relu(self.bn3(self.conv3(y), train, data) + x)
 
 
 class BasicResBlock(nn.Module):
@@ -309,10 +324,10 @@ class BasicResBlock(nn.Module):
         self.conv_identity = nn.Conv2d(in_channels, out_channels, 1, bias=False)
         self.bn_identity = HeadBatchNorm2d(out_channels)
 
-    def forward(self, x, train: bool = False):
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
-        return torch.relu(y + self.bn_identity(self.conv_identity(x), train))
+    def forward(self, x, train: bool = False, data=None):
+        y = torch.relu(self.bn1(self.conv1(x), train, data))
+        y = self.bn2(self.conv2(y), train, data)
+        return torch.relu(y + self.bn_identity(self.conv_identity(x), train, data))
 
 
 # the profiler range of the conv branch (engine/two_stage.py STAGES)
@@ -351,18 +366,21 @@ class DoubleConvFCBBoxHead(nn.Module):
         for fc in (*self.fc_branch, self.fc_cls, self.fc_reg):
             fc.bias.zero_()
 
-    def conv_branch_forward(self, x_reg: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def conv_branch_forward(self, x_reg: torch.Tensor, train: bool = False,
+                            data=None) -> torch.Tensor:
         """[R, S, S, C] -> the pooled [R, conv_out] features."""
-        with torch.profiler.record_function(CONV_BRANCH_SPAN):
-            y = self.res_block(x_reg.permute(0, 3, 1, 2), train)
+        with span(CONV_BRANCH_SPAN):
+            y = self.res_block(x_reg.permute(0, 3, 1, 2), train, data)
             for block in self.conv_branch:
-                y = block(y, train)
+                y = block(y, train, data)
             return y.mean(dim=(2, 3))
 
-    def forward(self, x_cls: torch.Tensor, x_reg: torch.Tensor, train: bool = False):
+    def forward(self, x_cls: torch.Tensor, x_reg: torch.Tensor, train: bool = False,
+                data=None):
         """(cls [R, C + 1], class-specific deltas [R, num_classes, 4]); in
-        training the BN statistics come from all R RoIs."""
-        reg = self.fc_reg(self.conv_branch_forward(x_reg, train))
+        training the BN statistics come from all R RoIs, and from every
+        rank's RoIs across a `data` axis (HeadBatchNorm2d)."""
+        reg = self.fc_reg(self.conv_branch_forward(x_reg, train, data))
         f = x_cls.reshape(x_cls.shape[0], -1)
         for fc in self.fc_branch:
             f = torch.relu(fc(f))
@@ -379,8 +397,8 @@ class DoubleHeadRCNN(FasterRCNN):
             cfg.dh_num_fcs, cfg.dh_conv_out, cfg.dh_fc_out)
 
     def roi_forward(self, cls_feats: torch.Tensor, reg_feats: torch.Tensor,
-                    train: bool = False):
-        return self.bbox_head(cls_feats, reg_feats, train)
+                    train: bool = False, data=None):
+        return self.bbox_head(cls_feats, reg_feats, train, data)
 
 
 # family -> the port's model class

@@ -130,14 +130,16 @@ def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def grouped_nms(boxes: torch.Tensor, scores: torch.Tensor, group_ids: torch.Tensor,
-                valid: torch.Tensor, iou_thr: float, max_out: int) -> NMSResult:
+                valid: torch.Tensor, iou_thr: float, max_out: int,
+                device_loop: bool = False) -> NMSResult:
     """Single-class greedy NMS per image in which boxes of different group
     ids never suppress each other. boxes [B, N, 4], scores [B, N],
     group_ids [B, N] int, valid [B, N] bool -> NMSResult of [B, max_out]
     fields; `labels` carries the group id and `anchor_idx` the index into
     the N candidates. The candidates are ordered by descending score,
     ties by index (the JAX package's stable argsort of the negated
-    scores)."""
+    scores). device_loop: the fixpoint as a device-side while_loop
+    (_greedy_keep_sorted), for torch.export."""
     neg = torch.full((), _NEG_INF, dtype=scores.dtype, device=scores.device)
     order = torch.sort(torch.where(valid, scores, neg), dim=1, descending=True,
                        stable=True).indices
@@ -146,7 +148,7 @@ def grouped_nms(boxes: torch.Tensor, scores: torch.Tensor, group_ids: torch.Tens
     groups = _gather_rows(group_ids, order)
     off_boxes = _gather_rows(boxes, order) \
         + (groups.to(boxes.dtype) * (max_coord[:, None] + 1.0))[..., None]
-    keep = _greedy_keep_sorted(off_boxes, _gather_rows(valid, order), iou_thr)
+    keep = _greedy_keep_sorted(off_boxes, _gather_rows(valid, order), iou_thr, device_loop)
     kept_slots, ok = _compact_keep(keep, max_out)
     slots = torch.gather(order, 1, kept_slots)  # back to the candidates' indices
     return NMSResult(torch.where(ok[..., None], _gather_rows(boxes, slots), zero),

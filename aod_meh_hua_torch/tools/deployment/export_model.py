@@ -1,26 +1,33 @@
 """Serving export: the eval step (forward -> decode -> NMS) as a
-torch.export program with the weights inside.
+torch.export program with the weights inside, for every family the port
+builds: the dense ones (RetinaNet, SSD; engine/eval.py EvalStep) and the
+two-stage ones (Faster, Cascade, Dynamic and Double-Head R-CNN;
+engine/two_stage.py TwoStageEvalStep, the cascade's three stages in one
+program, Dynamic R-CNN's as Faster R-CNN's, the double head's BN at its
+running statistics).
 
 Port of tools/deployment/export_model.py of the JAX package (flags
 :17-84), whose artifact is a jax.export StableHLO blob; here it is a
 torch.export ExportedProgram saved with torch.export.save (a .pt2 zip).
 The program is traced at a fixed batch on float32 canvases normalised on
 the host (the JAX artifacts' input, package_model.py's geometry block),
-with the NMS fixpoint as a device-side while_loop and, for
-fused_blocks=True, each fused block as one `aod_meh_hua_torch::
+with every NMS fixpoint (the proposals' too) as a device-side
+while_loop and, for fused_blocks=True, each fused block as one `aod_meh_hua_torch::
 fused_bottleneck` node whose BN fold is recorded on the parameters
 (models/resnet.py folds_in_graph). A program exported on the card runs
 the kernel on the card when it is called.
 
     python -m aod_meh_hua_torch.tools.deployment.export_model \\
-        [--family retinanet|ssd] [--checkpoint c.ckpt] [--out det.pt2] \\
-        [--batch 8] [--mini] [--cpu]
+        [--family retinanet|ssd|faster_rcnn|cascade_rcnn|dynamic_rcnn|double_head_rcnn] \\
+        [--checkpoint c.ckpt] [--out det.pt2] [--batch 8] [--mini] [--cpu]
 
 It runs on the card unless given --cpu, and pins the numerics
 (utils/device.py pin_numerics). `export_eval_step(cfg, model, batch)`
-exports a model the caller built (e.g. fused, through api.py). Loading a
+exports a model the caller built (e.g. fused, through api.py; pass
+cfg.for_orientation("portrait") for the portrait program). Loading a
 program needs the operator and the two namedtuples registered: use
-`load_program`, which imports them.
+`load_program`, which imports them. An exported program holds no
+profiler range: it is timed as one.
 """
 
 from __future__ import annotations
@@ -34,19 +41,22 @@ import torch
 
 from ...engine.batch import EvalBatch
 from ...engine.eval import EvalStep, batch_on
+from ...engine.two_stage import TwoStageEvalStep
 from ...models.resnet import folds_in_graph
 from ...ops import fused_block  # noqa: F401 (registers aod_meh_hua_torch::fused_bottleneck)
 from ...ops.nms import NMSResult
+from ...utils.config import ALL_FAMILIES
 from ...utils.device import pin_numerics
 
-EXPORTED_FAMILIES = ("retinanet", "ssd")
+# every family the port builds
+EXPORTED_FAMILIES = ALL_FAMILIES
 
 
 def config_for(family: str, mini: bool = False):
-    """The JAX tools' config choice: --mini the tiny RetinaNet, else the
-    family's default; families other than retinanet and ssd raise (the
-    two-stage families' export waits for ROADMAP Queue 1 item 15)."""
-    from ...utils.config import RetinaNetConfig, SSDConfig, tiny_test_config
+    """The JAX tools' config choice (export_model.py :53-62): --mini the
+    tiny RetinaNet (the retinanet smoke mode), else the family's default,
+    a model-zoo family's from ZOO_FAMILIES."""
+    from ...utils.config import ZOO_FAMILIES, RetinaNetConfig, SSDConfig, tiny_test_config
 
     if mini:
         return tiny_test_config()
@@ -54,8 +64,7 @@ def config_for(family: str, mini: bool = False):
         return RetinaNetConfig()
     if family == "ssd":
         return SSDConfig()
-    raise NotImplementedError(
-        f"the export of the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
+    return ZOO_FAMILIES[family][0]()
 
 
 def example_batch(cfg, batch: int, device) -> EvalBatch:
@@ -68,13 +77,22 @@ def example_batch(cfg, batch: int, device) -> EvalBatch:
                      torch.ones(batch, dtype=torch.bool, device=device))
 
 
+def eval_module(cfg, model, device_loop: bool = False) -> torch.nn.Module:
+    """The family's eval step as a module: TwoStageEvalStep for a
+    two-stage family, EvalStep for the dense ones."""
+    if cfg.family in ("retinanet", "ssd"):
+        return EvalStep(model, cfg, device_loop=device_loop)
+    return TwoStageEvalStep(model, cfg, device_loop=device_loop)
+
+
 def export_eval_step(cfg, model, batch: int) -> torch.export.ExportedProgram:
-    """torch.export of EvalStep(model, cfg) at `batch` on the model's
-    device: float32 canvases of cfg.canvas (pass cfg.for_orientation(...)
-    for the portrait program), the NMS loop on the device, the fused
+    """torch.export of the family's eval module (eval_module) at `batch` on
+    the model's device: float32 canvases of cfg.canvas (pass
+    cfg.for_orientation(...) for the portrait program, whose anchors and
+    canvas are that config's), every NMS loop on the device, the fused
     blocks' folds in the graph. Raises whatever export raises."""
     device = next(model.parameters()).device
-    step = EvalStep(model, cfg, device_loop=True)
+    step = eval_module(cfg, model, device_loop=True)
     with torch.no_grad(), folds_in_graph(model):
         program = torch.export.export(step, (example_batch(cfg, batch, device),))
     # the saved program keeps no input (at batch 8 the canvases are 60 MB),
@@ -119,9 +137,9 @@ def fused_nodes(program: torch.export.ExportedProgram) -> int:
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description="Export the eval step with torch.export")
-    ap.add_argument("--family", default="retinanet",
-                    help="retinanet or ssd (the two-stage families' export: ROADMAP "
-                         "Queue 1 item 15)")
+    ap.add_argument("--family", default="retinanet", choices=sorted(EXPORTED_FAMILIES),
+                    help="a dense family (retinanet, ssd) or a two-stage one (the cascade's "
+                         "three stages export as one program)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--out", default="detector_export.pt2")
     ap.add_argument("--batch", type=int, default=1)

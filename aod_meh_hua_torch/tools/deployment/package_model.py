@@ -9,11 +9,13 @@ a tar of that program (and a portrait one) with a MANIFEST.json: model
 name, version, family, score threshold, class names and the `geometry`
 block (canvas, resize rule, batch, normalisation, class count), so that
 a serving host (serve.py ArchiveDetector) preprocesses without the
-model's config.
+model's config. Every exported family packages alike, the two-stage
+ones (Faster, Cascade, Dynamic and Double-Head R-CNN) as the dense ones:
+the geometry is the family's default pipeline, as JAX :130-145 takes it.
 
     python -m aod_meh_hua_torch.tools.deployment.package_model det.pt2 \\
         --output-folder model_store --model-name retinanet_meh \\
-        [--artifact-portrait p.pt2] [--family retinanet] \\
+        [--artifact-portrait p.pt2] [--family retinanet|cascade_rcnn|...] \\
         [--model-version 1.0] [--score-thr 0.5] [--batch 8] [--force]
 """
 
@@ -27,7 +29,7 @@ import os
 import tarfile
 from typing import Optional, Sequence
 
-from .export_model import config_for, load_program
+from .export_model import EXPORTED_FAMILIES, config_for, load_program
 
 ARTIFACTS = {"landscape": "model.pt2", "portrait": "model_portrait.pt2"}
 
@@ -106,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--model-name", default=None,
                     help="default: artifact basename (mmdet2torchserve uses the checkpoint stem)")
     ap.add_argument("--model-version", default="1.0")
-    ap.add_argument("--family", default="retinanet")
+    ap.add_argument("--family", default="retinanet", choices=sorted(EXPORTED_FAMILIES))
     ap.add_argument("--score-thr", type=float, default=0.5)
     ap.add_argument("--voc-classes", action="store_true",
                     help="embed the VOC class list in the manifest")

@@ -80,7 +80,10 @@ class ArchiveDetector:
     the archive's exported eval steps (weights inside, on the device they
     were exported on), the preprocessing geometry is the MANIFEST's. It
     has the predict_batch(images) of api.Detector that the Batcher
-    drives."""
+    drives. Every family's program returns the same NMSResult, so a
+    two-stage archive (Faster, Cascade, Dynamic or Double-Head R-CNN)
+    serves as a dense one: the manifest's family and geometry are all it
+    reads."""
 
     def __init__(self, archive_path: str):
         from .package_model import load_archive

@@ -8,7 +8,9 @@ export_model.py's: weights inside, one canvas orientation and one batch
 size each, on the device they were exported on. Pass
 --artifact-portrait too for a split with portrait images: batches of an
 orientation without a program are skipped, with a warning, so a
-one-program run is a partial eval.
+one-program run is a partial eval. --family picks the config as the JAX
+tool does (:67-72): the family's default, a two-stage one's from
+ZOO_FAMILIES; --mini the tiny RetinaNet.
 
     python -m aod_meh_hua_torch.tools.deployment.export_model --batch 8 --out land.pt2
     python -m aod_meh_hua_torch.tools.deployment.test_exported land.pt2 \\
@@ -17,7 +19,8 @@ one-program run is a partial eval.
 It runs on the card unless given --cpu (then the programs must have
 been exported on the CPU). main returns the mAP; run(argv) returns it
 with the per-image results (detections_to_per_class) and the dataset
-index of each, in the sweep's order.
+index of each, in the sweep's order; sweep(programs, cfg, dataset, pipe,
+batch) is its loop over loaded programs.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ...utils.device import pin_numerics, resolve_device
-from .export_model import config_for, load_program, run_program
+from .export_model import EXPORTED_FAMILIES, config_for, load_program, run_program
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
@@ -37,7 +40,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description="VOC mAP of exported programs")
     ap.add_argument("artifact", help="exported .pt2 (landscape program)")
     ap.add_argument("--artifact-portrait", default=None)
-    ap.add_argument("--family", default="retinanet")
+    ap.add_argument("--family", default="retinanet", choices=sorted(EXPORTED_FAMILIES))
     ap.add_argument("--voc07", required=True)
     ap.add_argument("--voc12", default=None)
     ap.add_argument("--split", default="test")
@@ -47,11 +50,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     args = ap.parse_args(argv)
 
-    from ...data.loader import EvalLoader
     from ...data.pipeline import PipelineConfig
     from ...data.voc import ConcatVOC, VOCDataset
-    from ...engine.eval import detections_to_per_class
-    from ...utils.voc_eval import eval_map
 
     pin_numerics()
     device = resolve_device("cpu" if args.cpu else "cuda")
@@ -75,8 +75,20 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     pipe = PipelineConfig(canvas=cfg.canvas)
     if args.mini:
         pipe = PipelineConfig(img_scale=(250, 120), canvas=cfg.canvas)
-    loader = EvalLoader(dataset, np.arange(len(dataset)), pipe, batch_size=args.batch)
+    return sweep(programs, cfg, dataset, pipe, args.batch)
 
+
+def sweep(programs: dict, cfg, dataset, pipe, batch_size: int) -> dict:
+    """The loaded programs ({orientation: module}) over every image of
+    `dataset` through `pipe`'s canvases at the programs' batch:
+    {"mAP", "results" (detections_to_per_class, in the sweep's order),
+    "order" (the dataset index of each)}; the images of an orientation
+    without a program are skipped, with a warning."""
+    from ...data.loader import EvalLoader
+    from ...engine.eval import detections_to_per_class
+    from ...utils.voc_eval import eval_map
+
+    loader = EvalLoader(dataset, np.arange(len(dataset)), pipe, batch_size=batch_size)
     results, order, skipped = [], [], 0
     for orientation, batch, bidx in loader:
         prog = programs.get(orientation)

@@ -9,8 +9,10 @@ families of utils/config.py ZOO_FAMILIES: `faster_rcnn`, `cascade_rcnn`,
 (engine/two_stage.py TRAIN_STEPS, the JAX tool's make_steps). It keeps
 the JAX flags this family uses (--family, --voc07, --voc12, --work-dir,
 --epochs, --lr-steps, --batch-size, --lr, --momentum, --weight-decay,
---seed, --eval-interval, --mini, --no-validate) and adds --cpu, the
-port's way to ask for the CPU; it runs on the card otherwise. It writes
+--seed, --eval-interval, --mini, --no-validate, and the ranks' flags
+--num-devices, --distributed, --coordinator, --num-processes and
+--process-id) and adds --cpu, the port's way to ask for the CPU; it runs
+on the card otherwise. It writes
 the JAX tool's files: one `train_log.jsonl` row per epoch ({"epoch",
 "loss", "lr"} and "mAP" after an eval), `metrics.json`,
 `{family}_final.ckpt` (a torch state_dict, which api.init_detector and
@@ -26,11 +28,27 @@ orientation trains with its own step, whose anchor table is that
 canvas's; the JAX tool builds one step on the landscape canvas and feeds
 it the portrait batches too.
 
+Several ranks, one device each, data parallel (JAX :326-334, :419-429,
+:590-610): under a launcher (torchrun, slurm, mpi) or with --distributed
+the ranks come from the environment or --coordinator/--num-processes/
+--process-id, and --num-devices counts the global devices; --num-devices
+N alone starts N local ranks (spawn), rank r on card r (or on the CPU
+under --cpu), as tools/train_retinanet.py does. Every rank walks the same
+global batches and takes its rows of each (parallel.shard_batch); the
+step on N ranks is the one-process step on the global batch
+(engine/two_stage.py _make_step), so --batch-size must divide by N. The
+eval is sharded by rank (parallel.rank_indices) and gathered
+(collect_objects) before the mAP. Only rank 0 writes the log, the
+checkpoint, the meta file and metrics.json.
+
     python -m aod_meh_hua_torch.tools.train_detector --family cascade_rcnn \\
-        --voc07 .../VOC2007 [--voc12 .../VOC2012] --work-dir work [--mini] [--cpu]
+        --voc07 .../VOC2007 [--voc12 .../VOC2012] --work-dir work [--mini] [--cpu] \\
+        [--num-devices N]
+    torchrun --nproc-per-node N -m aod_meh_hua_torch.tools.train_detector ...
 
 In process: main(argv) trains and returns the model, the config and the
-per-epoch rows.
+per-epoch rows (in the process that starts local ranks: None, once every
+rank is done).
 """
 
 from __future__ import annotations
@@ -38,12 +56,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from aod_meh_hua_torch.parallel.launch import launcher_requested, spawn_local_ranks
+from aod_meh_hua_torch.tools.train_retinanet import spawns_local_ranks
 from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 from aod_meh_hua_torch.utils.device import pin_numerics, resolve_device
 
@@ -74,11 +95,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--mini", action="store_true", help="tiny model smoke mode")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     ap.add_argument("--no-validate", action="store_true")
-    ap.add_argument("--num-devices", type=int, default=None, help="(not ported)")
-    ap.add_argument("--distributed", action="store_true", help="(not ported)")
-    ap.add_argument("--coordinator", default=None, help="(not ported)")
-    ap.add_argument("--num-processes", type=int, default=None, help="(not ported)")
-    ap.add_argument("--process-id", type=int, default=None, help="(not ported)")
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="data-parallel over N devices, one process each; without a "
+                         "launcher environment the CLI starts the N local ranks itself")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-host: init torch.distributed from the launcher's "
+                         "environment or the flags below")
+    ap.add_argument("--coordinator", default=None, help="coordinator address host:port")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--proposal-file", default=None, help="fast_rcnn (not ported)")
     ap.add_argument("--proposal-file-val", default=None, help="fast_rcnn (not ported)")
     ap.add_argument("--oversample-thr", type=float, default=None, help="(not ported)")
@@ -102,9 +127,6 @@ def refuse_unported(args) -> None:
         (args.albu, "--albu (data/albu.py)", "14"),
         (args.proposal_file or args.proposal_file_val, "--proposal-file (Fast R-CNN)", "15"),
         (args.teacher_ckpt, "--teacher-ckpt (LD)", "15"),
-        ((args.num_devices or 1) > 1 or args.distributed or args.coordinator
-         or args.num_processes or args.process_id is not None,
-         "the trainer across ranks (--num-devices, --distributed)", "15"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
     for given, flag, item in refused:
@@ -122,18 +144,24 @@ def pipeline_for(cfg, mini: bool):
                           device_normalize=True)
 
 
-def evaluate(model, cfg, val, pipe, batch_size: int, device) -> Dict:
+def evaluate(model, cfg, val, pipe, batch_size: int, device, process_id: int = 0,
+             process_count: int = 1, work_dir: str = "") -> Dict:
     """The eval sweep of `val` (every image, both orientations) through the
     family's eval step: {"results": per image per class [k, 5] arrays in
-    dataset order, "mAP": VOC07 11-point mAP at IoU 0.5}."""
+    dataset order, "mAP": VOC07 11-point mAP at IoU 0.5}. Across ranks
+    each sweeps its rank_indices slice and the results are gathered
+    (collect_objects, a collective: every rank calls it) into dataset
+    order, from which every rank computes the one mAP."""
     from aod_meh_hua_torch.api import make_eval_step_for
     from aod_meh_hua_torch.data.loader import EvalLoader
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
+    from aod_meh_hua_torch.parallel import collect_objects, rank_indices
     from aod_meh_hua_torch.utils.voc_eval import eval_map
 
     steps, results, order = {}, [], []
-    for orientation, ebatch, idx in EvalLoader(val, np.arange(len(val)), pipe,
-                                               batch_size=batch_size):
+    for orientation, ebatch, idx in EvalLoader(
+            val, rank_indices(len(val), process_id, process_count), pipe,
+            batch_size=batch_size):
         if orientation not in steps:
             steps[orientation] = make_eval_step_for(model, cfg.for_orientation(orientation),
                                                     device)
@@ -141,10 +169,41 @@ def evaluate(model, cfg, val, pipe, batch_size: int, device) -> Dict:
         results.extend(detections_to_per_class(dets, cfg.num_classes,
                                                np.asarray(ebatch.valid)))
         order.extend(idx.tolist())
+    if process_count > 1:
+        parts = collect_objects(work_dir, "eval", (results, order))
+        results = [r for res, _ in parts for r in res]
+        order = [i for _, o in parts for i in o]
     results = [r for _, r in sorted(zip(order, results), key=lambda p: p[0])]
     anns = [val.get_ann_info(i) for i in range(len(val))]
     return {"results": results,
             "mAP": eval_map(results, anns, iou_thr=0.5, mode="11points")["mAP"]}
+
+
+def join_ranks(args, device: str):
+    """(process_id, process_count, device, mesh): this process's place
+    among the ranks, its one device and the data mesh (None for one
+    process), as JAX :326-334 and :419-429 take them; --batch-size must
+    divide by the ranks."""
+    from aod_meh_hua_torch.parallel import init_distributed, make_mesh
+    from aod_meh_hua_torch.parallel.launch import rank_device
+
+    if not launcher_requested(args):
+        return 0, 1, resolve_device(device), None
+    info = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                            device=device)
+    proc_id, proc_count = info["process_index"], info["process_count"]
+    num_devices = args.num_devices or info["global_devices"]
+    print(f"distributed: process {proc_id}/{proc_count}, {info['local_devices']} local "
+          "devices", flush=True)
+    if num_devices != proc_count:
+        raise ValueError(f"--num-devices {num_devices}: the port runs one device per process "
+                         f"and {proc_count} are running")
+    if args.batch_size % num_devices:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                         f"--num-devices {num_devices}")
+    dev = resolve_device(rank_device(device))
+    mesh = make_mesh(num_devices, device_type=dev.type) if num_devices > 1 else None
+    return proc_id, proc_count, dev, mesh
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -154,6 +213,12 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit("--family is required")
     if not args.voc07:
         raise SystemExit("--voc07 is required")
+    if spawns_local_ranks(args):
+        if args.batch_size % args.num_devices:
+            raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                             f"--num-devices {args.num_devices}")
+        return spawn_local_ranks(main, sys.argv[1:] if argv is None else argv,
+                                 args.num_devices, args.cpu)
     pin_numerics()
     from aod_meh_hua_torch.api import init_detector
     from aod_meh_hua_torch.data.loader import TrainLoader
@@ -161,15 +226,19 @@ def main(argv: Optional[Sequence[str]] = None):
     from aod_meh_hua_torch.engine.checkpoint import save_checkpoint
     from aod_meh_hua_torch.engine.train import create_train_state, set_learning_rate
     from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.parallel import gather_to_host, replicate, shard_batch
     from aod_meh_hua_torch.utils.config import TrainConfig
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    proc_id, proc_count, device, mesh = join_ranks(args, "cpu" if args.cpu else "cuda")
+    is_main = proc_id == 0
     os.makedirs(args.work_dir, exist_ok=True)
     full_cls, tiny_fn = ZOO_FAMILIES[args.family]
     cfg = tiny_fn() if args.mini else full_cls()
     tcfg = TrainConfig(lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
                        batch_size=args.batch_size, seed=args.seed)
     model = init_detector(cfg, seed=args.seed, device=device)
+    if mesh is not None:
+        replicate(model, mesh)
     optimizer = create_train_state(model, tcfg, frozen_stages=cfg.frozen_stages)
 
     # the --mini heads have fewer than 20 classes: the matching class subset
@@ -186,9 +255,11 @@ def main(argv: Optional[Sequence[str]] = None):
         if os.path.exists(test_txt):
             val = VOCDataset(test_txt, args.voc07, test_mode=True, classes=classes)
     pipe = pipeline_for(cfg, args.mini)
+    # every rank walks the same global batches, in the same orientations
     loader = TrainLoader(train_set, np.arange(len(train_set)), cfg, pipe,
                          batch_size=args.batch_size, seed=args.seed)
     steps = {}
+    # every rank draws the global batch's uniforms from the same stream
     generator = torch.Generator(device=device).manual_seed(args.seed)
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
     metrics = []
@@ -200,26 +271,31 @@ def main(argv: Optional[Sequence[str]] = None):
         for orientation, batch in loader:
             if orientation not in steps:
                 steps[orientation] = make_two_stage_train_step(
-                    model, cfg.for_orientation(orientation), optimizer, device=device)
-            losses.append(steps[orientation](batch, generator)["loss"])
+                    model, cfg.for_orientation(orientation), optimizer, device=device,
+                    mesh=mesh)
+            rows = batch if mesh is None else shard_batch(batch, mesh)
+            losses.append(steps[orientation](rows, generator)["loss"])
         mean_loss = float(np.mean([float(v) for v in losses]))
         print(f"epoch {epoch}: {len(losses)} iters, mean loss {mean_loss:.4f}, "
               f"lr {lr:g}, {time.time() - t0:.1f}s", flush=True)
         row = {"epoch": epoch, "loss": mean_loss, "lr": lr}
         if val is not None and (epoch + 1) % args.eval_interval == 0:
-            row["mAP"] = evaluate(model, cfg, val, pipe, max(args.batch_size, 4),
-                                  device)["mAP"]
+            row["mAP"] = evaluate(model, cfg, val, pipe, max(args.batch_size, 4), device,
+                                  proc_id, proc_count, args.work_dir)["mAP"]
             print(f"epoch {epoch}: mAP {row['mAP']:.4f}", flush=True)
         metrics.append(row)
-        with open(log_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
-    ckpt = os.path.join(args.work_dir, f"{args.family}_final.ckpt")
-    save_checkpoint(ckpt, {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    with open(os.path.join(args.work_dir, f"{args.family}_meta.json"), "w") as f:
-        json.dump({"family": args.family, "epochs": args.epochs, "dtype": args.dtype}, f)
-    with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
-        json.dump(metrics, f, indent=1)
-    print(f"saved {ckpt}")
+        if is_main:
+            with open(log_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+    state = gather_to_host(model)  # collective when sharded: every rank calls it
+    if is_main:
+        ckpt = os.path.join(args.work_dir, f"{args.family}_final.ckpt")
+        save_checkpoint(ckpt, state)
+        with open(os.path.join(args.work_dir, f"{args.family}_meta.json"), "w") as f:
+            json.dump({"family": args.family, "epochs": args.epochs, "dtype": args.dtype}, f)
+        with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=1)
+        print(f"saved {ckpt}")
     return model, cfg, metrics
 
 

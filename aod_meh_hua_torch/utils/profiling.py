@@ -17,6 +17,17 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 
+def span(name: str):
+    """A profiler range named `name` (torch.profiler.record_function, a
+    no-op unless the profiler records), or none while torch.export traces:
+    an exported program holds no ranges, so its time cannot be split by
+    them (torch 2.13's export drops them; the guard makes every version
+    do so)."""
+    if torch.compiler.is_exporting():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def profile_time(name: str, stream=None, enabled: bool = True, device="cuda"):
     """Time a region and print "name: t ms" (to `stream`, else stdout).

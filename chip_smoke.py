@@ -152,7 +152,22 @@
    the trainer's CLI with --family cascade_rcnn for one epoch on a
    fixture tree (build/chip_smoke_zoo/), its Detector and the FPS tool.
    Each path's launch counts must read 0.
-20. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+20. The two-stage deploy phase (two_stage_deploy_path): Faster and
+   Cascade R-CNN at full width (seed 0, heads sharpened) exported with
+   torch.export at batch 8 in both orientations (every NMS a device
+   while_loop, the cascade's three stages in one program), saved,
+   packaged into one archive each and loaded back: export and load
+   seconds, archive MB, the 26 synthetic canvases through the loaded
+   programs against the eager TwoStageEvalStep (no image may differ),
+   ms per batch of the two in turns (Faster R-CNN's programs trace in a
+   subprocess while the cascade's trace here); the cascade's archive
+   behind the HTTP server (ArchiveDetector, 16 requests of the fixture
+   JPEGs, each reply held to a Detector's rows); the Faster and Double-Head R-CNN
+   train steps at full width on two gloo ranks sharing cuda:0 (global
+   batch 2) against the one-process step, after each of two steps (see
+   two_stage_ranks_path), ms per step per rank. Each path's launch
+   counts must read 0.
+21. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -170,7 +185,7 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-21. Prints a per-case line, a `{"kernels": [...]}` line, the card line
+22. Prints a per-case line, a `{"kernels": [...]}` line, the card line
    and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -2516,10 +2531,13 @@ class _Forwards:
         return self.det.predict_batch(images, max_batch=max_batch)
 
 
-def serve_load(det, payloads, expected, what):
-    """SERVE_REQUESTS POSTs from SERVE_CLIENTS threads to a server on
-    127.0.0.1:0 around `det`, raw and base64 in turns; each reply held to
-    expected[i % len]. Returns latency, rate, batches, launches, agreement."""
+def serve_load(det, payloads, expected, what, per_forward: int = FUSED_PER_FORWARD,
+               score_thr: float = SERVE_SCORE_THR, requests: int = SERVE_REQUESTS):
+    """`requests` POSTs from SERVE_CLIENTS threads to a server on
+    127.0.0.1:0 around `det` (its rows at or above score_thr), raw and
+    base64 in turns; each reply held to expected[i % len]. The fused
+    kernel must launch per_forward times a forward. Returns latency, rate,
+    batches, launches, agreement."""
     import base64
     import threading
     import urllib.request
@@ -2531,13 +2549,13 @@ def serve_load(det, payloads, expected, what):
 
     counted = _Forwards(det)
     batcher = Batcher(counted, max_batch=BATCH, delay_ms=5.0)
-    handler = make_handler(batcher, VOC_CLASSES, SERVE_SCORE_THR)
+    handler = make_handler(batcher, VOC_CLASSES, score_thr)
     handler.log_message = lambda *a: None
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}/predictions"
-    lat, agree, errors = [0.0] * SERVE_REQUESTS, [None] * SERVE_REQUESTS, []
+    lat, agree, errors = [0.0] * requests, [None] * requests, []
     lock = threading.Lock()
     next_req = [0]
 
@@ -2546,7 +2564,7 @@ def serve_load(det, payloads, expected, what):
             with lock:
                 i = next_req[0]
                 next_req[0] += 1
-            if i >= SERVE_REQUESTS:
+            if i >= requests:
                 return
             raw = payloads[i % len(payloads)]
             body = raw if i % 2 == 0 else base64.b64encode(raw)
@@ -2585,17 +2603,17 @@ def serve_load(det, payloads, expected, what):
     flips = [i for i, a in enumerate(agree) if a == "flip"]
     if len(flips) > SERVE_MAX_FLIPS:
         fail(f"{what}: {len(flips)} replies differ from the Detector's rows: {flips}")
-    if launches["fused_bottleneck"] != FUSED_PER_FORWARD * counted.forwards or \
+    if launches["fused_bottleneck"] != per_forward * counted.forwards or \
             counted.forwards == 0:
         fail(f"{what}: launches {launches} for {counted.forwards} forwards")
-    return dict(requests=SERVE_REQUESTS, clients=SERVE_CLIENTS, wall_s=wall,
-                req_per_s=SERVE_REQUESTS / wall, p50_ms=float(np.percentile(lat, 50)),
+    return dict(requests=requests, clients=SERVE_CLIENTS, wall_s=wall,
+                req_per_s=requests / wall, p50_ms=float(np.percentile(lat, 50)),
                 p99_ms=float(np.percentile(lat, 99)), mean_ms=float(np.mean(lat)),
                 batches=len(counted.sizes),
                 mean_batch=float(np.mean(counted.sizes)), forwards=counted.forwards,
                 replies={k: agree.count(k) for k in ("exact", "close", "flip")},
                 flipped_requests=flips, rows=sum(len(expected[i % len(payloads)])
-                                                 for i in range(SERVE_REQUESTS)),
+                                                 for i in range(requests)),
                 launches=launches)
 
 
@@ -3497,6 +3515,521 @@ def zoo_path(device, card: str) -> tuple:
     return out, launches
 
 
+# --- the two-stage families' export, archive server and train step across ranks -----
+
+DEPLOY = REPO / "build" / "chip_smoke_two_stage_deploy"
+RANK_FAMILIES = ("faster_rcnn", "double_head_rcnn")  # their train steps on two ranks
+RANK_TIMED = 3  # timed steps per rank after the DIST_STEPS compared ones
+TWO_STAGE_REQUESTS = 16  # to the two-stage archive's server: two batches of the fixtures
+
+
+def sharpened_two_stage(device, family: str):
+    """The family's full-width config and model (seed 0, its heads
+    sharpened on the first synthetic batch, as frcnn_eval_path), and the
+    synthetic pool: (cfg, model, triples, n)."""
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    cfg = ZOO_FAMILIES[family][0]()
+    model = build_two_stage(cfg, device=device, seed=0)
+    triples, n = synthetic_pool(cfg)
+    first = upload(triples[0][1], device)
+    sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
+    return cfg, model, triples, n
+
+
+def export_both_orientations(cfg, model) -> float:
+    """The model's eval step exported at batch 8 in both orientations and
+    saved under DEPLOY: the seconds it took."""
+    from aod_meh_hua_torch.tools.deployment import export_model
+
+    t0 = time.time()
+    for o in ("landscape", "portrait"):
+        export_model.save_program(export_model.export_eval_step(cfg.for_orientation(o), model,
+                                                                BATCH),
+                                  str(DEPLOY / f"{cfg.family}_{o}.pt2"))
+    return time.time() - t0
+
+
+def export_program(spec: dict) -> dict:
+    """Subprocess program: export_both_orientations of the family's
+    full-width model with the weights of spec's file (tracing is host
+    work: two families trace at once)."""
+    import torch
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    cfg = ZOO_FAMILIES[spec["family"]][0]()
+    model = build_two_stage(cfg, device="cuda", seed=0)
+    model.load_state_dict(torch.load(spec["weights"], map_location="cuda"))
+    return {"export_s": export_both_orientations(cfg, model)}
+
+
+def start_export_program(family: str, model):
+    """export_program for `model` in a subprocess of this script
+    (--rank-program export, its log under DEPLOY): the process."""
+    import torch
+
+    DIST.mkdir(parents=True, exist_ok=True)
+    weights = DEPLOY / f"{family}_weights.pt"
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, weights)
+    spec = DEPLOY / f"{family}_export.json"
+    spec.write_text(json.dumps({"family": family, "weights": str(weights)}))
+    with open(DEPLOY / f"{family}_export.log", "w") as log:
+        return subprocess.Popen([sys.executable, "-u", "-X", "faulthandler",
+                                 str(REPO / "chip_smoke.py"), "--rank-program", "export",
+                                 str(spec)], env=dict(os.environ, RANK="0"), stdout=log,
+                                stderr=subprocess.STDOUT, cwd=str(REPO))
+
+
+def finish_export_program(proc, family: str) -> float:
+    """Wait for start_export_program's process (DIST_WALL_S at most): its
+    export seconds."""
+    try:
+        proc.wait(timeout=DIST_WALL_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+    if proc.returncode != 0:
+        fail(f"{family} export subprocess: exit code {proc.returncode}; log tail "
+             f"{(DEPLOY / f'{family}_export.log').read_text()[-3000:]}")
+    return json.loads((DIST / "export_r0.result.json").read_text())["export_s"]
+
+
+def exported_against_eager(device, cfg, model, triples, n: int, export_s: float):
+    """The family's saved programs (export_both_orientations) packaged
+    into one archive and loaded back by serve.py's ArchiveDetector: load
+    s, archive MB; on the 26 synthetic canvases the loaded programs'
+    detections against the eager TwoStageEvalStep's (the same valid
+    slots, labels and sources, boxes and scores to FRCNN_RTOL; no image
+    may differ), and ms per batch of the two in turns. Returns the
+    reading and the ArchiveDetector."""
+    import torch
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES
+    from aod_meh_hua_torch.engine.batch import EvalBatch, prepare_images
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
+    from aod_meh_hua_torch.tools.deployment import export_model, package_model
+    from aod_meh_hua_torch.tools.deployment.serve import ArchiveDetector
+
+    family = cfg.family
+    archive = package_model.package(str(DEPLOY / f"{family}_landscape.pt2"), str(DEPLOY),
+                                    family, family=family,
+                                    artifact_portrait=str(DEPLOY / f"{family}_portrait.pt2"),
+                                    classes=VOC_CLASSES,
+                                    geometry=package_model.geometry_for(cfg, BATCH))
+    t0 = time.time()
+    adet = ArchiveDetector(archive)
+    load_s = time.time() - t0
+    modules, manifest = adet.programs, adet.manifest
+    steps = {o: make_two_stage_eval_step(model, cfg.for_orientation(o), device=device)
+             for o in modules}
+
+    def float_batch(o, b):  # the programs take canvases normalised before the call
+        up = upload(b, device)
+        return EvalBatch(prepare_images(up.images, up.img_shapes, cfg.for_orientation(o)),
+                         up.img_shapes, up.scale_factors, b.valid)
+
+    batches = [(o, float_batch(o, b), idx) for o, b, idx in triples]
+    eager = [_host_dets(steps[o](b)) for o, b, _ in batches]
+    exported = [_host_dets(export_model.run_program(modules[o], b)) for o, b, _ in batches]
+    off = [{"image": int(idx[i]), "eager_valid": int(e.valid[i].sum()),
+            "exported_valid": int(x.valid[i].sum())}
+           for (_, _, idx), e, x in zip(batches, eager, exported) for i in range(len(idx))
+           if not _dets_agree(x, e, i, FRCNN_RTOL)]
+    bit_equal = sum(all(np.array_equal(a[i], b[i]) for a, b in zip(x, e))
+                    for (_, _, idx), e, x in zip(batches, eager, exported)
+                    for i in range(len(idx)))
+    n_dets = sum(int(e.valid.sum()) for e in eager)
+    if off or n_dets == 0:
+        fail(f"{family} export: the loaded programs against the eager step: {off}, "
+             f"{n_dets} detections")
+    timing = {"eager": [], "exported": []}
+    for name in ("eager", "exported", "exported", "eager"):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for o, b, _ in batches:
+            (steps[o](b) if name == "eager" else export_model.run_program(modules[o], b))
+        torch.cuda.synchronize()
+        timing[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    out = dict(batch=BATCH, canvases=n, batches=len(batches), export_s=export_s, load_s=load_s,
+               archive_mb=os.path.getsize(archive) / 1e6, manifest_family=manifest["family"],
+               detections=n_dets, images_bit_equal=bit_equal, images_off=off,
+               ms_per_batch=timing, stage_ranges="none: torch.export drops them")
+    return out, adet
+
+
+def two_stage_archive_server_path(model, adet) -> dict:
+    """An ArchiveDetector behind the Batcher and the HTTP handler
+    (serve_load: TWO_STAGE_REQUESTS POSTs of the fixture JPEGs), each
+    reply held to a Detector's rows with the same weights and the default
+    pipeline; no kernel launch."""
+    from aod_meh_hua_torch.api import Detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    files = sorted(FIXTURES.glob("*.jpg"))
+    imgs = [imread(str(f)) for f in files]
+    det = Detector(ZOO_FAMILIES[adet.manifest["family"]][0](), model)
+    expected = [_rows(r, VOC_CLASSES, ZOO_SERVE_THR)
+                for r in (det.predict_batch([i], max_batch=BATCH)[0] for i in imgs)]
+    if not any(expected):
+        fail(f"serve_archive ({adet.manifest['family']}): no row at or above {ZOO_SERVE_THR}")
+    adet.predict_batch(imgs)  # warm-up
+    return serve_load(adet, [f.read_bytes() for f in files], expected,
+                      f"serve_archive ({adet.manifest['family']})", per_forward=0,
+                      score_thr=ZOO_SERVE_THR, requests=TWO_STAGE_REQUESTS)
+
+
+def rank_step_draws(cfg, steps: int, b: int, seed: int) -> list:
+    """Per step, the global batch's sampler uniforms by stage ([b, n]
+    u_pos, u_neg), drawn on the host from one seeded generator."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sizes = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
+    return [{k: tuple(torch.rand((b, n), generator=gen) for _ in range(2))
+             for k, n in sizes.items()} for _ in range(steps)]
+
+
+def _train_state(model, opt) -> dict:
+    """A step's starting state on the host: the state dict and each
+    parameter's SGD momentum by name."""
+    from aod_meh_hua_torch.parallel import gather_to_host
+
+    by_param = {p: n for n, p in model.named_parameters()}
+    return {"weights": gather_to_host(model),
+            "momentum": {by_param[p]: s["momentum_buffer"].detach().cpu().clone()
+                         for p, s in opt.state.items() if "momentum_buffer" in s}}
+
+
+def _one_step_from(model, cfg, state: dict, batch, draw, device, mesh=None):
+    """From `state` (_train_state's; the momentum may be empty), one step of
+    the family's train step on `batch` (a Batch of tensors on `device`)
+    under the draw `draw` (stage -> (u_pos, u_neg) of its rows): the aux,
+    and the model and its optimizer after it."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    model.load_state_dict(state["weights"])
+    opt = create_train_state(model, TrainConfig(), frozen_stages=cfg.frozen_stages)
+    for name, p in model.named_parameters():
+        if name in state["momentum"]:
+            opt.state[p]["momentum_buffer"] = state["momentum"][name].to(device).clone()
+    step = make_two_stage_train_step(model, cfg, opt, device=device, mesh=mesh)
+    aux = step(batch, uniforms=lambda stage, n: tuple(u.to(device) for u in draw[stage]))
+    return {k: float(v) for k, v in aux.items()}, opt
+
+
+class _AxisReplay:
+    """The data axis of one image of a one-process batch: recording
+    (values=None), each sum passes the whole batch's value through and
+    keeps it; replaying, each sum returns the kept value of its call."""
+
+    group, size, index = None, 1, 0
+
+    def __init__(self, values=None):
+        self.record = values is None
+        self.values = [] if values is None else list(values)
+
+    def sum(self, t):
+        if self.record:
+            self.values.append(t.detach().clone())
+            return t
+        return self.values.pop(0)
+
+
+class _Accumulate:
+    """The optimizer that the steps of one image at a time see: none moves
+    the weights, so their gradients add up."""
+
+    defaults = {"grad_clip": None}
+
+    def step(self):
+        pass
+
+
+def faster_rcnn_one_image_at_a_time(model, cfg, state, batch, draw, device) -> dict:
+    """One Faster R-CNN step from `state` computed one image at a time in
+    one process: each image's forward and backward alone, its losses over
+    the whole batch's normalisers (recorded by a pass over the batch), the
+    gradients summed by autograd, then the optimizer's step: the step's
+    function with every gradient a sum of per-image sums, as two ranks
+    sum them. The weights after it."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+    from aod_meh_hua_torch.parallel import gather_to_host
+
+    b = type(batch)(*(torch.from_numpy(a).to(device) for a in batch))
+    _, opt = _one_step_from(model, cfg, {"weights": gather_to_host(model), "momentum": {}},
+                            b, draw, device)  # builds opt; the weights are reset below
+    model.load_state_dict(state["weights"])
+    for name, p in model.named_parameters():
+        if name in state["momentum"]:
+            opt.state[p]["momentum_buffer"] = state["momentum"][name].to(device).clone()
+        else:
+            opt.state[p].pop("momentum_buffer", None)
+    on_device = {k: tuple(u.to(device) for u in v) for k, v in draw.items()}
+    recorded = _AxisReplay()
+    with mock.patch.object(two_stage, "DataAxis", lambda: recorded):
+        two_stage.make_two_stage_train_step(model, cfg, _Accumulate(), device)(
+            b, uniforms=lambda stage, n: on_device[stage])
+    model.zero_grad(set_to_none=True)
+    with mock.patch.object(model, "zero_grad", lambda **kw: None):
+        for i in range(len(batch.images)):
+            with mock.patch.object(two_stage, "DataAxis",
+                                   lambda: _AxisReplay(recorded.values)):
+                step = two_stage.make_two_stage_train_step(model, cfg, _Accumulate(), device)
+            step(type(b)(*(t[i:i + 1] for t in b)),
+                 uniforms=lambda stage, n, i=i: tuple(u[i:i + 1] for u in on_device[stage]))
+    opt.step()
+    return gather_to_host(model)
+
+
+def two_stage_plain_steps(model, cfg, init, batch, draws, device) -> dict:
+    """DIST_STEPS of the family's one-process step, each from the state the
+    rows in order reached (init first), on the batch's rows in each of
+    DIST_ROW_ORDERS (the rows and their draws reordered or repeated) and,
+    for Faster R-CNN, one image at a time: per step, the starting state
+    and, per run, the aux (not of one image at a time) and the weights
+    after the step. Swapping or repeating whole images keeps the sums over
+    each image's rows; one image at a time splits them, as ranks do."""
+    import torch
+    from aod_meh_hua_torch.parallel import gather_to_host
+
+    state = {"weights": init, "momentum": {}}
+    steps = []
+    for draw in draws[:DIST_STEPS]:
+        runs = []
+        for rows in DIST_ROW_ORDERS:
+            rows = list(rows)
+            b = type(batch)(*(torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+                              for a in batch))
+            aux, opt = _one_step_from(model, cfg, state, b, {k: tuple(u[rows] for u in v)
+                                                             for k, v in draw.items()}, device)
+            runs.append({"aux": aux, "weights": gather_to_host(model)})
+            if rows == list(DIST_ROW_ORDERS[0]):
+                after = _train_state(model, opt)
+        if cfg.family == "faster_rcnn":
+            runs.append({"aux": None, "weights": faster_rcnn_one_image_at_a_time(
+                model, cfg, state, batch, draw, device)})
+        steps.append({"state": state, "runs": runs})
+        state = after
+    return steps
+
+
+def rank_two_stage_steps(spec: dict) -> dict:
+    """Rank program: each RANK_FAMILIES train step at full width, data
+    parallel over gloo on the global batch of 2 (one image per rank),
+    each of DIST_STEPS steps from the state the one process reached
+    before it (spec's file: states and global draws), rank 0 saving the
+    weights after each; then RANK_TIMED steps under a generator seeded
+    alike on every rank, timed with CUDA events."""
+    import torch
+    import torch.distributed as dist
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.parallel import (barrier, gather_to_host, make_mesh, replicate,
+                                            shard_batch)
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
+
+    rank, world, device = rank_setup()
+    out = {"rank": rank, "world": world, "device": str(device), "backend": dist.get_backend()}
+    reset_launches()
+    for family in RANK_FAMILIES:
+        lcfg, batch = synthetic_train_batch(ZOO_FAMILIES[family][0](), "landscape",
+                                            TrainConfig().batch_size, DIST_BATCH_SEED)
+        saved = torch.load(spec[family], map_location="cpu")
+        model = build_two_stage(lcfg, device=device)
+        mesh = make_mesh(world, device_type=device.type)
+        replicate(model, mesh)
+        rows = shard_batch(Batch(*(torch.from_numpy(a).to(device) for a in batch)), mesh)
+        barrier(family)
+        torch.cuda.reset_peak_memory_stats(device)
+        auxes, weights = [], []
+        for state, draw in zip(saved["states"], saved["draws"]):
+            aux, opt = _one_step_from(model, lcfg, state, rows, draw, device, mesh)
+            auxes.append(aux)
+            weights.append(gather_to_host(model))
+        if rank == 0:
+            torch.save(weights, DIST / f"two_stage_{family}_weights.pt")
+        step = make_two_stage_train_step(model, lcfg, opt, device=device, mesh=mesh)
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RANK_TIMED):
+            step(rows, gen)
+        end.record()
+        torch.cuda.synchronize()
+        out[family] = {"aux": auxes, "ms_per_step": start.elapsed_time(end) / RANK_TIMED,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(device)}
+        del model, step, weights, opt
+        torch.cuda.empty_cache()
+    out["launches"] = read_launches()
+    dist.destroy_process_group()
+    return out
+
+
+def two_stage_ranks_path(device) -> dict:
+    """RANK_FAMILIES' full-width train steps (TrainConfig(), batch 2, the
+    RPN head sharpened) on two gloo ranks sharing cuda:0 (subprocesses,
+    rank_two_stage_steps) against the one-process step on the same batch
+    under the same draws, each of DIST_STEPS steps taken by both from the
+    same state (the one process's before it: a random-weight first step
+    moves the class loss by a factor of four, and the rounding that one
+    step leaves grows in the next). Per step, PR 8's rule: every tensor
+    within DIST_RTOL of its max-abs or, where larger, within the largest
+    spread of the one-process runs (two_stage_plain_steps) on any tensor
+    of its kind (starting the training at zero, or not), the tensors that
+    start at zero after the first step only; the losses alike, num_pos
+    equal. No kernel launch on either rank; ms per step per rank. Every
+    reading is made before a failure is raised."""
+    import torch
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
+
+    DIST.mkdir(parents=True, exist_ok=True)
+    tb = TrainConfig().batch_size
+    spec, plain = {}, {}
+    for family in RANK_FAMILIES:
+        lcfg, batch = synthetic_train_batch(ZOO_FAMILIES[family][0](), "landscape", tb,
+                                            DIST_BATCH_SEED)
+        model = build_two_stage(lcfg, device=device, seed=0)
+        sharpen_frcnn(model, lcfg, torch.from_numpy(batch.images).to(device),
+                      torch.from_numpy(batch.img_shapes).to(device), classes=False)
+        init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        draws = rank_step_draws(lcfg, DIST_STEPS, tb, seed=17)
+        plain[family] = two_stage_plain_steps(model, lcfg, init, batch, draws, device)
+        spec[family] = str(DIST / f"two_stage_{family}_spec.pt")
+        torch.save({"states": [s["state"] for s in plain[family]], "draws": draws},
+                   spec[family])
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_rank_programs("two_stage_steps", spec)
+    ranks_s = time.time() - t0
+    if [(r["rank"], r["backend"], r["device"]) for r in ranks] != \
+            [(i, "gloo", str(device)) for i in range(DIST_RANKS)]:
+        fail(f"two-stage ranks: {[(r['rank'], r['backend'], r['device']) for r in ranks]}")
+    if any(v for r in ranks for v in r["launches"].values()):
+        fail(f"two-stage ranks: a hand-written kernel launched: {[r['launches'] for r in ranks]}")
+    out, off = {"ranks_wall_s": ranks_s, "launches_per_rank": [r["launches"] for r in ranks]}, []
+    for family in RANK_FAMILIES:
+        if ranks[0][family]["aux"] != ranks[1][family]["aux"]:
+            off.append(f"{family}: the ranks report different aux")
+        got_w = torch.load(DIST / f"two_stage_{family}_weights.pt", map_location="cpu")
+        readings = []
+        init = plain[family][0]["state"]["weights"]
+        zero = {k for k, v in init.items() if v.is_floating_point() and not v.any()}
+        for i, step in enumerate(plain[family]):
+            ref, others = step["runs"][0], step["runs"][1:]
+            spread = errs_of_scale_max([r["weights"] for r in others], ref["weights"])
+            limit = {kind: max([DIST_RTOL] + [e for k, e in spread.items()
+                                              if (k in zero) == kind]) for kind in (True, False)}
+            errs = errs_of_scale(got_w[i], ref["weights"])
+            # after the first step a tensor from zero is updates of gradients
+            # that cancel: its scale is their rounding, which moves from call
+            # to call (PERF.md section 6), so only the first step holds it
+            held = {k: e for k, e in errs.items() if i == 0 or k not in zero}
+            past = [{"tensor": k, "err_of_scale": e, "own_spread": spread.get(k),
+                     "from_zero": k in zero} for k, e in held.items() if e > limit[k in zero]]
+            # the losses (a repeated row doubles num_pos, not a loss)
+            aux_err = lambda a: max(abs(a[k] - v) / max(abs(v), 1e-30)  # noqa: E731
+                                    for k, v in ref["aux"].items() if "loss" in k)
+            aux_limit = max([DIST_RTOL] + [aux_err(r["aux"]) for r in others if r["aux"]])
+            got_aux = ranks[0][family]["aux"][i]
+            if past or aux_err(got_aux) > aux_limit or got_aux["num_pos"] != ref["aux"]["num_pos"]:
+                off.append(f"{family}, step {i + 1}: past the limits {limit} (from zero: True): "
+                           f"{past[:6]}; loss rel err {aux_err(got_aux)} against {aux_limit}; "
+                           f"aux {got_aux} against {ref['aux']}")
+            readings.append({
+                "max_err_of_scale": {kind: max([0.0] + [e for k, e in errs.items()
+                                                        if (k in zero) == kind])
+                                     for kind in (True, False)},
+                "limit_of_scale": limit, "past_rtol": sorted(
+                    ((k, e) for k, e in errs.items() if e > DIST_RTOL), key=lambda kv: -kv[1]),
+                "loss_max_rel_err": aux_err(got_aux), "loss_limit": aux_limit,
+                "aux": ref["aux"]})
+        out[family] = {
+            "batch": tb, "timed_steps": RANK_TIMED, "plain_runs": len(plain[family][0]["runs"]),
+            "by_step (from zero: true/false)": readings,
+            "ms_per_step_per_rank": [r[family]["ms_per_step"] for r in ranks],
+            "peak_mem_bytes_per_rank": [r[family]["peak_mem_bytes"] for r in ranks]}
+    if off:
+        print("two-stage train steps on two ranks:", json.dumps(out), flush=True)
+        fail(f"two-stage ranks: {off}")
+    return out
+
+
+def errs_of_scale_max(runs: list, want: dict) -> dict:
+    """Per float tensor, the largest errs_of_scale over several runs."""
+    out = {}
+    for run in runs:
+        for k, e in errs_of_scale(run, want).items():
+            if want[k].is_floating_point():
+                out[k] = max(out.get(k, 0.0), e)
+    return out
+
+
+def two_stage_deploy_path(device, card: str) -> tuple:
+    """The phase of the two-stage families' export, archive server and
+    train step across ranks, each path's kernel launch counts reset just
+    before it and read just after: neither kernel lies on these paths, so
+    each must read 0. Returns (result, launches by path)."""
+    import torch
+
+    shutil.rmtree(DEPLOY, ignore_errors=True)
+    DEPLOY.mkdir(parents=True)
+    t0 = time.time()
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        t1 = time.time()
+        reset_launches()
+        out[name] = fn()
+        launches[name] = read_launches()
+        if any(launches[name].values()):
+            fail(f"{name}: a hand-written kernel launched: {launches[name]}")
+        torch.cuda.empty_cache()
+        out[name]["path_s"] = time.time() - t1
+
+    # the Faster R-CNN programs trace in a subprocess while this process
+    # traces the cascade's
+    built = {f: sharpened_two_stage(device, f) for f in ("faster_rcnn", "cascade_rcnn")}
+    faster = start_export_program("faster_rcnn", built["faster_rcnn"][1])
+    detectors = {}
+
+    def export(family):
+        cfg, model, triples, n = built[family]
+        export_s = (export_both_orientations(cfg, model) if family == "cascade_rcnn"
+                    else finish_export_program(faster, family))
+        reading, detectors[family] = exported_against_eager(device, cfg, model, triples, n,
+                                                           export_s)
+        return reading
+
+    for family in ("cascade_rcnn", "faster_rcnn"):
+        counted(f"{family}_export", lambda family=family: export(family))
+        print(f"{family} export:", json.dumps(out[f"{family}_export"]), f"[{card}]", flush=True)
+    counted("two_stage_serve_archive", lambda: two_stage_archive_server_path(
+        built["cascade_rcnn"][1], detectors["cascade_rcnn"]))
+    detectors.clear()
+    print("serve --archive (cascade_rcnn):", json.dumps(out["two_stage_serve_archive"]),
+          f"[{card}]", flush=True)
+    del built
+    torch.cuda.empty_cache()
+    counted("two_stage_ranks", lambda: two_stage_ranks_path(device))
+    print("two-stage train steps on two ranks:", json.dumps(out["two_stage_ranks"]),
+          f"[{card}]", flush=True)
+    shutil.rmtree(DEPLOY, ignore_errors=True)
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
 # --- distributed phase: parallel/ on one card ---------------------------------------
 
 DIST = REPO / "build" / "chip_smoke_dist"
@@ -3893,13 +4426,14 @@ def rank_al_cli(spec: dict) -> dict:
             "metrics": driver.metrics}
 
 
-RANK_PROGRAMS = {"train_and_sweep": rank_train_and_sweep, "al_cli": rank_al_cli}
+RANK_PROGRAMS = {"train_and_sweep": rank_train_and_sweep, "al_cli": rank_al_cli,
+                 "two_stage_steps": rank_two_stage_steps, "export": export_program}
 
 
 def rank_main(argv) -> int:
     """`chip_smoke.py --rank-program NAME SPEC`: one rank of a distributed
-    phase (run_rank_programs starts them); writes its result next to the
-    spec."""
+    phase (run_rank_programs starts them), or the deploy phase's export
+    program (start_export_program); writes its result under DIST."""
     import torch
 
     from aod_meh_hua_torch.kernels.build import build_all
@@ -4180,6 +4714,10 @@ def main() -> int:
     print(f"Cascade, Dynamic and Double-Head R-CNN, two-stage TTA, server and trainer phase: "
           f"{zoo['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    deploy, deploy_launches = two_stage_deploy_path(device, card)
+    print(f"two-stage export, archive server and ranks phase: {deploy['phase_s']:.1f} s "
+          f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -4189,7 +4727,7 @@ def main() -> int:
                  "al_ensemble_cli": al_ens["launches"],
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
                  "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
-                 "faster_rcnn": frcnn_launches, **zoo_launches}
+                 "faster_rcnn": frcnn_launches, **zoo_launches, **deploy_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

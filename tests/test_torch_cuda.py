@@ -10,8 +10,10 @@ launches and results, the fused eval step exported, saved and loaded,
 the tiny Faster R-CNN's eval step and two train steps (under the same
 uniforms) on the card against the CPU, the tiny Cascade, Dynamic and
 Double-Head R-CNN's train steps (Dynamic R-CNN's five, across its
-refresh) and the two-stage TTA on the card against the CPU. Skips, with
-the reason, where there is no card.
+refresh) and the two-stage TTA on the card against the CPU, each
+two-stage family's tiny exported program against the card's eager step,
+and the model-zoo trainer on two gloo ranks sharing the card against one
+process. Skips, with the reason, where there is no card.
 
 Run on a machine with an NVIDIA Hopper card (the JAX package need not be
 installed there, hence --noconftest):
@@ -766,3 +768,73 @@ def test_two_stage_tta_on_the_card_matches_the_cpu(cuda, family):
     for c, g in zip(out["cpu"], out[str(cuda)]):
         assert c.shape == g.shape
         np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-3)
+
+
+def _tiny_eval_batch(cfg, seed=0):
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+
+    rng = np.random.RandomState(seed)
+    h, w = cfg.canvas
+    shapes = np.array([[h, w], [h - 8, w - 16]], np.int32)
+    return EvalBatch(rng.randn(2, h, w, 3).astype(np.float32), shapes,
+                     np.array([[1.0] * 4, [0.8, 0.9, 0.8, 0.9]], np.float32), np.ones(2, bool))
+
+
+@pytest.mark.parametrize("family", ["faster_rcnn", "cascade_rcnn", "dynamic_rcnn",
+                                    "double_head_rcnn"])
+def test_two_stage_export_on_the_card_matches_the_eager_step(cuda, family, tmp_path):
+    """The tiny family's eval step exported on the card at batch 2 (every
+    NMS a device while_loop), saved and loaded, against the card's eager
+    step on the same batch: the same valid slots, labels and sources,
+    boxes and scores to rtol 1e-6."""
+    import chip_smoke
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.tools.deployment import export_model
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    cfg = ZOO_FAMILIES[family][1]()
+    batch = _tiny_eval_batch(cfg)
+    model = build_two_stage(cfg, device=cuda, seed=5)
+    chip_smoke.sharpen_frcnn(model, cfg, torch.from_numpy(batch.images).to(cuda),
+                             torch.from_numpy(batch.img_shapes).to(cuda))
+    path = str(tmp_path / f"{family}.pt2")
+    export_model.save_program(export_model.export_eval_step(cfg, model, 2), path)
+    got = export_model.run_program(export_model.load_program(path), batch)
+    want = make_two_stage_eval_step(model, cfg, device=cuda)(batch)
+    assert got.boxes.device.type == "cuda" and int(want.valid.sum()) > 0
+    for f in ("valid", "labels", "anchor_idx"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("boxes", "scores"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0)
+
+
+def test_train_detector_two_ranks_on_the_card(cuda, tmp_path):
+    """The model-zoo trainer's --mini run on two ranks sharing the card
+    (gloo, torchrun's variables) leaves the checkpoint of the --mini run in
+    one process: every tensor within 1e-4 of its max-abs, the same mAP,
+    only rank 0 writing."""
+    import json
+
+    import torch_dist_workers as w
+    from aod_meh_hua_torch.engine.checkpoint import load_checkpoint
+    from aod_meh_hua_torch.tools import train_detector
+
+    voc = _fixture_voc(tmp_path)
+    argv = ["--family", "double_head_rcnn", "--mini", "--voc07", voc, "--epochs", "1"]
+    train_detector.main(argv + ["--work-dir", str(tmp_path / "one")])
+    ranks = w.run_ranks(w.trainer_on_one_card, 2, str(tmp_path / "out"),
+                        argv + ["--work-dir", str(tmp_path / "two"), "--num-devices", "2"],
+                        launcher_env=True, timeout=600)
+    one = load_checkpoint(str(tmp_path / "one" / "double_head_rcnn_final.ckpt"))
+    two = load_checkpoint(str(tmp_path / "two" / "double_head_rcnn_final.ckpt"))
+    assert one.keys() == two.keys()
+    for k, v in one.items():
+        if v.is_floating_point():
+            scale = max(v.abs().max().item(), 1e-30)
+            assert (two[k] - v).abs().max().item() <= 1e-4 * scale, k
+        else:
+            assert torch.equal(two[k], v), k
+    metrics = json.loads((tmp_path / "one" / "metrics.json").read_text())
+    assert ranks[0] == ranks[1] and ranks[0][0]["mAP"] == metrics[0]["mAP"]
+    assert len((tmp_path / "two" / "train_log.jsonl").read_text().splitlines()) == 1

@@ -17,7 +17,8 @@ VOC tree (tests/torch_parity.py mini_voc).
   variables, the JAX tool's file) loads into the port bit for bit.
 - Detector.predict_batch against JAX's, rtol 1e-4 and the same rows.
 - The flags of other data, families and modes raise with their ROADMAP
-  item; without --cpu the CLI asks for the card.
+  item (the ranks' flags are ported: tests/test_torch_two_stage_ranks.py);
+  without --cpu the CLI asks for the card.
 """
 
 import json
@@ -230,7 +231,6 @@ def test_benchmark_runs_the_two_stage_step():
     (["--instaboost"], "item 14"), (["--albu"], "item 14"),
     (["--oversample-thr", "0.001"], "item 14"), (["--proposal-file", "p.npz"], "item 15"),
     (["--teacher-ckpt", "t.ckpt"], "item 15"), (["--reference-config", "c.py"], "item 13"),
-    (["--num-devices", "2"], "item 15"), (["--distributed"], "item 15"),
     (["--dtype", "bfloat16"], "item 16")])
 def test_unported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):

@@ -174,6 +174,56 @@ def driver_run(rank: int, world: int, spec: dict) -> dict:
     raise AssertionError("the run was not killed")
 
 
+def two_stage_steps(rank: int, world: int, spec: dict, mesh: bool = True) -> dict:
+    """A two-stage family's train steps (spec: cfg, init (state dict),
+    arrays (the global Batch's arrays), draws (per step, the global
+    batch's uniforms by stage)), data parallel over the ranks; with
+    mesh=False the one-process step on the whole batch. Returns each
+    step's aux, Dynamic R-CNN's state after each step, and the state dict
+    after the last."""
+    from aod_meh_hua_torch.engine.batch import Batch
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.parallel import gather_to_host, make_mesh, replicate, shard_batch
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    cfg = spec["cfg"]
+    model = build_two_stage(cfg, device="cpu")
+    model.load_state_dict(spec["init"])
+    grid = None
+    batch = Batch(*(torch.from_numpy(np.asarray(a)) for a in spec["arrays"]))
+    if mesh:
+        grid = make_mesh(world, device_type="cpu")
+        replicate(model, grid)
+        batch = shard_batch(batch, grid)
+    step = make_two_stage_train_step(model, cfg, create_train_state(model, TrainConfig()),
+                                     device="cpu", mesh=grid)
+    auxes, dynamic = [], []
+    for draws in spec["draws"]:
+        aux = step(batch, uniforms=lambda stage, n, d=draws: d[stage])
+        auxes.append({k: float(v) for k, v in aux.items()})
+        if cfg.family == "dynamic_rcnn":
+            dynamic.append({k: v.clone() for k, v in model.dynamic.state_dict().items()})
+    return {"aux": auxes, "dynamic": dynamic, "state": gather_to_host(model)}
+
+
+def two_stage_eval(rank: int, world: int, spec: dict) -> dict:
+    """tools/train_detector.py evaluate, sharded over the ranks (spec:
+    cfg, init, the VOC root, the pipeline's mini flag, batch size)."""
+    from aod_meh_hua_torch.data.voc import VOC_CLASSES, VOCDataset
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.tools.train_detector import evaluate, pipeline_for
+
+    cfg = spec["cfg"]
+    model = build_two_stage(cfg, device="cpu")
+    model.load_state_dict(spec["init"])
+    val = VOCDataset(os.path.join(spec["voc"], "ImageSets/Main/test.txt"), spec["voc"],
+                     test_mode=True, classes=VOC_CLASSES[:cfg.num_classes])
+    return evaluate(model, cfg, val, pipeline_for(cfg, True), spec["batch"], "cpu", rank,
+                    world, spec["voc"])
+
+
 def programs(rank: int, world: int, calls: list) -> list:
     """Several rank programs in turn, in one group: [(fn, args), ...] ->
     [fn(rank, world, *args), ...] (one spawn for all of them)."""
@@ -207,3 +257,19 @@ def sharpened_cli_main(argv) -> None:
             mock.patch.object(loop, "init_distributed",
                               functools.partial(loop.init_distributed, timeout=GROUP_TIMEOUT_S)):
         cli_main(argv)
+
+
+def trainer_on_one_card(argv) -> list:
+    """tools/train_detector.py's main as one of several ranks sharing the
+    one card: LOCAL_RANK 0 on every rank (as hosts of one card each) and
+    the group over gloo (NCCL refuses two ranks on one card), with
+    GROUP_TIMEOUT_S. Returns the metrics."""
+    from unittest import mock
+
+    import aod_meh_hua_torch.parallel as parallel
+    from aod_meh_hua_torch.tools import train_detector
+
+    os.environ["LOCAL_RANK"] = "0"
+    with mock.patch.object(parallel, "init_distributed", functools.partial(
+            parallel.init_distributed, backend="gloo", timeout=GROUP_TIMEOUT_S)):
+        return train_detector.main(argv)[2]
