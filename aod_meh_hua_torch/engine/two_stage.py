@@ -1,12 +1,14 @@
 """The two-stage engine: proposals, RPN targets, RoI sampling and the
 train and eval steps of Faster, Cascade, Dynamic and Double-Head R-CNN
-(torch).
+and of the Faster R-CNN variants on the Faster R-CNN step (Libra R-CNN,
+PAFPN, CARAFE, GRoIE, empirical attention) (torch).
 
-Port of aod_meh_hua_tpu/engine/two_stage.py, whole but for the Faster
-R-CNN variants' GRoIE, Libra and balanced-L1 branches (ROADMAP Queue 1
-item 15): `make_proposal_fn` :55-97, `_rpn_targets_single` :100-119,
-`_roi_sample_single` :132-167, `_extract_rois` :170-186,
-`make_faster_rcnn_train_step` :202-288, `make_faster_rcnn_eval_step`
+Port of aod_meh_hua_tpu/engine/two_stage.py: `make_proposal_fn` :55-97,
+`_rpn_targets_single` :100-119, `_roi_sample_single` :132-167 (with
+Libra's CombinedSampler branch :151-156), `_extract_rois` :170-186,
+`_extract_rois_groie` :188-199,
+`make_faster_rcnn_train_step` :202-288 (with Libra's balanced L1
+:258-263), `make_faster_rcnn_eval_step`
 :291-331, `make_cascade_train_step` and `make_cascade_eval_step`
 :336-472 (the eval steps as one module, `TwoStageEvalStep`), `init_dynamic_state` (the port's models/two_stage.py
 `DynamicState`) and `make_dynamic_rcnn_train_step` :479-625, `_scale_rois`, `_extract_rois_routed` and the Double-Head
@@ -23,8 +25,9 @@ slots with validity, samples in [B, num] slots, jax.vmap an explicit
 batch dimension. Randomness: where the JAX step splits its key per
 stage, per image and per sampler set, the port's step draws its
 uniforms from a `torch.Generator` (`generator_uniforms`), or takes them
-from a caller's `uniforms(stage, n)` (a test passes the draws of JAX's
-key tree, and the selection is then JAX's index for index).
+from a caller's `uniforms(stage, n, k)`, k the draws the stage's sampler
+takes (2; Libra R-CNN's RoI sampler 7): a test passes the draws of
+JAX's key tree, and the selection is then JAX's index for index.
 
 Cascade R-CNN (cascade_roi_head.py) samples each of its three stages
 anew (stage names "roi0", "roi1", "roi2", where JAX splits k_roi once
@@ -42,8 +45,8 @@ The train step is engine/train.py's: one forward, one backward, the
 optional global-norm clip, one torch-exact SGD step over the non-frozen
 parameters. The proposals are computed without gradient, as the
 reference's detached proposal_list. Both steps run on the model's device
-and take batches of numpy arrays or tensors; a model and config of the
-family's variants raise (models/two_stage.py check_two_stage_options).
+and take batches of numpy arrays or tensors; a model and config of a variant
+the port lacks raise (models/two_stage.py check_two_stage_options).
 Under a data mesh the train step on N ranks is the one-process step on
 the global batch, as the JAX step (one jit over the sharded batch,
 aod_meh_hua_tpu/parallel/mesh.py) is: the global batch's uniforms, every
@@ -69,13 +72,15 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.two_stage import CONV_BRANCH_SPAN, check_two_stage_options
+from ..models.two_stage import (CONV_BRANCH_SPAN, FASTER_RCNN_VARIANTS, GROIE_SPAN,
+                                VARIANT_SPANS, check_two_stage_options)
 from ..ops.assigner import max_iou_assign
 from ..ops.bbox import bbox_overlaps, delta_decode, delta_encode
-from ..ops.losses import binary_cross_entropy_with_logits, softmax_cross_entropy
+from ..ops.losses import (balanced_l1_loss, binary_cross_entropy_with_logits,
+                          softmax_cross_entropy)
 from ..ops.nms import NMSResult, batched_multiclass_nms, grouped_nms
 from ..ops.roi_align import batched_multilevel_roi_align
-from ..ops.sampler import random_sample_pos_neg
+from ..ops.sampler import libra_sample_pos_neg, random_sample_pos_neg
 from ..utils.device import resolve_device
 from ..utils.profiling import span as _span
 from .batch import AnchorTable, Batch, EvalBatch, as_tensor, prepare_images
@@ -84,26 +89,37 @@ from .train import DataAxis, _clip_by_global_norm, _sum_gradients
 
 # the profiler ranges of the steps' stages, in order: the Faster R-CNN
 # stages every family shares, then the cascade's refinement, Dynamic
-# R-CNN's statistics, and the double head's rescaled extraction and conv branch
+# R-CNN's statistics, the double head's rescaled extraction and conv
+# branch, and the ranges of the Faster R-CNN variants' modules (the
+# backbone's attention, the CARAFE reassembly, the BFP, GRoIE's fusion),
+# each inside the stage that runs it
 STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposals",
           "faster_rcnn.roi_sample", "faster_rcnn.roi_align", "faster_rcnn.roi_head",
           "faster_rcnn.detections", "cascade_rcnn.refine", "dynamic_rcnn.statistics",
-          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN)
+          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN) + VARIANT_SPANS
 
-# uniforms(stage, n) -> (u_pos [B, n], u_neg [B, n]): the draws that rank
-# the positives and the negatives of each image's n candidates, stage
-# "rpn" (the anchors), "roi" (gts + proposals) or the cascade's "roi{i}"
-Uniforms = Callable[[str, int], Tuple[torch.Tensor, torch.Tensor]]
+# uniforms(stage, n, k) -> k draws [B, n] that rank each image's n
+# candidates of stage "rpn" (the anchors), "roi" (gts + proposals) or the
+# cascade's "roi{i}": k is what the stage's sampler takes, 2 for the
+# random sampler (u_pos, u_neg) and LIBRA_DRAWS for Libra R-CNN's
+Uniforms = Callable[[str, int, int], Tuple[torch.Tensor, ...]]
+# Libra's RoI sampler: kp1, kp2, kp3, kp4, kn1, kn2, km (ops/sampler.py)
+LIBRA_DRAWS = 7
 
 
 def generator_uniforms(generator: torch.Generator, b: int) -> Uniforms:
-    """Uniforms drawn from `generator`, on its device: per stage u_pos,
-    then u_neg, each [b, n]."""
-    def draw(stage: str, n: int):
+    """Uniforms drawn from `generator`, on its device: per stage its k
+    draws in turn, each [b, n]."""
+    def draw(stage: str, n: int, k: int):
         return tuple(torch.rand((b, n), generator=generator, device=generator.device)
-                     for _ in range(2))
+                     for _ in range(k))
 
     return draw
+
+
+def roi_draws(cfg) -> int:
+    """The uniforms cfg's RoI sampler takes per stage."""
+    return LIBRA_DRAWS if cfg.num_bins else 2
 
 
 def anchor_table(cfg) -> np.ndarray:
@@ -197,13 +213,16 @@ class RoISample(NamedTuple):
     gt_idx: torch.Tensor         # [B, S] int64 assigned gt (clipped; positive rows)
 
 
-def roi_sample(u_pos, u_neg, props, prop_valid, gt_boxes, gt_labels, gt_valid,
+def roi_sample(u, props, prop_valid, gt_boxes, gt_labels, gt_valid,
                cfg, pos_iou_thr=None, stds=None) -> RoISample:
     """Assign and sample the RoIs of each image, the gts prepended to the
-    proposals (base_sampler.sample's order). `pos_iou_thr` (a float or a
-    0-d tensor: Dynamic R-CNN's) and `stds` override cfg.rcnn's for the
-    cascade's stages and Dynamic R-CNN, where the negative and
-    minimum-positive thresholds follow the positive one."""
+    proposals (base_sampler.sample's order): the random sampler on u =
+    (u_pos, u_neg), or, where cfg.num_bins is set, Libra R-CNN's
+    CombinedSampler on its seven draws u, with each candidate's max IoU
+    over the valid gts (0 for an invalid candidate; JAX :151-156).
+    `pos_iou_thr` (a float or a 0-d tensor: Dynamic R-CNN's) and `stds`
+    override cfg.rcnn's for the cascade's stages and Dynamic R-CNN, where
+    the negative and minimum-positive thresholds follow the positive one."""
     rc = cfg.rcnn
     thr = rc.pos_iou_thr if pos_iou_thr is None else pos_iou_thr
     stds = rc.target_stds if stds is None else stds
@@ -215,8 +234,14 @@ def roi_sample(u_pos, u_neg, props, prop_valid, gt_boxes, gt_labels, gt_valid,
                               neg_iou_thr=rc.neg_iou_thr if pos_iou_thr is None else thr,
                               min_pos_iou=rc.min_pos_iou if pos_iou_thr is None else thr,
                               match_low_quality=False)
-    s = random_sample_pos_neg(u_pos, u_neg, assigned, cand_valid, rc.sampler_num,
-                              rc.pos_fraction)
+    if cfg.num_bins:
+        zero = torch.zeros((), device=cands.device)
+        ov = torch.where(gt_valid[..., None], bbox_overlaps(gt_boxes, cands), zero)
+        max_ov = torch.where(cand_valid, ov.amax(dim=1), zero)
+        s = libra_sample_pos_neg(u, assigned, cand_valid, max_ov, rc.sampler_num,
+                                 rc.pos_fraction, num_gt=num_gt, num_bins=cfg.num_bins)
+    else:
+        s = random_sample_pos_neg(*u, assigned, cand_valid, rc.sampler_num, rc.pos_fraction)
     rois = torch.gather(cands, 1, s.inds[..., None].expand(-1, -1, 4))
     gt_idx = (torch.gather(assigned, 1, s.inds) - 1).clamp(0, num_gt - 1)
     labels = torch.where(s.is_pos, torch.gather(gt_labels.long(), 1, gt_idx),
@@ -237,6 +262,31 @@ def extract_rois(cfg, feats, rois: torch.Tensor,
     return batched_multilevel_roi_align(feats[:len(rc.roi_strides)], rois, rc.roi_strides,
                                         rc.roi_size, rc.sampling_ratio, rc.finest_scale,
                                         routing_rois=routing_rois)
+
+
+def extract_rois_groie(model, cfg, feats, rois: torch.Tensor) -> torch.Tensor:
+    """GRoIE's GenericRoIExtractor (JAX _extract_rois_groie :188-199,
+    generic_roi_extractor.py:44-85): every RoI of rois [B, S, 4] aligned
+    on EVERY level at 1 / stride, with no finest_scale routing (one
+    single-level batched RoIAlign per level, its RoIs in blocks), then the
+    model's fusion (shared pre-conv, sum, post attention; the profiler
+    range GROIE_SPAN): [B * S, roi, roi, C] float32."""
+    rc = cfg.rcnn
+    per_level = [batched_multilevel_roi_align([feats[i]], rois, [stride], rc.roi_size,
+                                              rc.sampling_ratio)
+                 for i, stride in enumerate(rc.roi_strides)]
+    with _span(GROIE_SPAN):
+        return model.groie_fuse(per_level)
+
+
+def roi_features(model, cfg, feats, rois: torch.Tensor) -> torch.Tensor:
+    """The RoI features of cfg's extractor in the RoIAlign range
+    (STAGES[4]): GRoIE's (extract_rois_groie) or the routed single-level
+    one (extract_rois)."""
+    with _span(STAGES[4]):
+        if cfg.roi_extractor == "groie":
+            return extract_rois_groie(model, cfg, feats, rois)
+        return extract_rois(cfg, feats, rois)
 
 
 def scale_rois(rois: torch.Tensor, factor: float) -> torch.Tensor:
@@ -277,7 +327,7 @@ def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniform
     with _span(STAGES[0]):
         feats, rpn_cls, rpn_reg = model(prepare_images(batch.images, batch.img_shapes, cfg))
     with _span(STAGES[1]):
-        t = rpn_targets(*uniforms("rpn", anchors.shape[0]), anchors, batch.anchor_valid,
+        t = rpn_targets(*uniforms("rpn", anchors.shape[0], 2), anchors, batch.anchor_valid,
                         batch.gt_boxes, batch.gt_valid, cfg.rpn)
     num_total = data.sum(t.num_samples.sum().float()).clamp(min=1.0)
     loss_rpn_cls = (binary_cross_entropy_with_logits(
@@ -295,8 +345,8 @@ def _sample(cfg, batch: Batch, uniforms: Uniforms, stage: str, props, prop_valid
             **kw) -> RoISample:
     n_cands = batch.gt_boxes.shape[1] + props.shape[1]
     with _span(STAGES[3]):
-        return roi_sample(*uniforms(stage, n_cands), props, prop_valid, batch.gt_boxes,
-                          batch.gt_labels, batch.gt_valid, cfg, **kw)
+        return roi_sample(uniforms(stage, n_cands, roi_draws(cfg)), props, prop_valid,
+                          batch.gt_boxes, batch.gt_labels, batch.gt_valid, cfg, **kw)
 
 
 def roi_counts(smp: RoISample, data: DataAxis):
@@ -329,7 +379,7 @@ def _positive_mean(err, smp: RoISample, avg_reg) -> torch.Tensor:
 
 def _rank_rows(uniforms: Uniforms, lo: int, b: int) -> Uniforms:
     """The global batch's uniforms -> rows lo:lo + b, this rank's images."""
-    return lambda stage, n: tuple(u[lo:lo + b] for u in uniforms(stage, n))
+    return lambda stage, n, k: tuple(u[lo:lo + b] for u in uniforms(stage, n, k))
 
 
 def _make_step(model, cfg, optimizer, device, loss_fn, after=None, mesh=None) -> Callable:
@@ -408,13 +458,18 @@ def make_faster_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
             model, cfg, proposal_fn, batch, anchors, uniforms, data)
         smp = _sample(cfg, batch, uniforms, "roi", props, prop_valid)
         avg_cls, avg_reg, num_pos = roi_counts(smp, data)
-        with _span(STAGES[4]):
-            roi_feats = extract_rois(cfg, feats, smp.rois)
+        roi_feats = roi_features(model, cfg, feats, smp.rois)
         with _span(STAGES[5]):
             cls, reg = model.roi_forward(roi_feats)
         loss_cls = _cls_loss(cls, smp, avg_cls)
-        loss_bbox = _positive_mean(torch.abs(_reg_of_labels(reg, smp, c)
-                                             - smp.bbox_targets.reshape(-1, 4)), smp, avg_reg)
+        reg_sel, targets = _reg_of_labels(reg, smp, c), smp.bbox_targets.reshape(-1, 4)
+        if cfg.balanced_l1_alpha is not None:  # Libra (JAX :258-263)
+            err = balanced_l1_loss(reg_sel, targets, reduction="none",
+                                   alpha=cfg.balanced_l1_alpha, gamma=cfg.balanced_l1_gamma,
+                                   beta=cfg.balanced_l1_beta)
+        else:
+            err = torch.abs(reg_sel - targets)
+        loss_bbox = _positive_mean(err, smp, avg_reg)
         total = loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox
         aux = {"loss": total, "loss_rpn_cls": loss_rpn_cls, "loss_rpn_bbox": loss_rpn_bbox,
                "loss_cls": loss_cls, "loss_bbox": loss_bbox, "num_pos": num_pos}
@@ -616,11 +671,13 @@ def make_double_head_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     return _make_step(model, cfg, optimizer, device, loss_fn, mesh=mesh)
 
 
-# family -> its train step's maker (the JAX trainer's make_steps)
-TRAIN_STEPS = {"faster_rcnn": make_faster_rcnn_train_step,
-               "cascade_rcnn": make_cascade_train_step,
+# family -> its train step's maker (the JAX trainer's make_steps,
+# tools/train_detector.py:128-132: the Faster R-CNN variants take Faster
+# R-CNN's step)
+TRAIN_STEPS = {"cascade_rcnn": make_cascade_train_step,
                "dynamic_rcnn": make_dynamic_rcnn_train_step,
-               "double_head_rcnn": make_double_head_train_step}
+               "double_head_rcnn": make_double_head_train_step,
+               **{family: make_faster_rcnn_train_step for family in FASTER_RCNN_VARIANTS}}
 
 
 def make_two_stage_train_step(model, cfg, optimizer, device="cuda", mesh=None) -> Callable:
@@ -713,8 +770,7 @@ class TwoStageEvalStep(torch.nn.Module):
             return self._nms(boxes, probs[..., :c] * prop_valid[..., None])
 
     def _faster(self, feats, props, prop_valid, batch: EvalBatch) -> NMSResult:
-        with _span(STAGES[4]):
-            roi_feats = extract_rois(self.cfg, feats, props)
+        roi_feats = roi_features(self.model, self.cfg, feats, props)
         with _span(STAGES[5]):
             cls, reg = self.model.roi_forward(roi_feats)
         return self._class_specific(props, prop_valid, cls, reg, batch)

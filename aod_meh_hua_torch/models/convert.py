@@ -7,7 +7,13 @@ two_stage.py), and returns a state_dict for models/detector.py's
 MEHRetinaNet, models/ssd_detector.py's MEHSSD (mmdet's names, the mapping
 of aod_meh_hua_tpu/models/reference_convert.py:107-140) or the models of
 models/two_stage.py (the cascade's bbox_head_{i} to bbox_heads.{i}, the
-double head's conv_branch_{i} and fc_branch_{i} to their lists). Conv
+double head's conv_branch_{i} and fc_branch_{i} to their lists; the
+Faster R-CNN variants' necks, neck/{lateral_i, fpn_i, downsample_i,
+pafpn_i} of PAFPN and neck/{lateral_i, carafe_i/{channel_compressor,
+content_encoder}, fpn_conv_i} of the CARAFE FPN, Libra's
+bfp/refine/{g, theta, phi, conv_out}, GRoIE's groie_pre and groie_post,
+and the backbone blocks' gen_attention, whose key_bias, geom_bias and
+gamma keep their names and whose geom_fc_x/y are bias-free Dense). Conv
 kernels go HWIO -> OIHW and Dense kernels [in, out] -> [out, in]; the
 box heads' first fc reads its input in the JAX head's (h, w, c) order,
 so its columns carry over as they are. BN scale/bias/mean/var (the
@@ -45,9 +51,15 @@ _NAME_RULES = (
     (re.compile(r"^bbox_head_(\d+)$"), r"bbox_heads.\1"),
     (re.compile(r"^conv_branch_(\d+)$"), r"conv_branch.\1"),
     (re.compile(r"^fc_branch_(\d+)$"), r"fc_branch.\1"),
+    (re.compile(r"^downsample_(\d+)$"), r"downsample_convs.\1"),
+    (re.compile(r"^pafpn_(\d+)$"), r"pafpn_convs.\1"),
+    (re.compile(r"^carafe_(\d+)$"), r"carafe.\1"),
+    (re.compile(r"^fpn_conv_(\d+)$"), r"fpn_convs.\1"),
 )
+# GeneralizedAttention's own parameters keep their names
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "key_bias": "key_bias", "geom_bias": "geom_bias", "gamma": "gamma"}
 # Dynamic R-CNN's state in batch_stats (JAX engine/two_stage.py:479)
 DYNAMIC_KEY = "__dynamic_rcnn__"
 DYNAMIC_LEAVES = ("iou_hist", "beta_hist", "iou_thr", "beta")
@@ -114,5 +126,6 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
                 # HWIO -> OIHW; a Dense kernel [in, out] -> [out, in]
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             module = _ssd_module(mods) if ssd else ".".join(_module_name(m) for m in mods)
-            out[f"{module}.{_LEAF[name]}"] = torch.from_numpy(np.array(arr, order="C"))
+            key = f"{module}.{_LEAF[name]}" if module else _LEAF[name]
+            out[key] = torch.from_numpy(np.array(arr, order="C"))
     return out

@@ -14,7 +14,12 @@ model is trained with fused_blocks off, as in the JAX package. With
 `conv1x1_matmul`, the 1x1 convs of the other blocks run as matrix
 products (`Conv1x1Matmul`). With `mc_dropout` > 0, `channel_dropout`
 follows every ReLU (the stem's and the three of each block), drawing its
-masks from the generator the caller passes to the forward.
+masks from the generator the caller passes to the forward. With
+`attention` (an attention_type string), the blocks of the stages in
+`stage_with_attention` (c4 and c5) run a GeneralizedAttention (8 heads,
+kv_stride 2) after conv2's BN and ReLU, the empirical-attention family's
+plugin (JAX models/resnet.py:135-137, 196-201, 285-287, 321); such a
+block never fuses.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch
 from torch import nn
 
 from ..ops.fused_block import FoldedBlock, fold_bottleneck, fused_bottleneck
+from ..utils.profiling import span
+from .attention import ATTENTION_SPAN, GeneralizedAttention
 
 _NOT_PORTED = "not in the port yet (ROADMAP Queue 1 item {})"
 
@@ -108,7 +115,8 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, fused: bool = False,
-                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0):
+                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0,
+                 attention: Optional[str] = None):
         super().__init__()
         self.stride = stride
         self.fused = fused
@@ -117,6 +125,8 @@ class Bottleneck(nn.Module):
         self.bn1 = FrozenBatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride, 1)
         self.bn2 = FrozenBatchNorm2d(planes)
+        self.gen_attention = (GeneralizedAttention(planes, 8, attention, kv_stride=2)
+                              if attention else None)
         self.conv3 = _conv(planes, planes * 4, 1, as_matmul=conv1x1_matmul)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
         self.downsample = None
@@ -151,11 +161,12 @@ class Bottleneck(nn.Module):
 
     def fused_eligible(self, cin: int) -> bool:
         """The JAX package's gate (models/resnet.py:145-156): stride 1,
-        128-aligned input channels and no dropout. A block with dropout
-        takes the unfused path: that is the JAX model's rule (the kernel
-        has no dropout inside), not a fallback."""
+        128-aligned input channels, no dropout and no attention plugin. A
+        block with dropout or attention takes the unfused path: that is
+        the JAX model's rule (the kernel has neither inside), not a
+        fallback."""
         return (self.fused and self.stride == 1 and cin % 128 == 0
-                and self.mc_dropout == 0.0)
+                and self.mc_dropout == 0.0 and self.gen_attention is None)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -171,6 +182,9 @@ class Bottleneck(nn.Module):
         identity = x
         y = drop(torch.relu(self.bn1(self.conv1(x))))
         y = drop(torch.relu(self.bn2(self.conv2(y))))
+        if self.gen_attention is not None:
+            with span(ATTENTION_SPAN):
+                y = self.gen_attention(y)
         y = self.bn3(self.conv3(y))
         if self.downsample is not None:
             identity = self.downsample(x)
@@ -201,7 +215,9 @@ class ResNet(nn.Module):
     def __init__(self, block_counts: Sequence[int] = (3, 4, 6, 3), stem_width: int = 64,
                  fused_blocks: bool = False,
                  stage_fused: Sequence[bool] = (True, True, False, False),
-                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0):
+                 conv1x1_matmul: bool = False, mc_dropout: float = 0.0,
+                 attention: Optional[str] = None,
+                 stage_with_attention: Sequence[bool] = (False, False, True, True)):
         super().__init__()
         self.mc_dropout = mc_dropout
         self.conv1 = _conv(3, stem_width, 7, 2, 3)
@@ -217,7 +233,9 @@ class ResNet(nn.Module):
                 blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0),
                                          fused=fused_blocks and stage_fused[stage],
                                          conv1x1_matmul=conv1x1_matmul,
-                                         mc_dropout=mc_dropout))
+                                         mc_dropout=mc_dropout,
+                                         attention=(attention if stage_with_attention[stage]
+                                                    else None)))
                 inplanes = planes * 4
             name = f"layer{stage + 1}"
             self.add_module(name, nn.Sequential(*blocks))

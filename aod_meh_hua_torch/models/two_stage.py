@@ -1,10 +1,13 @@
 """The two-stage detectors (torch): Faster R-CNN R50-FPN and its Cascade,
-Dynamic and Double-Head forms; the RPN head, the shared 2-fc box head,
-the double head, and the detectors that hold them.
+Dynamic and Double-Head forms, and the Faster R-CNN variants on its
+model (Libra R-CNN, PAFPN, CARAFE, GRoIE, empirical attention); the RPN
+head, the shared 2-fc box head, the double head, and the detectors that
+hold them.
 
 Port of aod_meh_hua_tpu/models/two_stage.py (`RPNHead` :32-61,
-`Shared2FCBBoxHead` :64-97, `FasterRCNN` :100-212 in its ResNet + FPN
-form, `CascadeRCNN` :215-256, `build_faster_rcnn` :273 as `build_two_stage`,
+`Shared2FCBBoxHead` :64-97, `FasterRCNN` :100-212 with the ResNet
+backbone, its attention plugin, the FPN, PAFPN and CARAFE necks, the BFP
+and GRoIE's `groie_fuse`, `CascadeRCNN` :215-256, `build_faster_rcnn` :273 as `build_two_stage`,
 `_HeadBottleneck`, `BasicResBlock`, `DoubleConvFCBBoxHead` and
 `DoubleHeadRCNN` :291-420),
 which mirrors the reference's configs/_base_/models/faster_rcnn_r50_fpn.py:
@@ -46,31 +49,55 @@ from ..utils.config import FasterRCNNConfig
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from .detector import flatten_levels
-from .fpn import FPN
+from .attention import ATTENTION_SPAN, GeneralizedAttention
+from .fpn import BFP, BFP_SPAN, CARAFE_SPAN, FPN, FPNCARAFE, PAFPN
 from .resnet import ResNet
 
-# the config's fields that select a variant of the family; the port builds
-# the form their defaults describe
+# the config's fields that select a variant of the Faster R-CNN family
+# (the JAX package's subclasses' switches); the Cascade, Dynamic and
+# Double-Head families take none of them, as their JAX models read none
 _VARIANT_FIELDS = ("backbone_type", "neck_type", "backbone_dcn", "backbone_gcb_ratio",
                    "roi_extractor", "bfp_refine_level", "bfp_refine_type", "num_bins",
-                   "balanced_l1_alpha", "balanced_l1_gamma", "balanced_l1_beta")
+                   "balanced_l1_alpha", "balanced_l1_gamma", "balanced_l1_beta",
+                   "backbone_attention")
+# the families on the Faster R-CNN model and step, which take the ported
+# variant fields (JAX api.py:50-104, tools/train_detector.py:128-132)
+FASTER_RCNN_VARIANTS = ("faster_rcnn", "libra_rcnn", "pafpn", "carafe", "groie",
+                        "empirical_attention")
+# the necks of the port (models/fpn.py); hrfpn, fpg and nasfpn are not ported
+NECKS = ("fpn", "pafpn", "carafe_fpn")
+_NOT_PORTED_VARIANT = ("the port builds the Faster R-CNN variants on the ResNet trunk with "
+                       "the FPN, PAFPN or CARAFE neck; this one is not ported yet "
+                       "(ROADMAP Queue 1 item 15)")
 
 
 def check_two_stage_options(cfg) -> None:
-    """Raise on a config the port cannot build: another family, a variant
-    of the Faster R-CNN family (ROADMAP Queue 1 item 15), bfloat16 compute
-    (item 16), remat or the space-to-depth stem (item 16)."""
+    """Raise on a config the port cannot build: another family; on the
+    Faster R-CNN variants' model, another backbone, a deformable conv or
+    GCNet block, another neck, BFP refine or RoI extractor (ROADMAP Queue
+    1 item 15); any variant field on the Cascade,
+    Dynamic and Double-Head families (item 15); bfloat16 compute (item
+    16), remat or the space-to-depth stem (item 16)."""
     family = getattr(cfg, "family", None)
     if family not in TWO_STAGE_FAMILIES:
         raise NotImplementedError(
             f"the {family} family is not ported yet (ROADMAP Queue 1 item 15)")
     defaults = {f.name: f.default for f in dataclasses.fields(FasterRCNNConfig)}
-    for name in _VARIANT_FIELDS:
-        if getattr(cfg, name) != defaults[name]:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r}: the port builds the two-stage families "
-                "with the ResNet + FPN trunk only; the Faster R-CNN variants are not "
-                "ported yet (ROADMAP Queue 1 item 15)")
+    defaults["backbone_attention"] = None
+    if family not in FASTER_RCNN_VARIANTS:
+        for name in _VARIANT_FIELDS:
+            if getattr(cfg, name, None) != defaults[name]:
+                raise NotImplementedError(
+                    f"{name}={getattr(cfg, name)!r} on {family}: the variant switches of "
+                    "Faster R-CNN are not ported for this family (ROADMAP Queue 1 item 15)")
+    for name, ok in (("backbone_type", cfg.backbone_type == "resnet"),
+                     ("backbone_dcn", cfg.backbone_dcn is None),
+                     ("backbone_gcb_ratio", cfg.backbone_gcb_ratio is None),
+                     ("neck_type", cfg.neck_type in NECKS),
+                     ("bfp_refine_type", cfg.bfp_refine_type == "non_local"),
+                     ("roi_extractor", cfg.roi_extractor in ("single", "groie"))):
+        if not ok:
+            raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: {_NOT_PORTED_VARIANT}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port's model runs float32 "
@@ -156,18 +183,50 @@ def _xavier_uniform(fc: nn.Linear, gen: torch.Generator) -> None:
     fc.weight.copy_((torch.rand(fc.weight.shape, generator=gen) * 2 - 1) * bound)
 
 
+# the profiler range of GRoIE's fusion (engine/two_stage.py STAGES)
+GROIE_SPAN = "groie.fuse"
+# the ranges of the Faster R-CNN variants' modules, in STAGES
+VARIANT_SPANS = (ATTENTION_SPAN, CARAFE_SPAN, BFP_SPAN, GROIE_SPAN)
+
+
+def _build_neck(cfg) -> nn.Module:
+    """The config's neck over C2..C5 (JAX models/two_stage.py:123-159):
+    the FPN with maxpool extras, PAFPN or the CARAFE FPN."""
+    num_outs = len(cfg.rpn.anchor_strides)
+    if cfg.neck_type == "pafpn":
+        return PAFPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0, num_outs=num_outs)
+    if cfg.neck_type == "carafe_fpn":
+        return FPNCARAFE(cfg.backbone_channels, cfg.fpn_channels, num_outs=num_outs)
+    return FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0, num_outs=num_outs,
+               add_extra_convs="maxpool")
+
+
 class FasterRCNN(nn.Module):
     """Weights and stage forwards; the orchestration is engine/two_stage.py.
-    The subclasses replace the RoI head (`_build_roi_head`)."""
+    The subclasses replace the RoI head (`_build_roi_head`). The Faster
+    R-CNN variants (JAX :110-193) switch parts of this model: the neck
+    (cfg.neck_type), the backbone's attention blocks
+    (cfg.backbone_attention), Libra's BFP after the neck
+    (cfg.bfp_refine_level) and GRoIE's fusion of every level's RoI
+    features (cfg.roi_extractor "groie": `groie_pre`, a 5x5 conv shared by
+    the levels, and `groie_post`, GeneralizedAttention(6, "0100",
+    kv_stride 2))."""
 
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
         check_two_stage_options(cfg)
         self.cfg = cfg
-        self.backbone = ResNet(cfg.block_counts, cfg.stem_width)
-        self.neck = FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0,
-                        num_outs=len(cfg.rpn.anchor_strides), add_extra_convs="maxpool")
+        self.backbone = ResNet(cfg.block_counts, cfg.stem_width,
+                               attention=getattr(cfg, "backbone_attention", None))
+        self.neck = _build_neck(cfg)
+        self.bfp = (BFP(cfg.fpn_channels, cfg.bfp_refine_level)
+                    if cfg.bfp_refine_level is not None else None)
         self.rpn_head = RPNHead(cfg.fpn_channels, cfg.rpn.num_anchors)
+        self.groie_pre = self.groie_post = None
+        if cfg.roi_extractor == "groie":
+            c = cfg.fpn_channels
+            self.groie_pre = nn.Conv2d(c, c, 5, padding=2)
+            self.groie_post = GeneralizedAttention(c, 6, "0100", kv_stride=2)
         self._build_roi_head(cfg)
 
     def _build_roi_head(self, cfg) -> None:
@@ -186,17 +245,40 @@ class FasterRCNN(nn.Module):
         self.rpn_head.init_weights(gen)
         for head in self._roi_heads():
             head.init_weights(gen)
+        if self.bfp is not None:
+            _lecun_normal_convs(self.bfp.modules(), gen)
+        if self.groie_pre is not None:
+            _lecun_normal_convs([self.groie_pre], gen)
+        for m in self.modules():  # the attention blocks' own init: gamma 0, the identity
+            if isinstance(m, GeneralizedAttention):
+                m.init_weights(gen)
 
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """images [B, H, W, 3] -> the FPN levels P2..P6, NCHW (channels_last)."""
+        """images [B, H, W, 3] -> the FPN levels P2..P6, NCHW (channels_last),
+        through the BFP when the config has one."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.neck(self.backbone(x))
+        feats = self.neck(self.backbone(x))
+        if self.bfp is not None:
+            with span(BFP_SPAN):
+                feats = self.bfp(feats)
+        return feats
 
     def rpn(self, feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.rpn_head(feats)
 
     def roi_forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.bbox_head(roi_feats)
+
+    def groie_fuse(self, per_level: Sequence[torch.Tensor]) -> torch.Tensor:
+        """GenericRoIExtractor's aggregation (JAX :169-176): each level's
+        RoI features [R, S, S, C] through the shared pre-conv and ReLU,
+        summed over the levels in order, then the post attention:
+        [R, S, S, C]."""
+        acc = None
+        for f in per_level:
+            y = torch.relu(self.groie_pre(f.permute(0, 3, 1, 2)))
+            acc = y if acc is None else acc + y
+        return self.groie_post(acc).permute(0, 2, 3, 1)
 
     def forward(self, images: torch.Tensor):
         """The stage-1 forward: (FPN levels, objectness, deltas)."""
@@ -401,9 +483,11 @@ class DoubleHeadRCNN(FasterRCNN):
         return self.bbox_head(cls_feats, reg_feats, train, data)
 
 
-# family -> the port's model class
+# family -> the port's model class (the Faster R-CNN variants on FasterRCNN,
+# as JAX api.py:50-104 builds them with init_faster_rcnn)
 _MODELS = {"faster_rcnn": FasterRCNN, "cascade_rcnn": CascadeRCNN,
-           "dynamic_rcnn": DynamicRCNN, "double_head_rcnn": DoubleHeadRCNN}
+           "dynamic_rcnn": DynamicRCNN, "double_head_rcnn": DoubleHeadRCNN,
+           **{family: FasterRCNN for family in FASTER_RCNN_VARIANTS}}
 # the two-stage families the port builds
 TWO_STAGE_FAMILIES = tuple(_MODELS)
 

@@ -1,7 +1,8 @@
 """Classification and regression losses of MEH-RetinaNet and MEH-SSD
-(torch): focal, the EDL variants, L1, softmax cross-entropy.
+(torch): focal, the EDL variants, L1, softmax cross-entropy, and Libra
+R-CNN's balanced L1.
 
-Port of aod_meh_hua_tpu/ops/losses.py:25-162 and :238-271, which mirrors the
+Port of aod_meh_hua_tpu/ops/losses.py:25-162, :177-200 and :238-271, which mirrors the
 reference's mmdet/models/losses/EDL_Softmax_FocalLoss.py:31-68 (the live
 cls loss: softmax -> pseudo-logit -> sigmoid focal loss),
 EDL_FocalLoss.py, EDL_ReLU.py, mmcv's sigmoid_focal_loss kernel (per
@@ -13,6 +14,7 @@ over C+1 columns, the RPN's sigmoid BCE) and utils.py weight_reduce_loss. Labels
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -141,3 +143,20 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor
     loss = torch.clamp(logits, min=0.0) - logits * targets \
         + torch.log1p(torch.exp(-torch.abs(logits)))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def balanced_l1_loss(pred: torch.Tensor, target: torch.Tensor, weight=None, beta: float = 1.0,
+                     alpha: float = 0.5, gamma: float = 1.5, reduction: str = "mean",
+                     avg_factor=None, loss_weight: float = 1.0) -> torch.Tensor:
+    """Balanced L1 (Libra R-CNN; JAX ops/losses.py:177-200, the reference's
+    mmdet/models/losses/balanced_l1_loss.py:12-50). Below beta the
+    gradient is promoted logarithmically; above it the loss is gamma-scaled
+    L1, the constants chosen so that value and derivative are continuous
+    at beta (b such that alpha * ln(b + 1) = gamma)."""
+    diff = torch.abs(pred - target)
+    b = math.e ** (gamma / alpha) - 1.0
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1.0) * torch.log1p(b * diff / beta) - alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)

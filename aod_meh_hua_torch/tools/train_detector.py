@@ -5,8 +5,10 @@ card: a step-decayed SGD epoch loop with the VOC mAP evaluated every
 Port of tools/train_detector.py of the JAX package (:27-667; the
 reference's upstream mmdet tools/train.py over a VOC config) for the
 families of utils/config.py ZOO_FAMILIES: `faster_rcnn`, `cascade_rcnn`,
-`dynamic_rcnn` and `double_head_rcnn`, each with its own train step
-(engine/two_stage.py TRAIN_STEPS, the JAX tool's make_steps). It keeps
+`dynamic_rcnn`, `double_head_rcnn` and the Faster R-CNN variants
+`libra_rcnn`, `pafpn`, `carafe`, `groie` and `empirical_attention`
+(on Faster R-CNN's step), each with its train step (engine/two_stage.py
+TRAIN_STEPS, the JAX tool's make_steps). It keeps
 the JAX flags this family uses (--family, --voc07, --voc12, --work-dir,
 --epochs, --lr-steps, --batch-size, --lr, --momentum, --weight-decay,
 --seed, --eval-interval, --mini, --no-validate, and the ranks' flags

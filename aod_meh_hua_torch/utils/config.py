@@ -4,8 +4,11 @@ A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
 `SSDAnchorCfg`, `SSDConfig`, `TrainConfig`, `ALConfig` and
 `tiny_test_config` from aod_meh_hua_tpu/utils/config.py (:18-298,
 :2246-2294, :3545), and of the two-stage families' `RPNCfg`, `RCNNCfg`, `FasterRCNNConfig`,
-`CascadeRCNNConfig`, `DynamicRCNNConfig`, `DoubleHeadRCNNConfig` and
-their tiny factories (:301-455, :823-860, :2513, :2570-2612, :3312)
+`CascadeRCNNConfig`, `DynamicRCNNConfig`, `DoubleHeadRCNNConfig`,
+`LibraRCNNConfig`, `PAFPNFasterRCNNConfig`, `CARAFEFasterRCNNConfig`,
+`GRoIEFasterRCNNConfig`, `EmpiricalAttentionConfig` and their tiny
+factories (:301-455, :598-621, :790-819, :823-860, :1097-1104, :2513,
+:2532, :2551, :2570-2612, :2973, :3312, :3370, :3389)
 with `ZOO_FAMILIES` (:3569) cut to the families the port has, and the
 reference-config loader (`_cfg_get`, `_KNOWN_TOP_KEYS`, `_LOSS_CLS_MAP`,
 `_warn`, `reference_data_roots`, `load_reference_config`, :2297-2510).
@@ -419,10 +422,14 @@ class FasterRCNNConfig:
 
     The fields from `backbone_dcn` on select the JAX package's variants
     of the family (other backbones, necks, RoI extractors, Libra R-CNN's
-    balanced pyramid, sampler and loss; the last seven are fields of its
-    subclasses there). The port builds the ResNet + FPN form only:
-    models/two_stage.py check_two_stage_options raises on any of them
-    set, as on compute_dtype="bfloat16", remat and stem_s2d."""
+    balanced pyramid, sampler and loss; the last eight are fields of its
+    subclasses there). The port builds the ResNet backbone with the FPN,
+    PAFPN or CARAFE FPN neck, the BFP, GRoIE, Libra's sampler and loss,
+    and the subclass field `backbone_attention` (the five families of
+    the subclasses below); models/two_stage.py check_two_stage_options
+    raises on the other backbones and necks, deformable convs and GCNet
+    blocks, on any variant field of the Cascade, Dynamic and Double-Head
+    families, and on compute_dtype="bfloat16", remat and stem_s2d."""
 
     num_classes: int = 20
     canvas: Tuple[int, int] = (608, 1024)
@@ -613,15 +620,129 @@ def tiny_cascade_config(**overrides) -> CascadeRCNNConfig:
     return CascadeRCNNConfig(**base)
 
 
+# --- the Faster R-CNN variants on the same trunk (JAX :598-621, :790-819,
+# :1097-1104): each is FasterRCNNConfig with the switches it sets ---------------
+
+@dataclass(frozen=True)
+class LibraRCNNConfig(FasterRCNNConfig):
+    """Libra R-CNN (reference
+    configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py +
+    mmdet/models/necks/bfp.py + core/bbox/samplers/
+    {instance_balanced_pos,iou_balanced_neg}_sampler.py +
+    models/losses/balanced_l1_loss.py): Faster R-CNN plus a Balanced
+    Feature Pyramid after the FPN, the IoU-balanced CombinedSampler in
+    the RoI head, Balanced L1 bbox regression, and RPN neg_pos_ub=5."""
+
+    bfp_refine_level: int = 2
+    bfp_refine_type: str = "non_local"
+    num_bins: int = 3
+    balanced_l1_alpha: float = 0.5
+    balanced_l1_gamma: float = 1.5
+    balanced_l1_beta: float = 1.0
+    rpn: RPNCfg = field(default_factory=lambda: RPNCfg(neg_pos_ub=5))
+
+    family = "libra_rcnn"
+
+
+@dataclass(frozen=True)
+class PAFPNFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with the Path Aggregation FPN (reference
+    configs/pafpn/faster_rcnn_r50_pafpn_1x_coco.py +
+    mmdet/models/necks/pafpn.py): the only delta is the neck's extra
+    bottom-up path."""
+
+    neck_type: str = "pafpn"
+
+    family = "pafpn"
+
+
+@dataclass(frozen=True)
+class CARAFEFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with CARAFE top-down upsampling (reference
+    configs/carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py +
+    mmdet/models/necks/fpn_carafe.py + the mmcv CARAFE op)."""
+
+    neck_type: str = "carafe_fpn"
+
+    family = "carafe"
+
+
+@dataclass(frozen=True)
+class GRoIEFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with the Generic RoI Extractor (reference
+    configs/groie/faster_rcnn_r50_fpn_groie_1x_coco.py +
+    roi_heads/roi_extractors/generic_roi_extractor.py): RoIAlign the
+    SAME rois from EVERY pyramid level (no finest_scale routing), a
+    shared 5x5 pre-conv per level, sum aggregation, and a
+    GeneralizedAttention ('0100', 6 heads, kv_stride 2) post module."""
+
+    roi_extractor: str = "groie"
+
+    family = "groie"
+
+
+@dataclass(frozen=True)
+class EmpiricalAttentionConfig(FasterRCNNConfig):
+    """Faster R-CNN with GeneralizedAttention blocks after conv2 in
+    backbone stages c4-c5 (reference configs/empirical_attention/
+    faster_rcnn_r50_fpn_attention_{0010,1111}_1x_coco.py — the
+    attention_type mask selects the energy terms; the default '0010'
+    keeps only the bias-&-key-content term)."""
+
+    backbone_attention: str = "0010"
+
+    family = "empirical_attention"
+
+
+def tiny_libra_config(**overrides) -> LibraRCNNConfig:
+    """A shrunken Libra R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(dict(neg_pos_ub=5))
+    base.update(overrides)
+    return LibraRCNNConfig(**base)
+
+
+def tiny_pafpn_config(**overrides) -> PAFPNFasterRCNNConfig:
+    """A shrunken PAFPN Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return PAFPNFasterRCNNConfig(**base)
+
+
+def tiny_carafe_config(**overrides) -> CARAFEFasterRCNNConfig:
+    """A shrunken CARAFE Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return CARAFEFasterRCNNConfig(**base)
+
+
+def tiny_groie_config(**overrides) -> GRoIEFasterRCNNConfig:
+    """A shrunken GRoIE Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return GRoIEFasterRCNNConfig(**base)
+
+
+def tiny_empirical_attention_config(**overrides) -> EmpiricalAttentionConfig:
+    """A shrunken empirical-attention Faster R-CNN for CPU unit tests."""
+    base = _tiny_two_stage(backbone_attention="1111")  # exercise every energy term
+    base.update(overrides)
+    return EmpiricalAttentionConfig(**base)
+
+
 # The model-zoo families the port has: name -> (full-size config class,
 # tiny test-config factory), the JAX package's ZOO_FAMILIES (:3569) cut to
-# them. Every port CLI reads its --family choices here; the other 48
-# families of the JAX registry come with ROADMAP Queue 1 item 15.
+# them, in its order. Every port CLI reads its --family choices here; the
+# other 43 families of the JAX registry come with ROADMAP Queue 1 item 15.
 ZOO_FAMILIES = {
     "faster_rcnn": (FasterRCNNConfig, tiny_faster_rcnn_config),
+    "libra_rcnn": (LibraRCNNConfig, tiny_libra_config),
+    "pafpn": (PAFPNFasterRCNNConfig, tiny_pafpn_config),
     "dynamic_rcnn": (DynamicRCNNConfig, tiny_dynamic_rcnn_config),
     "double_head_rcnn": (DoubleHeadRCNNConfig, tiny_double_head_config),
     "cascade_rcnn": (CascadeRCNNConfig, tiny_cascade_config),
+    "groie": (GRoIEFasterRCNNConfig, tiny_groie_config),
+    "empirical_attention": (EmpiricalAttentionConfig, tiny_empirical_attention_config),
+    "carafe": (CARAFEFasterRCNNConfig, tiny_carafe_config),
 }
 
 # the two AL families and the zoo: every family init_detector builds

@@ -167,7 +167,20 @@
    batch 2) against the one-process step, after each of two steps (see
    two_stage_ranks_path), ms per step per rank. Each path's launch
    counts must read 0.
-21. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+21. The Faster R-CNN variants phase (variants_path): Libra R-CNN (the BFP
+   after the FPN, the IoU-balanced sampler on seven draws per image,
+   balanced L1, RPN neg_pos_ub 5), PAFPN, CARAFE, GRoIE (RoIAlign on
+   every level, the 5x5 pre-conv, the '0100' attention) and empirical
+   attention ('0010' blocks in c4 and c5) at full width, each with its
+   zero-start parameters drawn (seed_zero_starts: every attention block's
+   gamma and biases, the BFP's conv biases):
+   the readings of Faster R-CNN's (training, the tiny steps on the card
+   against the CPU, eval over the 26 canvases with the split by stage,
+   the variants' own modules in their profiler ranges), then the
+   trainer's CLI with --family libra_rcnn for one epoch on a fixture tree
+   (build/chip_smoke_variants/), its Detector and the FPS tool. Each
+   path's launch counts must read 0.
+22. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -185,8 +198,8 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-22. Prints a per-case line, a `{"kernels": [...]}` line, the card line
-   and, last, `{"ok": true, "device": {...}}`.
+23. Prints the script's seconds, a per-case line, a `{"kernels": [...]}`
+   line, the card line and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
 of the repository. Every failed check raises.
@@ -454,6 +467,23 @@ def read_launches() -> dict:
 
 
 # --- scoring path -------------------------------------------------------------
+
+def count_path(out: dict, launches: dict, name: str, fn) -> None:
+    """out[name] = fn() (a dict, given its seconds as path_s), the kernels'
+    launch counts reset just before it and read just after into
+    launches[name]: for a path on which neither kernel lies, so each must
+    read 0."""
+    import torch
+
+    t0 = time.time()
+    reset_launches()
+    out[name] = fn()
+    launches[name] = read_launches()
+    if any(launches[name].values()):
+        fail(f"{name}: a hand-written kernel launched: {launches[name]}")
+    torch.cuda.empty_cache()
+    out[name]["path_s"] = time.time() - t0
+
 
 def synthetic_pool(cfg, seed: int = 0, pool=None, batch: int = BATCH):
     """(orientation, EvalBatch, indices) triples of seeded uint8 canvases:
@@ -2833,7 +2863,11 @@ FRCNN = REPO / "build" / "chip_smoke_frcnn"
 FRCNN_RTOL = 1e-4       # card against CPU detections; the Detector against the eval step
 RPN_LOGIT_STD = 1.5     # the sharpened objectness logits, as CLS_LOGIT_STD for the classes
 # the eval step's profiler ranges (engine/two_stage.py STAGES) -> the split's groups
-FRCNN_GROUPS = {"faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
+FRCNN_GROUPS = {"empirical_attention.gen_attention": "backbone attention blocks",
+                "carafe.upsample": "CARAFE kernel prediction and reassembly",
+                "libra_rcnn.bfp": "BFP (pools, resizes, non-local block)",
+                "groie.fuse": "GRoIE pre-conv and attention",
+                "faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
                 "faster_rcnn.proposals": "proposal top-k, decode and NMS",
                 "faster_rcnn.roi_align": "RoIAlign gathers",
                 "faster_rcnn.roi_head": "RoI-head matmuls",
@@ -2852,10 +2886,11 @@ FRCNN_MAX_PROPOSAL_FLIPS = 4
 def class_logits(model, cfg, feats, props, head: int):
     """The class logits of the model's RoI head `head` on props: the
     cascade's stage `head`, the double head with its rescaled regression
-    extraction, Faster (and Dynamic) R-CNN's one head."""
-    from aod_meh_hua_torch.engine.two_stage import extract_rois, scale_rois
+    extraction, Faster (and Dynamic) R-CNN's one head on the features of
+    the config's extractor (GRoIE's for that family)."""
+    from aod_meh_hua_torch.engine.two_stage import extract_rois, roi_features, scale_rois
 
-    f = extract_rois(cfg, feats, props)
+    f = roi_features(model, cfg, feats, props)
     if cfg.family == "cascade_rcnn":
         return model.roi_forward(f, head)[0]
     if cfg.family == "double_head_rcnn":
@@ -2863,6 +2898,42 @@ def class_logits(model, cfg, feats, props, head: int):
                            routing_rois=props)
         return model.roi_forward(f, reg)[0]
     return model.roi_forward(f)[0]
+
+
+# Parameters of the Faster R-CNN variants that start at zero where the
+# phase reads them: GeneralizedAttention's gamma, key_bias and geom_bias
+# (the block is then the identity), drawn from N(0, ATTENTION_STD) (gamma
+# from U(0.5, 1) times ATTENTION_STD) so that the attention's arithmetic
+# runs on the card; and the BFP's conv biases, from N(0, BFP_BIAS_STD):
+# its non-local block's phi bias has no gradient in exact arithmetic (the
+# softmax over the keys cancels it), so from zero it holds rounding alone,
+# which no tolerance of its own scale can compare
+ATTENTION_STD = 0.5
+BFP_BIAS_STD = 0.05
+
+
+def seed_zero_starts(model, seed: int) -> int:
+    """The zero-start parameters of `model`'s attention blocks and BFP
+    drawn from a CPU generator seeded `seed`, in module order; returns the
+    number of attention blocks."""
+    import torch
+    from aod_meh_hua_torch.models.attention import GeneralizedAttention
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [m for m in model.modules() if isinstance(m, GeneralizedAttention)]
+    with torch.no_grad():
+        for m in blocks:
+            for name in ("gamma", "key_bias", "geom_bias"):
+                p = getattr(m, name, None)
+                if p is None:
+                    continue
+                draw = (torch.rand(p.shape, generator=gen) * 0.5 + 0.5 if name == "gamma"
+                        else torch.randn(p.shape, generator=gen))
+                p.copy_(draw * ATTENTION_STD)
+        for m in (model.bfp.modules() if getattr(model, "bfp", None) is not None else ()):
+            if isinstance(m, torch.nn.Conv2d):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * BFP_BIAS_STD)
+    return len(blocks)
 
 
 def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
@@ -2969,10 +3040,13 @@ def profile_stages(fn, groups: dict) -> dict:
 def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
     """The family's full-width config (FasterRCNNConfig(): R50-FPN,
     frozen_stages 1, 3 anchors, RoIAlign 7, 2-fc 1024 head, 20 classes;
-    or the cascade's, Dynamic R-CNN's, the double head's), seed 0, its
-    RPN cls head sharpened, TrainConfig() (batch 2): 2 warm-up and 10
-    timed steps on one seeded landscape batch, then one step profiled by
-    stage, one under the fixpoint-depth recorder and one portrait step."""
+    or the cascade's, Dynamic R-CNN's, the double head's, a Faster R-CNN
+    variant's), seed 0, its zero-start parameters drawn (seed_zero_starts),
+    its RPN cls head sharpened, TrainConfig() (batch 2): 2 warm-up and 10
+    timed steps on one seeded landscape batch (losses finite, the last
+    below the first, positives every step, the frozen stages unmoved),
+    then one step profiled by stage, one under the fixpoint-depth
+    recorder and one portrait step."""
     import torch
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask
@@ -2983,6 +3057,7 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
     cfg, tcfg = ZOO_FAMILIES[family][0](), TrainConfig()
     what = f"{family} training"
     model = build_two_stage(cfg, device=device, seed=0)
+    seed_zero_starts(model, seed=0)
     lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
     batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
     sharpen_frcnn(model, lcfg, batch.images, batch.img_shapes, classes=False)
@@ -3008,6 +3083,8 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
             fail(f"{what}: {k} is not finite: {v}")
     if not min(traj["num_pos"]) > 0:
         fail(f"{what}: a step sampled no positive RoI: {traj['num_pos']}")
+    if not traj["loss"][-1] < traj["loss"][0]:
+        fail(f"{what}: the loss did not fall: {traj['loss']}")
     for name, p in model.named_parameters():  # weight decay moves every trained weight
         moved = not torch.equal(p.detach(), before[name])
         if moved if mask[name] else (name.endswith("weight") and not moved):
@@ -3056,7 +3133,8 @@ def proposal_flips(got, want, iou_thr: float) -> list:
 # the card-vs-CPU steps of each family's tiny config: Dynamic R-CNN's five
 # cross its refresh at update_iter_interval 4
 CARD_VS_CPU_STEPS = {"faster_rcnn": 2, "cascade_rcnn": 2, "dynamic_rcnn": 5,
-                     "double_head_rcnn": 2}
+                     "double_head_rcnn": 2, "libra_rcnn": 2, "pafpn": 2, "carafe": 2,
+                     "groie": 2, "empirical_attention": 2}
 DYNAMIC_TOL = 1e-6  # Dynamic R-CNN's threshold and beta, card against CPU
 
 
@@ -3084,19 +3162,20 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
     what = f"{family} training"
     _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
     seed_model = build_two_stage(cfg, device="cpu", seed=1)
+    seed_zero_starts(seed_model, seed=1)
     sharpen_frcnn(seed_model, cfg, torch.from_numpy(batch.images),
                   torch.from_numpy(batch.img_shapes), classes=False)
     weights = seed_model.state_dict()
     gen = torch.Generator().manual_seed(3)
     n_props = cfg.max_gt + cfg.rpn.train_max_per_img
-    n = {"rpn": cfg.level_bounds()[-1][1]}
+    n = {"rpn": (cfg.level_bounds()[-1][1], 2)}
     if family == "cascade_rcnn":
-        n.update({f"roi{i}": n_props if i == 0 else cfg.max_gt + cfg.rcnn.sampler_num
+        n.update({f"roi{i}": (n_props if i == 0 else cfg.max_gt + cfg.rcnn.sampler_num, 2)
                   for i in range(cfg.num_stages)})
     else:
-        n["roi"] = n_props
-    draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(2))
-              for k, m in n.items()} for _ in range(CARD_VS_CPU_STEPS[family])]
+        n["roi"] = (n_props, two_stage.roi_draws(cfg))
+    draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(k_draws))
+              for k, (m, k_draws) in n.items()} for _ in range(CARD_VS_CPU_STEPS[family])]
 
     real_proposals = two_stage.make_proposal_fn
     cpu_props, flips = [], []
@@ -3128,7 +3207,7 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
             step = make_two_stage_train_step(model, cfg, create_train_state(model, tcfg), dev)
         losses, dyn = [], []
         for d in draws:
-            aux = step(batch, uniforms=lambda stage, m, d=d: tuple(u.to(dev) for u in d[stage]))
+            aux = step(batch, uniforms=lambda stage, m, k, d=d: tuple(u.to(dev) for u in d[stage]))
             losses.append({k: float(v) for k, v in aux.items()})
             if family == "dynamic_rcnn":
                 dyn.append((float(model.dynamic.iou_thr), float(model.dynamic.beta),
@@ -3170,7 +3249,7 @@ def _host_dets(d):
     return type(d)(*(t.cpu().numpy() for t in d))
 
 
-def frcnn_eval_path(device, family: str = "faster_rcnn") -> dict:
+def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = False) -> dict:
     """The family's eval step over the 26 synthetic canvases at batch 8,
     both orientations: the family's full-width config, seed 0, its RPN
     and class heads sharpened on the first batch. img/s and peak memory
@@ -3179,7 +3258,11 @@ def frcnn_eval_path(device, family: str = "faster_rcnn") -> dict:
     each NMS fixpoint's depth; the first two canvases of the timed
     sweep's first batch held to the CPU's eval step on those two
     canvases: the same valid slots, labels and sources, boxes and scores
-    to FRCNN_RTOL, with no difference allowed."""
+    to FRCNN_RTOL, with no difference allowed; or, `named_ties` (the
+    Faster R-CNN variants), where they differ, the proposals behind them
+    compared stage by stage (eval_ties): every proposal that one device
+    keeps and the other not named as a near-tie, and the detections
+    from the CPU's proposals with no difference allowed."""
     import torch
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
     from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
@@ -3189,6 +3272,7 @@ def frcnn_eval_path(device, family: str = "faster_rcnn") -> dict:
     cfg = ZOO_FAMILIES[family][0]()
     what = f"{family} eval"
     model = build_two_stage(cfg, device=device, seed=0)
+    seed_zero_starts(model, seed=0)
     triples, n = synthetic_pool(cfg)
     first = upload(triples[0][1], device)
     sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
@@ -3234,12 +3318,72 @@ def frcnn_eval_path(device, family: str = "faster_rcnn") -> dict:
                                                            rtol=FRCNN_RTOL)
                                                 & (got.labels[i] == want.labels[i]))))}
              for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
-    if flips:
+    ties = None
+    if flips and named_ties:
+        ties = eval_ties(model, cpu_model, cfg.for_orientation(o0), two, want, device)
+    elif flips:
         fail(f"{what} card vs CPU: {flips}")
     return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
                 detections=n_dets, fixpoints=depths, profile_of_one_batch=prof,
-                card_vs_cpu={"images": 2, "flips": flips,
+                card_vs_cpu={"images": 2, "flips": flips, "named_ties": ties,
                              "detections": int(got.valid.sum())})
+
+
+# a proposal one device keeps and the other not is a near-tie when the other
+# device keeps its twin (IoU at least TIE_IOU, the score within TIE_SCORE_RTOL):
+# a near-duplicate pair (anchors decoded and clipped to nearly one box, their
+# sigmoid scores saturated) whose order rounding decides; or when its
+# deciding IoU lies within TIE_THR_ATOL of the NMS threshold
+TIE_IOU, TIE_SCORE_RTOL, TIE_THR_ATOL = 0.999, 1e-5, 1e-4
+
+
+def eval_ties(model, cpu_model, cfg, two, want, device) -> dict:
+    """Where the card's detections on two canvases differ from the CPU's
+    (`want`), the stage that parts them: the features of every level and
+    the RPN outputs within FRCNN_RTOL of their max-abs; every proposal
+    that one device keeps and the other not named (proposal_flips) and a
+    near-tie (TIE_*), and the proposals' order aside; then the card's
+    eval step from the CPU's proposals, whose detections must agree with
+    the CPU's with no difference. Fails otherwise."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.ops.bbox import bbox_overlaps
+
+    stage1 = {}
+    with torch.no_grad():
+        for name, m, dev in (("cpu", cpu_model, "cpu"), ("card", model, device)):
+            b = upload(two, dev)
+            feats, rpn_cls, rpn_reg = m(prepare_images(b.images, b.img_shapes, cfg))
+            props = two_stage.make_proposal_fn(cfg)(
+                rpn_cls, rpn_reg, torch.from_numpy(two_stage.anchor_table(cfg)).to(rpn_cls.device),
+                b.img_shapes, cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)
+            stage1[name] = ([f.cpu() for f in feats] + [rpn_cls.cpu(), rpn_reg.cpu()],
+                            [t.cpu() for t in props])
+    errs = [((g - c).abs().max() / c.abs().max().clamp(min=1e-30)).item()
+            for c, g in zip(stage1["cpu"][0], stage1["card"][0])]
+    if max(errs) > FRCNN_RTOL:
+        fail(f"eval card vs CPU: the features or the RPN differ by {max(errs)} of their max")
+    flips = proposal_flips(stage1["card"][1], stage1["cpu"][1], cfg.rpn.nms_iou_thr)
+    untied = []
+    for f in flips:
+        twins = [g for g in flips if g["image"] == f["image"] and g["which"] != f["which"]
+                 and abs(g["score"] - f["score"]) <= TIE_SCORE_RTOL * abs(f["score"])
+                 and bbox_overlaps(torch.tensor([f["box"]]), torch.tensor([g["box"]])).item()
+                 >= TIE_IOU]
+        if not twins and abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) > TIE_THR_ATOL:
+            untied.append(f)
+    if untied:
+        fail(f"eval card vs CPU: proposals differ beyond near-ties: {untied}")
+    pinned = [t.to(device) for t in stage1["cpu"][1]]
+    with mock.patch.object(two_stage, "make_proposal_fn",
+                           lambda c, device_loop=False: lambda *a: tuple(pinned)):
+        got = _host_dets(two_stage.make_two_stage_eval_step(model, cfg, device=device)(two))
+    off = [i for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+    if off:
+        fail(f"eval card vs CPU: images {off} differ from the CPU's proposals")
+    return {"stage1_err_of_max": max(errs), "proposal_flips": flips,
+            "from_cpu_proposals": "agree", "detections": int(got.valid.sum())}
 
 
 def frcnn_cli_path(device, family: str = "faster_rcnn", root: Path = None) -> dict:
@@ -3355,7 +3499,7 @@ def zoo_family_path(device, card: str, family: str, with_eval: bool) -> dict:
     print(f"{family} training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
           flush=True)
     if with_eval:
-        out["eval"] = frcnn_eval_path(device, family)
+        out["eval"] = frcnn_eval_path(device, family, named_ties=family in VARIANT_FAMILIES)
         torch.cuda.empty_cache()
         print(f"{family} eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
     return out
@@ -3486,18 +3630,11 @@ def zoo_path(device, card: str) -> tuple:
     counts reset just before it and read just after: neither kernel lies
     on these paths, so each must read 0. Returns (result, launches by
     path)."""
-    import torch
-
     t0 = time.time()
     out, launches = {}, {}
 
     def counted(name, fn):
-        reset_launches()
-        out[name] = fn()
-        launches[name] = read_launches()
-        if any(launches[name].values()):
-            fail(f"{name}: a hand-written kernel launched: {launches[name]}")
-        torch.cuda.empty_cache()
+        count_path(out, launches, name, fn)
 
     counted("cascade_rcnn", lambda: zoo_family_path(device, card, "cascade_rcnn", True))
     counted("dynamic_rcnn", lambda: zoo_family_path(device, card, "dynamic_rcnn", False))
@@ -3511,6 +3648,37 @@ def zoo_path(device, card: str) -> tuple:
     counted("cascade_rcnn_cli", lambda: frcnn_cli_path(device, "cascade_rcnn", ZOO / "cli"))
     print("train_detector --family cascade_rcnn, Detector and FPS tool:",
           json.dumps(out["cascade_rcnn_cli"]), f"[{card}]", flush=True)
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
+# --- the Faster R-CNN variants on the trunk -----------------------------------------
+
+VARIANTS = REPO / "build" / "chip_smoke_variants"
+VARIANT_FAMILIES = ("libra_rcnn", "pafpn", "carafe", "groie", "empirical_attention")
+
+
+def variants_path(device, card: str) -> tuple:
+    """The phase of the Faster R-CNN variants: each of VARIANT_FAMILIES at
+    full width through zoo_family_path with its eval (training, the tiny
+    steps on the card against the CPU, eval over the 26 canvases), its
+    zero-start parameters drawn first (seed_zero_starts); then the trainer's
+    CLI with --family libra_rcnn, its Detector and the FPS tool
+    (frcnn_cli_path). Each path's kernel launch counts reset just before
+    it and read just after: neither kernel lies on these paths, so each
+    must read 0. Returns (result, launches by path)."""
+    t0 = time.time()
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        count_path(out, launches, name, fn)
+
+    for family in VARIANT_FAMILIES:
+        counted(family, lambda family=family: zoo_family_path(device, card, family, True))
+    counted("libra_rcnn_cli", lambda: frcnn_cli_path(device, "libra_rcnn", VARIANTS / "cli"))
+    print("train_detector --family libra_rcnn, Detector and FPS tool:",
+          json.dumps(out["libra_rcnn_cli"]), f"[{card}]", flush=True)
+    shutil.rmtree(VARIANTS, ignore_errors=True)
     out["phase_s"] = time.time() - t0
     return out, launches
 
@@ -3682,14 +3850,17 @@ def two_stage_archive_server_path(model, adet) -> dict:
 
 
 def rank_step_draws(cfg, steps: int, b: int, seed: int) -> list:
-    """Per step, the global batch's sampler uniforms by stage ([b, n]
-    u_pos, u_neg), drawn on the host from one seeded generator."""
+    """Per step, the global batch's sampler uniforms by stage ([b, n], as
+    many as the stage's sampler takes: u_pos, u_neg, or Libra R-CNN's
+    seven for its RoIs), drawn on the host from one seeded generator."""
     import torch
+    from aod_meh_hua_torch.engine.two_stage import roi_draws
 
     gen = torch.Generator().manual_seed(seed)
-    sizes = {"rpn": cfg.level_bounds()[-1][1], "roi": cfg.max_gt + cfg.rpn.train_max_per_img}
-    return [{k: tuple(torch.rand((b, n), generator=gen) for _ in range(2))
-             for k, n in sizes.items()} for _ in range(steps)]
+    sizes = {"rpn": (cfg.level_bounds()[-1][1], 2),
+             "roi": (cfg.max_gt + cfg.rpn.train_max_per_img, roi_draws(cfg))}
+    return [{k: tuple(torch.rand((b, n), generator=gen) for _ in range(k_draws))
+             for k, (n, k_draws) in sizes.items()} for _ in range(steps)]
 
 
 def _train_state(model, opt) -> dict:
@@ -3706,7 +3877,7 @@ def _train_state(model, opt) -> dict:
 def _one_step_from(model, cfg, state: dict, batch, draw, device, mesh=None):
     """From `state` (_train_state's; the momentum may be empty), one step of
     the family's train step on `batch` (a Batch of tensors on `device`)
-    under the draw `draw` (stage -> (u_pos, u_neg) of its rows): the aux,
+    under the draw `draw` (stage -> its uniforms, of its rows): the aux,
     and the model and its optimizer after it."""
     import torch
     from aod_meh_hua_torch.engine.train import create_train_state
@@ -3719,7 +3890,7 @@ def _one_step_from(model, cfg, state: dict, batch, draw, device, mesh=None):
         if name in state["momentum"]:
             opt.state[p]["momentum_buffer"] = state["momentum"][name].to(device).clone()
     step = make_two_stage_train_step(model, cfg, opt, device=device, mesh=mesh)
-    aux = step(batch, uniforms=lambda stage, n: tuple(u.to(device) for u in draw[stage]))
+    aux = step(batch, uniforms=lambda stage, n, k: tuple(u.to(device) for u in draw[stage]))
     return {k: float(v) for k, v in aux.items()}, opt
 
 
@@ -3775,7 +3946,7 @@ def faster_rcnn_one_image_at_a_time(model, cfg, state, batch, draw, device) -> d
     recorded = _AxisReplay()
     with mock.patch.object(two_stage, "DataAxis", lambda: recorded):
         two_stage.make_two_stage_train_step(model, cfg, _Accumulate(), device)(
-            b, uniforms=lambda stage, n: on_device[stage])
+            b, uniforms=lambda stage, n, k: on_device[stage])
     model.zero_grad(set_to_none=True)
     with mock.patch.object(model, "zero_grad", lambda **kw: None):
         for i in range(len(batch.images)):
@@ -3783,7 +3954,7 @@ def faster_rcnn_one_image_at_a_time(model, cfg, state, batch, draw, device) -> d
                                    lambda: _AxisReplay(recorded.values)):
                 step = two_stage.make_two_stage_train_step(model, cfg, _Accumulate(), device)
             step(type(b)(*(t[i:i + 1] for t in b)),
-                 uniforms=lambda stage, n, i=i: tuple(u[i:i + 1] for u in on_device[stage]))
+                 uniforms=lambda stage, n, k, i=i: tuple(u[i:i + 1] for u in on_device[stage]))
     opt.step()
     return gather_to_host(model)
 
@@ -3989,14 +4160,7 @@ def two_stage_deploy_path(device, card: str) -> tuple:
     out, launches = {}, {}
 
     def counted(name, fn):
-        t1 = time.time()
-        reset_launches()
-        out[name] = fn()
-        launches[name] = read_launches()
-        if any(launches[name].values()):
-            fail(f"{name}: a hand-written kernel launched: {launches[name]}")
-        torch.cuda.empty_cache()
-        out[name]["path_s"] = time.time() - t1
+        count_path(out, launches, name, fn)
 
     # the Faster R-CNN programs trace in a subprocess while this process
     # traces the cascade's
@@ -4606,6 +4770,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--rank-program"]:
         return rank_main(sys.argv[2:])
+    t_script = time.time()
     from aod_meh_hua_torch.kernels.build import build_all
     from aod_meh_hua_torch.utils.config import RetinaNetConfig
 
@@ -4718,6 +4883,12 @@ def main() -> int:
     print(f"two-stage export, archive server and ranks phase: {deploy['phase_s']:.1f} s "
           f"[{card}]", flush=True)
     torch.cuda.empty_cache()
+    variants, variants_launches = variants_path(device, card)
+    print("Faster R-CNN variants phase, s by path:",
+          json.dumps({k: v["path_s"] for k, v in variants.items() if k != "phase_s"}),
+          f"[{card}]", flush=True)
+    print(f"Faster R-CNN variants phase: {variants['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -4727,7 +4898,8 @@ def main() -> int:
                  "al_ensemble_cli": al_ens["launches"],
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
                  "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
-                 "faster_rcnn": frcnn_launches, **zoo_launches, **deploy_launches}
+                 "faster_rcnn": frcnn_launches, **zoo_launches, **deploy_launches,
+                 **variants_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731
@@ -4778,6 +4950,7 @@ def main() -> int:
         "max_abs_err": mm["max_abs_err"], "ms": mm["ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
     })
+    print(f"chip_smoke: {time.time() - t_script:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

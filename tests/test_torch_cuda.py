@@ -10,7 +10,9 @@ launches and results, the fused eval step exported, saved and loaded,
 the tiny Faster R-CNN's eval step and two train steps (under the same
 uniforms) on the card against the CPU, the tiny Cascade, Dynamic and
 Double-Head R-CNN's train steps (Dynamic R-CNN's five, across its
-refresh) and the two-stage TTA on the card against the CPU, each
+refresh) and the two-stage TTA on the card against the CPU, the five
+Faster R-CNN variants' tiny train steps and eval steps (every attention
+block's gamma and biases non-zero) on the card against the CPU, each
 two-stage family's tiny exported program against the card's eager step,
 and the model-zoo trainer on two gloo ranks sharing the card against one
 process. Skips, with the reason, where there is no card.
@@ -641,7 +643,7 @@ def test_faster_rcnn_train_steps_on_the_card_match_the_cpu(cuda):
         step = make_faster_rcnn_train_step(model, cfg, create_train_state(model, TrainConfig()),
                                            device=dev)
         losses = [{k: float(v) for k, v in step(
-            batch, uniforms=lambda stage, m, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
+            batch, uniforms=lambda stage, m, k, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
         ).items()} for d in draws]
         runs[str(dev)] = losses, {k: (initial[k], p.detach().cpu())
                                   for k, p in model.named_parameters()}
@@ -724,7 +726,7 @@ def test_rcnn_family_train_steps_on_the_card_match_the_cpu(cuda, family):
         step = make_two_stage_train_step(model, cfg, create_train_state(model, TrainConfig()),
                                          device=dev)
         losses = [{k: float(v) for k, v in step(
-            batch, uniforms=lambda stage, m, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
+            batch, uniforms=lambda stage, m, k, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
         ).items()} for d in draws]
         runs[str(dev)] = losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
     (cpu_losses, cpu_sd), (gpu_losses, gpu_sd) = runs["cpu"], runs[str(cuda)]
@@ -744,6 +746,87 @@ def test_rcnn_family_train_steps_on_the_card_match_the_cpu(cuda, family):
     if family == "dynamic_rcnn":
         assert int(gpu_sd["dynamic.step"]) == 5
         assert float(cpu_sd["dynamic.iou_thr"]) != cfg.rcnn.pos_iou_thr  # refreshed
+
+
+VARIANTS = ("libra_rcnn", "pafpn", "carafe", "groie", "empirical_attention")
+
+
+def _tiny_variant(family):
+    """_tiny_family's model of a Faster R-CNN variant with its zero-start
+    parameters drawn first (chip_smoke.seed_zero_starts: at init every
+    attention block is the identity, and the BFP's phi bias has no
+    gradient)."""
+    import chip_smoke
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    _, batch, _ = _tiny_frcnn()
+    cfg = ZOO_FAMILIES[family][1]()
+    model = build_two_stage(cfg, device="cpu", seed=5)
+    blocks = chip_smoke.seed_zero_starts(model, seed=6)
+    assert blocks == {"groie": 1, "empirical_attention": 2}.get(family, 0)
+    chip_smoke.sharpen_frcnn(model, cfg, batch.images, batch.img_shapes)
+    return cfg, batch, model.state_dict()
+
+
+@pytest.mark.parametrize("family", VARIANTS)
+def test_rcnn_variant_train_steps_on_the_card_match_the_cpu(cuda, family):
+    """Two steps of the variant's tiny config (Libra's RoI sampler on its
+    seven draws) from the same weights, batch and uniforms on the card and
+    on the CPU: losses to rtol 1e-4, every tensor to 1e-4 of its max-abs."""
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step, roi_draws
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+    from aod_meh_hua_torch.utils.config import TrainConfig
+
+    cfg, batch, sd = _tiny_variant(family)
+    gen = torch.Generator().manual_seed(4)
+    n = {"rpn": (cfg.level_bounds()[-1][1], 2),
+         "roi": (cfg.max_gt + cfg.rpn.train_max_per_img, roi_draws(cfg))}
+    draws = [{k: tuple(torch.rand((2, m), generator=gen) for _ in range(j))
+              for k, (m, j) in n.items()} for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_two_stage(cfg, device=dev)
+        model.load_state_dict(sd)
+        step = make_two_stage_train_step(model, cfg, create_train_state(model, TrainConfig()),
+                                         device=dev)
+        losses = [{k: float(v) for k, v in step(
+            batch, uniforms=lambda stage, m, k, d=d, dev=dev: tuple(u.to(dev) for u in d[stage])
+        ).items()} for d in draws]
+        runs[str(dev)] = losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    (cpu_losses, cpu_sd), (gpu_losses, gpu_sd) = runs["cpu"], runs[str(cuda)]
+    assert cpu_losses[0]["num_pos"] > 0
+    for c, g in zip(cpu_losses, gpu_losses):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4), k
+    for name, c in cpu_sd.items():
+        assert (gpu_sd[name] - c).abs().max().item() <= 1e-4 * c.abs().max().item() + 1e-12, name
+
+
+@pytest.mark.parametrize("family", VARIANTS)
+def test_rcnn_variant_eval_on_the_card_matches_the_cpu(cuda, family):
+    """The variant's tiny eval step on the card against the CPU's: the same
+    valid slots, labels and proposals behind them, scores and boxes to
+    rtol 1e-4."""
+    from aod_meh_hua_torch.engine.batch import EvalBatch
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+
+    cfg, batch, sd = _tiny_variant(family)
+    ebatch = EvalBatch(batch.images, batch.img_shapes,
+                       torch.tensor([[1.0] * 4, [1.3] * 4]), torch.ones(2, dtype=torch.bool))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_two_stage(cfg, device=dev)
+        model.load_state_dict(sd)
+        out[str(dev)] = [t.cpu() for t in make_two_stage_eval_step(model, cfg, dev)(ebatch)]
+    c, g = out["cpu"], out[str(cuda)]
+    assert c[3].sum() > 10
+    for i in (2, 3, 4):  # labels, valid, the proposal behind each detection
+        assert torch.equal(g[i], c[i])
+    torch.testing.assert_close(g[1], c[1], rtol=1e-4, atol=0)
+    torch.testing.assert_close(g[0], c[0], rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("family", ["faster_rcnn", "cascade_rcnn"])

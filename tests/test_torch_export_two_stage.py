@@ -2,7 +2,8 @@
 engine/two_stage.py TwoStageEvalStep, tools/deployment/export_model.py),
 on the CPU, f32.
 
-For each of Faster, Cascade, Dynamic and Double-Head R-CNN, in both
+For each of Faster, Cascade, Dynamic and Double-Head R-CNN (the Faster
+R-CNN variants: tests/test_torch_export_rcnn_variants.py), in both
 orientations (the portrait program from cfg.for_orientation("portrait"),
 its anchors and canvas that config's): the tiny model's eval step
 exported at batch 2 against the eager step on the same batch: every
@@ -52,8 +53,13 @@ def _batch(cfg, seed=0):
                      np.ones(B, bool))
 
 
+# the families of this file; the Faster R-CNN variants export in
+# tests/test_torch_export_rcnn_variants.py (this file's time budget)
+FAMILIES = ("faster_rcnn", "cascade_rcnn", "dynamic_rcnn", "double_head_rcnn")
+
+
 @pytest.mark.parametrize("orientation", ["landscape", "portrait"])
-@pytest.mark.parametrize("family", list(ZOO_FAMILIES))
+@pytest.mark.parametrize("family", FAMILIES)
 def test_exported_program_equals_the_eager_step(family, orientation):
     _, _, model = two_stage_pair(family)
     cfg = ZOO_FAMILIES[family][1]().for_orientation(orientation)
@@ -95,4 +101,4 @@ def test_config_for_takes_every_family():
         assert isinstance(step, TwoStageEvalStep) and step.device_loop
     assert set(export_model.EXPORTED_FAMILIES) == {"retinanet", "ssd", *ZOO_FAMILIES}
     with pytest.raises(SystemExit):
-        export_model.parse_args(["--family", "libra_rcnn"])
+        export_model.parse_args(["--family", "pisa_faster_rcnn"])

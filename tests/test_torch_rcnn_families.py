@@ -185,8 +185,8 @@ def jax_uniforms(key, b, cfg, cascade=False):
     else:
         out["roi"] = _per_image(k_roi, b, cfg.max_gt + cfg.rpn.train_max_per_img)
 
-    def uniforms(stage, n):
-        assert out[stage][0].shape[1] == n, (stage, n)
+    def uniforms(stage, n, k):
+        assert out[stage][0].shape[1] == n and len(out[stage]) == k, (stage, n, k)
         return out[stage]
 
     return uniforms
@@ -316,7 +316,7 @@ def test_cascade_samples_match_jax_index_for_index():
             jax.random.split(k, 2), props, pvalid, jnp.asarray(gtb), jnp.asarray(gtl),
             jnp.asarray(gtv))
         n = jc.max_gt + props.shape[1]
-        ts_ = tts.roi_sample(*uniforms(f"roi{stage}", n), tprops, tvalid, _t(gtb),
+        ts_ = tts.roi_sample(uniforms(f"roi{stage}", n, 2), tprops, tvalid, _t(gtb),
                              _t(gtl).long(), _t(gtv), tc, pos_iou_thr=tc.stage_pos_iou_thrs[stage],
                              stds=tc.stage_stds[stage])
         for name in ("labels", "is_pos", "valid", "is_gt", "gt_idx"):

@@ -49,7 +49,7 @@ from aod_meh_hua_torch.ops import nms as tnms
 from aod_meh_hua_torch.ops import roi_align as troi
 from aod_meh_hua_torch.ops import sampler as tsampler
 from aod_meh_hua_torch.utils import config as tcfg
-from torch_parity import jax_faster_rcnn, two_stage_batch
+from torch_parity import jax_faster_rcnn, jax_step_uniforms, two_stage_batch
 from torch_parity import few_threads  # noqa: F401 (the fixture of pytestmark)
 
 pytestmark = pytest.mark.usefixtures("few_threads")
@@ -121,10 +121,10 @@ def test_zoo_registry_holds_the_ported_families():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("backbone_type", "resnext", "item 15"), ("neck_type", "pafpn", "item 15"),
+    ("backbone_type", "resnext", "item 15"), ("neck_type", "fpg", "item 15"),
     ("backbone_dcn", "dcn", "item 15"), ("backbone_gcb_ratio", 0.25, "item 15"),
-    ("roi_extractor", "groie", "item 15"), ("bfp_refine_level", 2, "item 15"),
-    ("num_bins", 3, "item 15"), ("balanced_l1_alpha", 0.5, "item 15"),
+    ("neck_type", "hrfpn", "item 15"), ("backbone_type", "resnest", "item 15"),
+    ("backbone_type", "hrnet", "item 15"), ("backbone_type", "res2net", "item 15"),
     ("compute_dtype", "bfloat16", "item 16"), ("remat", True, "item 16")])
 def test_variants_raise(field, value, item):
     cfg = tcfg.tiny_faster_rcnn_config(**{field: value})
@@ -458,23 +458,6 @@ def test_proposals_match_jax(shared, train):
     assert got[2].sum() > max_out // 2
 
 
-def _jax_key_draws(key, b, n_anchor, n_roi):
-    """The uniforms of JAX's train step under `key`: k_rpn, k_roi =
-    split(key), split(k, B) per image, (kp, kn) in the sampler. Returns a
-    port `uniforms` source."""
-    k_rpn, k_roi = jax.random.split(key)
-    out = {}
-    for stage, k, n in (("rpn", k_rpn, n_anchor), ("roi", k_roi, n_roi)):
-        draws = [jax_draws(kk, n) for kk in jax.random.split(k, b)]
-        out[stage] = tuple(torch.from_numpy(np.stack([d[i] for d in draws])) for i in range(2))
-
-    def uniforms(stage, n):
-        assert out[stage][0].shape[1] == n
-        return out[stage]
-
-    return uniforms
-
-
 def test_rpn_targets_and_roi_samples_match_jax(shared):
     """Given the same anchors, gts, proposals and JAX's draws: the RPN's
     targets (exact masks and counts, deltas rtol 1e-5) and the RoI samples
@@ -495,8 +478,8 @@ def test_rpn_targets_and_roi_samples_match_jax(shared):
     js = jax.jit(jax.vmap(functools.partial(jts._roi_sample_single, cfg=JC)))(
         jax.random.split(k_roi, b), props, pvalid, jnp.asarray(gtb), jnp.asarray(gtl),
         jnp.asarray(gtv))
-    uniforms = _jax_key_draws(key, b, len(anchors), JC.max_gt + props.shape[1])
-    tt = tts.rpn_targets(*uniforms("rpn", len(anchors)), _t(anchors), _t(av), _t(gtb), _t(gtv),
+    uniforms = jax_step_uniforms(key, b, len(anchors), JC.max_gt + props.shape[1])
+    tt = tts.rpn_targets(*uniforms("rpn", len(anchors), 2), _t(anchors), _t(av), _t(gtb), _t(gtv),
                          TC.rpn)
     for name in ("is_pos", "weights", "num_samples"):
         np.testing.assert_array_equal(getattr(tt, name).numpy(), np.asarray(getattr(jt, name)),
@@ -504,7 +487,7 @@ def test_rpn_targets_and_roi_samples_match_jax(shared):
     np.testing.assert_allclose(tt.bbox_targets.numpy(), np.asarray(jt.bbox_targets),
                                rtol=1e-5, atol=1e-6)
     assert tt.is_pos.sum() > 0
-    ts_ = tts.roi_sample(*uniforms("roi", JC.max_gt + props.shape[1]), _t(props), _t(pvalid),
+    ts_ = tts.roi_sample(uniforms("roi", JC.max_gt + props.shape[1], 2), _t(props), _t(pvalid),
                          _t(gtb), _t(gtl).long(), _t(gtv), TC)
     for name in ("labels", "label_weights", "is_pos", "valid", "is_gt", "gt_idx"):
         np.testing.assert_array_equal(getattr(ts_, name).numpy(), np.asarray(getattr(js, name)),
@@ -569,7 +552,7 @@ def two_steps(shared):
     for i in range(STEPS):
         key = jax.random.PRNGKey(20 + i)
         state, jaux = jstep(state, JBatch(*(jnp.asarray(a) for a in arrays)), key)
-        taux = tstep(TBatch(*arrays), uniforms=_jax_key_draws(key, 2, n_anchor, n_roi))
+        taux = tstep(TBatch(*arrays), uniforms=jax_step_uniforms(key, 2, n_anchor, n_roi))
         want = from_jax_variables({"params": jax.device_get(state.params),
                                    "batch_stats": variables["batch_stats"]})
         out.append(({k: float(v) for k, v in jaux.items()}, {k: float(v) for k, v in taux.items()},

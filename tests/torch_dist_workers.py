@@ -201,7 +201,7 @@ def two_stage_steps(rank: int, world: int, spec: dict, mesh: bool = True) -> dic
                                      device="cpu", mesh=grid)
     auxes, dynamic = [], []
     for draws in spec["draws"]:
-        aux = step(batch, uniforms=lambda stage, n, d=draws: d[stage])
+        aux = step(batch, uniforms=lambda stage, n, k, d=draws: d[stage])
         auxes.append({k: float(v) for k, v in aux.items()})
         if cfg.family == "dynamic_rcnn":
             dynamic.append({k: v.clone() for k, v in model.dynamic.state_dict().items()})

@@ -234,11 +234,18 @@ def jax_faster_rcnn(seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
     return jax_two_stage("faster_rcnn", seed, rpn_cls_std, fc_cls_std, **overrides)
 
 
+# GeneralizedAttention's leaves that its initialisers set to zero (the
+# block is then the identity and a test of it checks nothing): the draw
+# makes them N(0, 0.5) (key_bias, geom_bias) and U(0.5, 1) (gamma)
+ATTENTION_LEAVES = ("key_bias", "geom_bias", "gamma")
+
+
 def jax_two_stage(family, seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
     """jax_faster_rcnn's draw for the tiny config of any ported two-stage
     family of the JAX registry (its model: Faster R-CNN's for
-    dynamic_rcnn, the cascade's three heads, the double head with its
-    BN), every fc_cls sharpened alike."""
+    dynamic_rcnn and the Faster R-CNN variants, the cascade's three
+    heads, the double head with its BN), every fc_cls sharpened alike,
+    every attention block's gamma and biases non-zero (ATTENTION_LEAVES)."""
     model, shapes = _two_stage_tree(family, tuple(sorted(overrides.items())))
     rng = np.random.RandomState(seed)
 
@@ -258,6 +265,10 @@ def jax_two_stage(family, seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
             return rng.uniform(0.7, 1.3, shape).astype(np.float32)
         if name == "mean" or name == "bias":
             return (rng.randn(*shape) * 0.05).astype(np.float32)
+        if name == "gamma":
+            return rng.uniform(0.5, 1.0, shape).astype(np.float32)
+        if name in ATTENTION_LEAVES:
+            return (rng.randn(*shape) * 0.5).astype(np.float32)
         return np.zeros(shape, np.float32)
 
     return model, jax.tree_util.tree_map_with_path(draw, shapes)
@@ -301,3 +312,28 @@ def two_stage_batch(cfg, seed=0, b=2, max_boxes=3, labels_up_to=None):
             gt_valid[i, j] = True
     av = anchor_valid_flags(cfg.build_anchor_generator(), cfg.featmap_sizes(), shapes)
     return images, gt_boxes, gt_labels, gt_valid, av, shapes
+
+
+def jax_sampler_draws(key, n, k):
+    """The k uniforms [n] a JAX sampler draws from `key`: one per key of
+    split(key, k), in order (random_sample_pos_neg's kp, kn; Libra's
+    kp1, kp2, kp3, kp4, kn1, kn2, km)."""
+    return [np.asarray(jax.random.uniform(kk, (n,))) for kk in jax.random.split(key, k)]
+
+
+def jax_step_uniforms(key, b, n_anchor, n_roi, roi_draws=2):
+    """A port `uniforms(stage, n, k)` source holding the draws of the JAX
+    Faster R-CNN step's key tree under `key`: k_rpn, k_roi = split(key),
+    split(k, B) per image, then the sampler's own split (2 draws for the
+    RPN, roi_draws for the RoI sampler)."""
+    k_rpn, k_roi = jax.random.split(key)
+    out = {}
+    for stage, k, n, m in (("rpn", k_rpn, n_anchor, 2), ("roi", k_roi, n_roi, roi_draws)):
+        draws = [jax_sampler_draws(kk, n, m) for kk in jax.random.split(k, b)]
+        out[stage] = tuple(torch.from_numpy(np.stack([d[i] for d in draws])) for i in range(m))
+
+    def uniforms(stage, n, k):
+        assert out[stage][0].shape[1] == n and len(out[stage]) == k, (stage, n, k)
+        return out[stage]
+
+    return uniforms
