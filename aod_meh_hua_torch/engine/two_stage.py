@@ -1,7 +1,8 @@
 """The two-stage engine: proposals, RPN targets, RoI sampling and the
 train and eval steps of Faster, Cascade, Dynamic and Double-Head R-CNN
 and of the Faster R-CNN variants on the Faster R-CNN step (Libra R-CNN,
-PAFPN, CARAFE, GRoIE, empirical attention) (torch).
+PAFPN, CARAFE, GRoIE, empirical attention, HRNet, ResNeSt, FPG, GN+WS;
+PISA's step is engine/pisa.py, on this module's stages) (torch).
 
 Port of aod_meh_hua_tpu/engine/two_stage.py: `make_proposal_fn` :55-97,
 `_rpn_targets_single` :100-119, `_roi_sample_single` :132-167 (with
@@ -26,7 +27,7 @@ batch dimension. Randomness: where the JAX step splits its key per
 stage, per image and per sampler set, the port's step draws its
 uniforms from a `torch.Generator` (`generator_uniforms`), or takes them
 from a caller's `uniforms(stage, n, k)`, k the draws the stage's sampler
-takes (2; Libra R-CNN's RoI sampler 7): a test passes the draws of
+takes (2; Libra R-CNN's RoI sampler 7, PISA's 3): a test passes the draws of
 JAX's key tree, and the selection is then JAX's index for index.
 
 Cascade R-CNN (cascade_roi_head.py) samples each of its three stages
@@ -93,10 +94,13 @@ from .train import DataAxis, _clip_by_global_norm, _sum_gradients
 # branch, and the ranges of the Faster R-CNN variants' modules (the
 # backbone's attention, the CARAFE reassembly, the BFP, GRoIE's fusion),
 # each inside the stage that runs it
+# PISA's no-grad RoI pass over every candidate and its ScoreHLR sampler
+# (engine/pisa.py)
+PISA_SPAN = "pisa.score_hlr"
 STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposals",
           "faster_rcnn.roi_sample", "faster_rcnn.roi_align", "faster_rcnn.roi_head",
           "faster_rcnn.detections", "cascade_rcnn.refine", "dynamic_rcnn.statistics",
-          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN) + VARIANT_SPANS
+          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN) + VARIANT_SPANS + (PISA_SPAN,)
 
 # uniforms(stage, n, k) -> k draws [B, n] that rank each image's n
 # candidates of stage "rpn" (the anchors), "roi" (gts + proposals) or the
@@ -105,6 +109,8 @@ STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposal
 Uniforms = Callable[[str, int, int], Tuple[torch.Tensor, ...]]
 # Libra's RoI sampler: kp1, kp2, kp3, kp4, kn1, kn2, km (ops/sampler.py)
 LIBRA_DRAWS = 7
+# PISA's: kp, kn, kpack (engine/pisa.py pisa_sample)
+PISA_DRAWS = 3
 
 
 def generator_uniforms(generator: torch.Generator, b: int) -> Uniforms:
@@ -119,6 +125,8 @@ def generator_uniforms(generator: torch.Generator, b: int) -> Uniforms:
 
 def roi_draws(cfg) -> int:
     """The uniforms cfg's RoI sampler takes per stage."""
+    if cfg.family == "pisa_faster_rcnn":
+        return PISA_DRAWS
     return LIBRA_DRAWS if cfg.num_bins else 2
 
 
@@ -671,13 +679,23 @@ def make_double_head_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     return _make_step(model, cfg, optimizer, device, loss_fn, mesh=mesh)
 
 
+def make_pisa_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
+                              device="cuda", mesh=None) -> Callable:
+    """PISA Faster R-CNN's step (engine/pisa.py, which builds on this
+    module)."""
+    from .pisa import make_pisa_rcnn_train_step as make
+
+    return make(model, cfg, optimizer, device=device, mesh=mesh)
+
+
 # family -> its train step's maker (the JAX trainer's make_steps,
-# tools/train_detector.py:128-132: the Faster R-CNN variants take Faster
-# R-CNN's step)
+# tools/train_detector.py:128-132, 185-188: the Faster R-CNN variants take
+# Faster R-CNN's step, PISA its own)
 TRAIN_STEPS = {"cascade_rcnn": make_cascade_train_step,
                "dynamic_rcnn": make_dynamic_rcnn_train_step,
                "double_head_rcnn": make_double_head_train_step,
-               **{family: make_faster_rcnn_train_step for family in FASTER_RCNN_VARIANTS}}
+               **{family: make_faster_rcnn_train_step for family in FASTER_RCNN_VARIANTS},
+               "pisa_faster_rcnn": make_pisa_rcnn_train_step}
 
 
 def make_two_stage_train_step(model, cfg, optimizer, device="cuda", mesh=None) -> Callable:

@@ -17,8 +17,8 @@ gamma keep their names and whose geom_fc_x/y are bias-free Dense). Conv
 kernels go HWIO -> OIHW and Dense kernels [in, out] -> [out, in]; the
 box heads' first fc reads its input in the JAX head's (h, w, c) order,
 so its columns carry over as they are. BN scale/bias/mean/var (the
-frozen backbone's and the double head's trainable BN alike) and L2Norm's
-scale go to weight/bias/running_mean/running_var and weight. Dynamic
+frozen backbone's and the double head's trainable BN alike), GroupNorm's
+scale/bias and L2Norm's scale go to weight/bias/running_mean/running_var and weight. Dynamic
 R-CNN's statistics (batch_stats["__dynamic_rcnn__"]: iou_hist,
 beta_hist, iou_thr, beta) go to the `dynamic.` buffers of the same
 names; a variables tree holds no step counter (the train state does:
@@ -47,6 +47,7 @@ _NAME_RULES = (
     (re.compile(r"^conv_(\d+)$"), r"\1"),
     (re.compile(r"^downsample_conv$"), "downsample.0"),
     (re.compile(r"^downsample_bn$"), "downsample.1"),
+    (re.compile(r"^downsample_gn$"), "downsample.1"),
     (re.compile(r"^shared_fc_(\d+)$"), r"shared_fcs.\1"),
     (re.compile(r"^bbox_head_(\d+)$"), r"bbox_heads.\1"),
     (re.compile(r"^conv_branch_(\d+)$"), r"conv_branch.\1"),

@@ -1,8 +1,9 @@
 """The two-stage detectors (torch): Faster R-CNN R50-FPN and its Cascade,
 Dynamic and Double-Head forms, and the Faster R-CNN variants on its
-model (Libra R-CNN, PAFPN, CARAFE, GRoIE, empirical attention); the RPN
-head, the shared 2-fc box head, the double head, and the detectors that
-hold them.
+model (Libra R-CNN, PAFPN, CARAFE, GRoIE, empirical attention, PISA,
+HRNet, ResNeSt, FPG, the backbone_type switches of models/backbones.py)
+or on its surface (GN+WS, `GNWSFasterRCNN`); the RPN head, the shared
+2-fc box head, the double head, and the detectors that hold them.
 
 Port of aod_meh_hua_tpu/models/two_stage.py (`RPNHead` :32-61,
 `Shared2FCBBoxHead` :64-97, `FasterRCNN` :100-212 with the ResNet
@@ -48,10 +49,14 @@ from torch import nn
 from ..utils.config import FasterRCNNConfig
 from ..utils.device import resolve_device
 from ..utils.profiling import span
-from .detector import flatten_levels
 from .attention import ATTENTION_SPAN, GeneralizedAttention
+from .backbones import BACKBONES, build_backbone
+from .detector import flatten_levels
+from .fpg import FPG, FPG_SPAN
 from .fpn import BFP, BFP_SPAN, CARAFE_SPAN, FPN, FPNCARAFE, PAFPN
-from .resnet import ResNet
+from .gn_ws import Shared4Conv1FCBBoxHead, WSFPN, WSResNet
+from .hrnet import HRFPN, HRFPN_SPAN
+from .resnest import SplitAttentionConv
 
 # the config's fields that select a variant of the Faster R-CNN family
 # (the JAX package's subclasses' switches); the Cascade, Dynamic and
@@ -60,24 +65,27 @@ _VARIANT_FIELDS = ("backbone_type", "neck_type", "backbone_dcn", "backbone_gcb_r
                    "roi_extractor", "bfp_refine_level", "bfp_refine_type", "num_bins",
                    "balanced_l1_alpha", "balanced_l1_gamma", "balanced_l1_beta",
                    "backbone_attention")
-# the families on the Faster R-CNN model and step, which take the ported
-# variant fields (JAX api.py:50-104, tools/train_detector.py:128-132)
-FASTER_RCNN_VARIANTS = ("faster_rcnn", "libra_rcnn", "pafpn", "carafe", "groie",
-                        "empirical_attention")
-# the necks of the port (models/fpn.py); hrfpn, fpg and nasfpn are not ported
-NECKS = ("fpn", "pafpn", "carafe_fpn")
-_NOT_PORTED_VARIANT = ("the port builds the Faster R-CNN variants on the ResNet trunk with "
-                       "the FPN, PAFPN or CARAFE neck; this one is not ported yet "
-                       "(ROADMAP Queue 1 item 15)")
+# the families on the Faster R-CNN model and step or on its step (GN+WS's
+# model, PISA's step), which take the variant fields (JAX api.py:50-104,
+# tools/train_detector.py:128-132, 185-188)
+FASTER_RCNN_VARIANTS = ("faster_rcnn", "libra_rcnn", "pafpn", "carafe", "hrnet", "resnest",
+                        "groie", "empirical_attention", "fpg", "gn_ws", "pisa_faster_rcnn")
+# the necks of the port (models/fpn.py, hrnet.py, fpg.py); nasfpn is not ported
+NECKS = ("fpn", "pafpn", "carafe_fpn", "hrfpn", "fpg")
+# the necks whose levels must halve exactly down to the coarsest anchor stride
+# (HRFPN's VALID pools, FPG's across-down sums)
+_EXACT_PYRAMID_NECKS = ("hrfpn", "fpg")
 
 
 def check_two_stage_options(cfg) -> None:
     """Raise on a config the port cannot build: another family; on the
-    Faster R-CNN variants' model, another backbone, a deformable conv or
-    GCNet block, another neck, BFP refine or RoI extractor (ROADMAP Queue
-    1 item 15); any variant field on the Cascade,
-    Dynamic and Double-Head families (item 15); bfloat16 compute (item
-    16), remat or the space-to-depth stem (item 16)."""
+    Faster R-CNN variants, a deformable conv or GCNet block (ROADMAP
+    Queue 1 item 15.5), another backbone, neck, BFP refine or RoI
+    extractor (item 15); any variant field on the Cascade, Dynamic and
+    Double-Head families (item 15); bfloat16 compute (item 16), remat or
+    the space-to-depth stem (item 16). A ValueError for an HRFPN or FPG
+    neck on a canvas whose sides do not divide by its coarsest anchor
+    stride (check_canvas)."""
     family = getattr(cfg, "family", None)
     if family not in TWO_STAGE_FAMILIES:
         raise NotImplementedError(
@@ -90,9 +98,12 @@ def check_two_stage_options(cfg) -> None:
                 raise NotImplementedError(
                     f"{name}={getattr(cfg, name)!r} on {family}: the variant switches of "
                     "Faster R-CNN are not ported for this family (ROADMAP Queue 1 item 15)")
-    for name, ok in (("backbone_type", cfg.backbone_type == "resnet"),
-                     ("backbone_dcn", cfg.backbone_dcn is None),
-                     ("backbone_gcb_ratio", cfg.backbone_gcb_ratio is None),
+    for name in ("backbone_dcn", "backbone_gcb_ratio"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r}: the deformable convs and GCNet blocks come "
+                "with models/deform.py (ROADMAP Queue 1 item 15.5)")
+    for name, ok in (("backbone_type", cfg.backbone_type in BACKBONES),
                      ("neck_type", cfg.neck_type in NECKS),
                      ("bfp_refine_type", cfg.bfp_refine_type == "non_local"),
                      ("roi_extractor", cfg.roi_extractor in ("single", "groie"))):
@@ -105,6 +116,31 @@ def check_two_stage_options(cfg) -> None:
     for flag in ("remat", "stem_s2d"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag}: not in the port yet (ROADMAP Queue 1 item 16)")
+    check_canvas(cfg)
+
+
+def check_canvas(cfg) -> None:
+    """HRFPN and FPG need every pyramid level to halve exactly: HRFPN's
+    VALID average pools give floor(side / 64) rows at P6 where the anchor
+    table takes the ceiling, and FPG's across-down transition adds a
+    doubled P6 to P5, so a side that does not divide by the coarsest
+    anchor stride fails in the JAX package (a short RPN output, a shape
+    error). The port refuses such a canvas, in either orientation, here."""
+    if cfg.neck_type not in _EXACT_PYRAMID_NECKS:
+        return
+    stride = max(cfg.rpn.anchor_strides)
+    level = len(cfg.rpn.anchor_strides) + 1  # P2 is the first level
+    for side, n in zip(("height", "width"), cfg.canvas):
+        if n % stride:
+            raise ValueError(
+                f"{cfg.family}: canvas {tuple(cfg.canvas)}: its {side} {n} does not divide by "
+                f"{stride}, the stride of the {cfg.neck_type} neck's level P{level}, so that "
+                f"level does not halve its P{level - 1} exactly")
+
+
+_NOT_PORTED_VARIANT = ("the port builds the Faster R-CNN variants on the backbones of "
+                       "models/backbones.py BACKBONES with the necks of NECKS; this one is not "
+                       "ported yet (ROADMAP Queue 1 item 15)")
 
 
 class RPNHead(nn.Module):
@@ -186,18 +222,24 @@ def _xavier_uniform(fc: nn.Linear, gen: torch.Generator) -> None:
 # the profiler range of GRoIE's fusion (engine/two_stage.py STAGES)
 GROIE_SPAN = "groie.fuse"
 # the ranges of the Faster R-CNN variants' modules, in STAGES
-VARIANT_SPANS = (ATTENTION_SPAN, CARAFE_SPAN, BFP_SPAN, GROIE_SPAN)
+VARIANT_SPANS = (ATTENTION_SPAN, CARAFE_SPAN, BFP_SPAN, GROIE_SPAN, HRFPN_SPAN, FPG_SPAN)
 
 
 def _build_neck(cfg) -> nn.Module:
     """The config's neck over C2..C5 (JAX models/two_stage.py:123-159):
-    the FPN with maxpool extras, PAFPN or the CARAFE FPN."""
+    the FPN with maxpool extras, PAFPN, the CARAFE FPN, HRFPN or FPG."""
     num_outs = len(cfg.rpn.anchor_strides)
+    cin = cfg.backbone_channels
     if cfg.neck_type == "pafpn":
-        return PAFPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0, num_outs=num_outs)
+        return PAFPN(cin, cfg.fpn_channels, start_level=0, num_outs=num_outs)
     if cfg.neck_type == "carafe_fpn":
-        return FPNCARAFE(cfg.backbone_channels, cfg.fpn_channels, num_outs=num_outs)
-    return FPN(cfg.backbone_channels, cfg.fpn_channels, start_level=0, num_outs=num_outs,
+        return FPNCARAFE(cin, cfg.fpn_channels, num_outs=num_outs)
+    if cfg.neck_type == "hrfpn":
+        return HRFPN(cin, cfg.fpn_channels, num_outs=num_outs)
+    if cfg.neck_type == "fpg":
+        return FPG(cin, cfg.fpn_channels, cfg.fpn_channels, num_outs=num_outs,
+                   stack_times=getattr(cfg, "fpg_stack_times", 9))
+    return FPN(cin, cfg.fpn_channels, start_level=0, num_outs=num_outs,
                add_extra_convs="maxpool")
 
 
@@ -216,9 +258,8 @@ class FasterRCNN(nn.Module):
         super().__init__()
         check_two_stage_options(cfg)
         self.cfg = cfg
-        self.backbone = ResNet(cfg.block_counts, cfg.stem_width,
-                               attention=getattr(cfg, "backbone_attention", None))
-        self.neck = _build_neck(cfg)
+        self.backbone = self._build_backbone(cfg)
+        self.neck = self._build_neck(cfg)
         self.bfp = (BFP(cfg.fpn_channels, cfg.bfp_refine_level)
                     if cfg.bfp_refine_level is not None else None)
         self.rpn_head = RPNHead(cfg.fpn_channels, cfg.rpn.num_anchors)
@@ -228,6 +269,12 @@ class FasterRCNN(nn.Module):
             self.groie_pre = nn.Conv2d(c, c, 5, padding=2)
             self.groie_post = GeneralizedAttention(c, 6, "0100", kv_stride=2)
         self._build_roi_head(cfg)
+
+    def _build_backbone(self, cfg) -> nn.Module:
+        return build_backbone(cfg)
+
+    def _build_neck(self, cfg) -> nn.Module:
+        return _build_neck(cfg)
 
     def _build_roi_head(self, cfg) -> None:
         self.bbox_head = Shared2FCBBoxHead(cfg.num_classes, cfg.fpn_channels,
@@ -242,6 +289,12 @@ class FasterRCNN(nn.Module):
         zero neck biases, the heads' own init; BN at identity statistics."""
         gen = torch.Generator().manual_seed(seed)
         _lecun_normal_convs(list(self.backbone.modules()) + list(self.neck.modules()), gen)
+        for m in self.backbone.modules():  # ResNeSt's split-attention fcs
+            if isinstance(m, SplitAttentionConv):
+                for fc in (m.fc1, m.fc2):
+                    fc.weight.copy_(torch.randn(fc.weight.shape, generator=gen)
+                                    * fc.in_features ** -0.5)
+                    fc.bias.zero_()
         self.rpn_head.init_weights(gen)
         for head in self._roi_heads():
             head.init_weights(gen)
@@ -483,11 +536,47 @@ class DoubleHeadRCNN(FasterRCNN):
         return self.bbox_head(cls_feats, reg_feats, train, data)
 
 
+class GNWSFasterRCNN(FasterRCNN):
+    """GN + WS Faster R-CNN (JAX models/gn_ws.py `GNWSFasterRCNN`
+    :189-224): the Faster R-CNN surface (features, rpn, roi_forward) over
+    WSResNet, WSFPN, the RPN head and Shared4Conv1FCBBoxHead
+    (models/gn_ws.py); weight_standardize False is plain GN. Faster
+    R-CNN's train and eval steps drive it unchanged. The JAX model reads
+    none of the backbone, neck and RoI-extractor switches, and this one
+    refuses them (a ValueError) rather than ignore them."""
+
+    def __init__(self, cfg):
+        ignored = [n for n in ("backbone_type", "neck_type", "roi_extractor",
+                               "bfp_refine_level", "backbone_attention")
+                   if getattr(cfg, n, None) != _GN_WS_BASE.get(n)]
+        if ignored:
+            raise ValueError(f"gn_ws builds its own WS-ResNet, WS-FPN and RoI head and reads "
+                             f"none of {ignored}")
+        super().__init__(cfg)
+
+    def _build_backbone(self, cfg) -> nn.Module:
+        return WSResNet(cfg.block_counts, cfg.stem_width, ws=cfg.weight_standardize)
+
+    def _build_neck(self, cfg) -> nn.Module:
+        return WSFPN(cfg.backbone_channels, cfg.fpn_channels, len(cfg.rpn.anchor_strides),
+                     ws=cfg.weight_standardize)
+
+    def _build_roi_head(self, cfg) -> None:
+        self.bbox_head = Shared4Conv1FCBBoxHead(
+            cfg.num_classes, cfg.fpn_channels, cfg.rcnn.roi_size, cfg.fpn_channels,
+            cfg.rcnn.fc_channels, ws=cfg.weight_standardize)
+
+
+_GN_WS_BASE = {"backbone_type": "resnet", "neck_type": "fpn", "roi_extractor": "single",
+               "bfp_refine_level": None, "backbone_attention": None}
+
 # family -> the port's model class (the Faster R-CNN variants on FasterRCNN,
-# as JAX api.py:50-104 builds them with init_faster_rcnn)
+# as JAX api.py:50-104 builds them with init_faster_rcnn, PISA's too: its
+# novelty is the train step; GN+WS on its own model)
 _MODELS = {"faster_rcnn": FasterRCNN, "cascade_rcnn": CascadeRCNN,
            "dynamic_rcnn": DynamicRCNN, "double_head_rcnn": DoubleHeadRCNN,
-           **{family: FasterRCNN for family in FASTER_RCNN_VARIANTS}}
+           **{family: FasterRCNN for family in FASTER_RCNN_VARIANTS},
+           "gn_ws": GNWSFasterRCNN}
 # the two-stage families the port builds
 TWO_STAGE_FAMILIES = tuple(_MODELS)
 

@@ -6,9 +6,11 @@ A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
 :2246-2294, :3545), and of the two-stage families' `RPNCfg`, `RCNNCfg`, `FasterRCNNConfig`,
 `CascadeRCNNConfig`, `DynamicRCNNConfig`, `DoubleHeadRCNNConfig`,
 `LibraRCNNConfig`, `PAFPNFasterRCNNConfig`, `CARAFEFasterRCNNConfig`,
-`GRoIEFasterRCNNConfig`, `EmpiricalAttentionConfig` and their tiny
-factories (:301-455, :598-621, :790-819, :823-860, :1097-1104, :2513,
-:2532, :2551, :2570-2612, :2973, :3312, :3370, :3389)
+`GRoIEFasterRCNNConfig`, `EmpiricalAttentionConfig`,
+`GNWSFasterRCNNConfig`, `FPGFasterRCNNConfig`, `HRNetFasterRCNNConfig`,
+`ResNeStFasterRCNNConfig`, `PISAFasterRCNNConfig` and their tiny
+factories (:301-455, :598-621, :625-681, :790-819, :823-860, :1097-1131,
+:2513, :2532, :2551, :2570-2612, :2973, :2992-3010, :3312, :3331-3440)
 with `ZOO_FAMILIES` (:3569) cut to the families the port has, and the
 reference-config loader (`_cfg_get`, `_KNOWN_TOP_KEYS`, `_LOSS_CLS_MAP`,
 `_warn`, `reference_data_roots`, `load_reference_config`, :2297-2510).
@@ -423,13 +425,14 @@ class FasterRCNNConfig:
     The fields from `backbone_dcn` on select the JAX package's variants
     of the family (other backbones, necks, RoI extractors, Libra R-CNN's
     balanced pyramid, sampler and loss; the last eight are fields of its
-    subclasses there). The port builds the ResNet backbone with the FPN,
-    PAFPN or CARAFE FPN neck, the BFP, GRoIE, Libra's sampler and loss,
-    and the subclass field `backbone_attention` (the five families of
-    the subclasses below); models/two_stage.py check_two_stage_options
-    raises on the other backbones and necks, deformable convs and GCNet
-    blocks, on any variant field of the Cascade, Dynamic and Double-Head
-    families, and on compute_dtype="bfloat16", remat and stem_s2d."""
+    subclasses there). The port builds every backbone_type of
+    models/backbones.py BACKBONES with the FPN, PAFPN, CARAFE FPN, HRFPN
+    or FPG neck, the BFP, GRoIE, Libra's sampler and loss, and the
+    subclass field `backbone_attention`; models/two_stage.py
+    check_two_stage_options raises on deformable convs and GCNet blocks,
+    on any variant field of the Cascade, Dynamic and Double-Head
+    families, and on compute_dtype="bfloat16", remat and stem_s2d.
+    backbone_channels follows backbone_type."""
 
     num_classes: int = 20
     canvas: Tuple[int, int] = (608, 1024)
@@ -471,6 +474,17 @@ class FasterRCNNConfig:
 
     @property
     def backbone_channels(self) -> Tuple[int, ...]:
+        """C2..C5's channels for backbone_type: 4w..32w of the stem width
+        for the ResNet-like backbones, RegNet's stage widths, HRNet's
+        branch widths w, 2w, 4w, 8w (the necks' in-channels, which flax
+        infers and PyTorch needs)."""
+        if self.backbone_type == "regnet":
+            from ..models.backbones import REGNET_ARCHS, regnet_stages
+
+            return tuple(regnet_stages(REGNET_ARCHS[self.regnet_arch])[0])
+        if self.backbone_type == "hrnet":
+            w = getattr(self, "hrnet_width", HRNET_WIDTH)
+            return (w, 2 * w, 4 * w, 8 * w)
         w = self.stem_width
         return (4 * w, 8 * w, 16 * w, 32 * w)
 
@@ -729,10 +743,137 @@ def tiny_empirical_attention_config(**overrides) -> EmpiricalAttentionConfig:
     return EmpiricalAttentionConfig(**base)
 
 
+@dataclass(frozen=True)
+class GNWSFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with GroupNorm + Weight Standardization everywhere
+    (reference configs/gn+ws/faster_rcnn_r50_fpn_gn_ws-all_1x_coco.py:
+    ConvWS + GN(32) in backbone and FPN, Shared4Conv1FCBBoxHead RoI
+    head). weight_standardize=False gives the plain-GN 'gn' family."""
+
+    weight_standardize: bool = True
+
+    family = "gn_ws"
+
+
+@dataclass(frozen=True)
+class FPGFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with the Feature Pyramid Grids neck (reference
+    configs/fpg/faster_rcnn_r50_fpg_crop640_50e_coco.py +
+    mmdet/models/necks/fpg.py): 9 stacked bottom-up pathway stages over
+    a 5-level grid with lateral / same-up / across-down / skip
+    transitions (all act-conv-norm), staircase skip_inds."""
+
+    neck_type: str = "fpg"
+    fpg_stack_times: int = 9
+
+    family = "fpg"
+
+
+# HRNetV2p-w32's branch width (the backbone_type "hrnet" default)
+HRNET_WIDTH = 32
+
+
+@dataclass(frozen=True)
+class HRNetFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with the HRNetV2p backbone + HRFPN neck (reference
+    configs/hrnet/faster_rcnn_hrnetv2p_w{18,32}_1x_coco.py +
+    mmdet/models/backbones/hrnet.py + necks/hrfpn.py): parallel
+    multi-resolution branches with exchange units instead of a serial
+    trunk; the neck concatenates all branches at stride 4 and avg-pools
+    the pyramid."""
+
+    backbone_type: str = "hrnet"
+    neck_type: str = "hrfpn"
+    hrnet_width: int = HRNET_WIDTH
+    hrnet_stage_modules: Tuple[int, ...] = (1, 4, 3)
+    hrnet_num_blocks: int = 4
+    hrnet_stage1_blocks: int = 4
+    hrnet_stem_width: int = 64
+
+    family = "hrnet"
+
+
+@dataclass(frozen=True)
+class ResNeStFasterRCNNConfig(FasterRCNNConfig):
+    """Faster R-CNN with the ResNeSt split-attention backbone (reference
+    configs/resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_*.py +
+    mmdet/models/backbones/resnest.py): radix-2 split-attention conv2,
+    deep V1d stem, avg-down shortcuts."""
+
+    backbone_type: str = "resnest"
+    resnest_radix: int = 2
+
+    family = "resnest"
+
+
+@dataclass(frozen=True)
+class PISAFasterRCNNConfig(FasterRCNNConfig):
+    """PISA Faster R-CNN (reference configs/pisa/pisa_faster_rcnn_r50_
+    fpn_1x_coco.py + roi_heads/pisa_roi_head.py + samplers/
+    score_hlr_sampler.py): ScoreHLR negative sampling/weighting (one
+    extra no-grad RoI pass), ISR-P positive reweighting and CARL in the
+    RoI loss; RPN proposals widened to 2000 train/test."""
+
+    isr_k: float = 2.0
+    isr_bias: float = 0.0
+    carl_k: float = 1.0
+    carl_bias: float = 0.2
+    hlr_k: float = 0.5
+    hlr_bias: float = 0.0
+    hlr_score_thr: float = 0.05
+    hlr_iou_thr: float = 0.5
+    rpn: RPNCfg = field(default_factory=lambda: RPNCfg(
+        train_nms_pre=2000, train_max_per_img=2000,
+        test_nms_pre=2000, test_max_per_img=2000,
+        sampler_num=256))
+    rcnn: RCNNCfg = field(default_factory=lambda: RCNNCfg(
+        sampler_num=512, pos_fraction=0.25))
+
+    family = "pisa_faster_rcnn"
+
+
+def tiny_pisa_rcnn_config(**overrides) -> PISAFasterRCNNConfig:
+    """A shrunken PISA Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base["rcnn"] = RCNNCfg(sampler_num=32, pos_fraction=0.25, fc_channels=32)
+    base.update(overrides)
+    return PISAFasterRCNNConfig(**base)
+
+
+def tiny_gn_ws_config(**overrides) -> GNWSFasterRCNNConfig:
+    """A shrunken GN+WS Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return GNWSFasterRCNNConfig(**base)
+
+
+def tiny_fpg_config(**overrides) -> FPGFasterRCNNConfig:
+    """A shrunken FPG Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(fpg_stack_times=5)
+    base.update(overrides)
+    return FPGFasterRCNNConfig(**base)
+
+
+def tiny_hrnet_config(**overrides) -> HRNetFasterRCNNConfig:
+    """A shrunken HRNet Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(hrnet_width=4, hrnet_stage_modules=(1, 1, 1), hrnet_num_blocks=1,
+                           hrnet_stage1_blocks=1, hrnet_stem_width=8)
+    del base["block_counts"]  # HRNet's tiny config keeps the R50 default (unread)
+    base.update(overrides)
+    return HRNetFasterRCNNConfig(**base)
+
+
+def tiny_resnest_config(**overrides) -> ResNeStFasterRCNNConfig:
+    """A shrunken ResNeSt Faster R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    base.update(overrides)
+    return ResNeStFasterRCNNConfig(**base)
+
+
 # The model-zoo families the port has: name -> (full-size config class,
 # tiny test-config factory), the JAX package's ZOO_FAMILIES (:3569) cut to
 # them, in its order. Every port CLI reads its --family choices here; the
-# other 43 families of the JAX registry come with ROADMAP Queue 1 item 15.
+# other 38 families of the JAX registry come with ROADMAP Queue 1 item 15.
 ZOO_FAMILIES = {
     "faster_rcnn": (FasterRCNNConfig, tiny_faster_rcnn_config),
     "libra_rcnn": (LibraRCNNConfig, tiny_libra_config),
@@ -740,8 +881,13 @@ ZOO_FAMILIES = {
     "dynamic_rcnn": (DynamicRCNNConfig, tiny_dynamic_rcnn_config),
     "double_head_rcnn": (DoubleHeadRCNNConfig, tiny_double_head_config),
     "cascade_rcnn": (CascadeRCNNConfig, tiny_cascade_config),
+    "hrnet": (HRNetFasterRCNNConfig, tiny_hrnet_config),
+    "resnest": (ResNeStFasterRCNNConfig, tiny_resnest_config),
     "groie": (GRoIEFasterRCNNConfig, tiny_groie_config),
+    "fpg": (FPGFasterRCNNConfig, tiny_fpg_config),
+    "gn_ws": (GNWSFasterRCNNConfig, tiny_gn_ws_config),
     "empirical_attention": (EmpiricalAttentionConfig, tiny_empirical_attention_config),
+    "pisa_faster_rcnn": (PISAFasterRCNNConfig, tiny_pisa_rcnn_config),
     "carafe": (CARAFEFasterRCNNConfig, tiny_carafe_config),
 }
 

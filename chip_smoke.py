@@ -208,6 +208,7 @@ of the repository. Every failed check raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -230,6 +231,7 @@ MATMUL_TOL = 2.0 ** -7  # of max|ref|: one bf16 ulp; kernel and plain version ro
 TF32_PEAK_OPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 PROBE_ITERS = 10
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TWO_STAGE_STEPS = 4  # the timed train steps of the two-stage families after Faster R-CNN
 TRAIN_RTOL = 1e-4   # card vs CPU losses; parameters to 1e-4 of each tensor's max|p|
 # card vs CPU updates (new - old): 1e-3 of each tensor's max|update| plus two
 # f32 ulps of its max|p| (the rounding of new - old), tests/test_torch_train.py's
@@ -838,10 +840,12 @@ def eval_path(device, model, cfg, triples, per_forward):
 
 # --- training path ---------------------------------------------------------------
 
-def synthetic_train_batch(cfg, orientation, b, seed):
+def synthetic_train_batch(cfg, orientation, b, seed, noise: int = 0):
     """A Batch of seeded uint8 canvases (as synthetic_pool draws them),
     1..5 boxes per image in resized-image coordinates padded to
-    cfg.max_gt, and the pad-region anchor flags of each image's shape."""
+    cfg.max_gt, and the pad-region anchor flags of each image's shape.
+    noise: each pixel moved by up to that much (synthetic_pool's 20), from
+    a generator of its own, so that the rest is the same."""
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.ops.anchors import anchor_valid_flags
 
@@ -866,6 +870,9 @@ def synthetic_train_batch(cfg, orientation, b, seed):
             labels[i, j] = rng.randint(0, ocfg.num_classes)
             valid[i, j] = True
     av = anchor_valid_flags(ocfg.build_anchor_generator(), ocfg.featmap_sizes(), shapes)
+    if noise:
+        jitter = np.random.RandomState(seed + 1).randint(-noise, noise + 1, imgs.shape)
+        imgs = np.clip(imgs.astype(np.int16) + jitter, 0, 255).astype(np.uint8)
     return ocfg, Batch(imgs, boxes, labels, valid, av, shapes)
 
 
@@ -960,13 +967,15 @@ def train_card_vs_cpu(device, make_step=None):
     return steps_card_vs_cpu("training", LOSS_KEYS, two_steps("cpu"), two_steps(device))
 
 
-def steps_card_vs_cpu(what, keys, cpu, gpu) -> dict:
+def steps_card_vs_cpu(what, keys, cpu, gpu, limits=(1.0, 1.0, 1.0), check: bool = True) -> dict:
     """The rules of train_card_vs_cpu on two runs of steps, each (losses
-    per step, {name: (initial, final) parameter on the host})."""
+    per step, {name: (initial, final) parameter on the host}). `limits`:
+    the losses', parameters' and updates' limits in units of their
+    tolerances (1: the tolerances); with check False the readings only."""
     (cpu_l, cpu_p), (gpu_l, gpu_p) = cpu, gpu
     loss_err = max(abs(g[k] - c[k]) / abs(c[k]) if c[k] else (0.0 if g[k] == 0 else np.inf)
                    for c, g in zip(cpu_l, gpu_l) for k in keys)
-    if not loss_err <= TRAIN_RTOL:
+    if check and not loss_err <= TRAIN_RTOL * limits[0]:
         fail(f"{what} card vs CPU: losses {gpu_l} vs {cpu_l}")
     param_err = update_err = 0.0
     # what each check would read of a tensor that the card left unchanged
@@ -976,13 +985,13 @@ def steps_card_vs_cpu(what, keys, cpu, gpu) -> dict:
         scale = max(c.abs().max().item(), 1e-30)
         err = (g - c).abs().max().item() / scale
         param_err = max(param_err, err)
-        if err > TRAIN_RTOL:
+        if check and err > TRAIN_RTOL * limits[1]:
             fail(f"{what} card vs CPU: {name} differs by {err} of its max")
         dc, dg = c - c0, g - g0
         tol = UPDATE_RTOL * dc.abs().max().item() + 2 * float(np.finfo(np.float32).eps) * scale
         uerr = (dg - dc).abs().max().item() / tol
         update_err = max(update_err, uerr)
-        if uerr > 1.0:
+        if check and uerr > limits[2]:
             fail(f"{what} card vs CPU: the update of {name} is {uerr} of its tolerance off")
         if dc.abs().max().item() > 0:
             missing_param.append(dc.abs().max().item() / scale / TRAIN_RTOL)
@@ -2867,6 +2876,9 @@ FRCNN_GROUPS = {"empirical_attention.gen_attention": "backbone attention blocks"
                 "carafe.upsample": "CARAFE kernel prediction and reassembly",
                 "libra_rcnn.bfp": "BFP (pools, resizes, non-local block)",
                 "groie.fuse": "GRoIE pre-conv and attention",
+                "hrnet.hrfpn": "HRFPN resizes, reduction, pools and convs",
+                "fpg.neck": "FPG neck (laterals, 9 stages, last convs)",
+                "pisa.score_hlr": "PISA no-grad RoI pass and ScoreHLR sampler",
                 "faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
                 "faster_rcnn.proposals": "proposal top-k, decode and NMS",
                 "faster_rcnn.roi_align": "RoIAlign gathers",
@@ -2907,15 +2919,18 @@ def class_logits(model, cfg, feats, props, head: int):
 # runs on the card; and the BFP's conv biases, from N(0, BFP_BIAS_STD):
 # its non-local block's phi bias has no gradient in exact arithmetic (the
 # softmax over the keys cancels it), so from zero it holds rounding alone,
-# which no tolerance of its own scale can compare
+# which no tolerance of its own scale can compare; and GN+WS's GroupNorm
+# biases, likewise (the stem's gn1.bias after two tiny steps is a sum over
+# every stem position of gradients that cancel: 8.3e-4 of its max apart,
+# card against CPU, from zero, on an H100)
 ATTENTION_STD = 0.5
 BFP_BIAS_STD = 0.05
 
 
 def seed_zero_starts(model, seed: int) -> int:
-    """The zero-start parameters of `model`'s attention blocks and BFP
-    drawn from a CPU generator seeded `seed`, in module order; returns the
-    number of attention blocks."""
+    """The zero-start parameters of `model`'s attention blocks, BFP and
+    GroupNorms drawn from a CPU generator seeded `seed`, in module order;
+    returns the number of attention blocks."""
     import torch
     from aod_meh_hua_torch.models.attention import GeneralizedAttention
 
@@ -2933,7 +2948,36 @@ def seed_zero_starts(model, seed: int) -> int:
         for m in (model.bfp.modules() if getattr(model, "bfp", None) is not None else ()):
             if isinstance(m, torch.nn.Conv2d):
                 m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * BFP_BIAS_STD)
+        for m in model.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * BFP_BIAS_STD)
     return len(blocks)
+
+
+def calibrate_frozen_bn(model, cfg, images, img_shapes) -> None:
+    """Every frozen BN of the backbone takes its running mean and (biased)
+    variance from one forward of `images`, in forward order, each layer
+    seeing the calibrated ones before it: the statistics a trained model's
+    frozen BN holds, where the identity's let a random HRNet's features
+    grow through its 36 blocks and exchange sums until the first train
+    step diverges (loss 548.5, then 4.4e11 and NaN, on an H100)."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.models.resnet import FrozenBatchNorm2d
+
+    def take(m, args):
+        x = args[0]
+        m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take) for m in model.backbone.modules()
+             if isinstance(m, FrozenBatchNorm2d)]
+    try:
+        with torch.no_grad():
+            model(prepare_images(images, img_shapes, cfg))
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
@@ -3037,16 +3081,21 @@ def profile_stages(fn, groups: dict) -> dict:
             "by_kernel_name_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
 
 
-def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
+def frcnn_train_path(device, family: str = "faster_rcnn", over: dict = None,
+                     steps: int = TRAIN_STEPS, calibrate: bool = False,
+                     profile: bool = True) -> dict:
     """The family's full-width config (FasterRCNNConfig(): R50-FPN,
     frozen_stages 1, 3 anchors, RoIAlign 7, 2-fc 1024 head, 20 classes;
     or the cascade's, Dynamic R-CNN's, the double head's, a Faster R-CNN
     variant's), seed 0, its zero-start parameters drawn (seed_zero_starts),
-    its RPN cls head sharpened, TrainConfig() (batch 2): 2 warm-up and 10
-    timed steps on one seeded landscape batch (losses finite, the last
-    below the first, positives every step, the frozen stages unmoved),
+    its RPN cls head sharpened, TrainConfig() (batch 2): 2 warm-up and
+    `steps` timed steps on one seeded landscape batch (losses finite, the
+    last below the first, positives every step, the frozen stages unmoved),
     then one step profiled by stage, one under the fixpoint-depth
-    recorder and one portrait step."""
+    recorder and one portrait step. `over`: fields of the full config
+    replaced (a canvas, a backbone_type); `calibrate`: the frozen BN's
+    statistics from the batch first (calibrate_frozen_bn); `profile`
+    False: no profiled step."""
     import torch
     from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask
@@ -3054,12 +3103,14 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
     from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
-    cfg, tcfg = ZOO_FAMILIES[family][0](), TrainConfig()
+    cfg, tcfg = dataclasses.replace(ZOO_FAMILIES[family][0](), **(over or {})), TrainConfig()
     what = f"{family} training"
     model = build_two_stage(cfg, device=device, seed=0)
     seed_zero_starts(model, seed=0)
     lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
     batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
+    if calibrate:
+        calibrate_frozen_bn(model, lcfg, batch.images, batch.img_shapes)
     sharpen_frcnn(model, lcfg, batch.images, batch.img_shapes, classes=False)
     opt = create_train_state(model, tcfg, frozen_stages=cfg.frozen_stages)
     mask = frozen_mask(model, cfg.frozen_stages)
@@ -3072,10 +3123,10 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    auxes += [step(batch, gen) for _ in range(TRAIN_STEPS)]
+    auxes += [step(batch, gen) for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TRAIN_STEPS
+    ms = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated(device)
     traj = {k: [float(a[k]) for a in auxes] for k in auxes[0]}
     for k, v in traj.items():
@@ -3089,7 +3140,8 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
         moved = not torch.equal(p.detach(), before[name])
         if moved if mask[name] else (name.endswith("weight") and not moved):
             fail(f"{what}: {name} (frozen: {mask[name]}) moved: {moved}")
-    prof = profile_stages(lambda: float(step(batch, gen)["loss"]), FRCNN_GROUPS)
+    prof = (profile_stages(lambda: float(step(batch, gen)["loss"]), FRCNN_GROUPS) if profile
+            else "not taken")
     with fixpoint_depths() as depths:
         float(step(batch, gen)["loss"])
     pcfg, pbatch = synthetic_train_batch(cfg, "portrait", tcfg.batch_size, seed=6)
@@ -3097,7 +3149,7 @@ def frcnn_train_path(device, family: str = "faster_rcnn") -> dict:
     if not all(np.isfinite(float(v)) for v in paux.values()):
         fail(f"{what}: a portrait loss is not finite: {paux}")
     out = dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
-               steps=TRAIN_STEPS, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+               steps=steps, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
                peak_mem_bytes=peak, proposal_nms_iou=cfg.rpn.nms_iou_thr,
                numerics=numerics_flags(), trajectory=traj, proposal_fixpoints=depths,
                portrait=(pcfg.canvas, {k: float(v) for k, v in paux.items()}),
@@ -3134,11 +3186,12 @@ def proposal_flips(got, want, iou_thr: float) -> list:
 # cross its refresh at update_iter_interval 4
 CARD_VS_CPU_STEPS = {"faster_rcnn": 2, "cascade_rcnn": 2, "dynamic_rcnn": 5,
                      "double_head_rcnn": 2, "libra_rcnn": 2, "pafpn": 2, "carafe": 2,
-                     "groie": 2, "empirical_attention": 2}
+                     "groie": 2, "empirical_attention": 2}  # 2 for the families after them
 DYNAMIC_TOL = 1e-6  # Dynamic R-CNN's threshold and beta, card against CPU
 
 
-def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
+def frcnn_card_vs_cpu(device, family: str = "faster_rcnn", tiny_over: dict = None,
+                      from_cpu_state: bool = False, noise: int = 0) -> dict:
     """CARD_VS_CPU_STEPS[family] steps of the family's tiny config from the
     same weights (its RPN cls head sharpened on the CPU), batch and
     uniforms (drawn once on the CPU, the cascade's per stage) on the card
@@ -3150,7 +3203,14 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
     then the card's step carries on from the CPU's proposals: the rest of
     the step (sampling, RoIAlign, the head, the losses, backward, SGD) is
     compared on the same input. Dynamic R-CNN's threshold and beta after
-    every step, across the refresh, to DYNAMIC_TOL."""
+    every step, across the refresh, to DYNAMIC_TOL. `tiny_over`: the tiny
+    config factory's overrides. `from_cpu_state` (the families of
+    BACKBONE_RUNS): the card takes each step from the CPU's state before
+    it (weights and momentum), and each step is held alone, as
+    two_stage_ranks_path holds the ranks: a random-weight first step
+    moves the tiny models' weights by up to a tenth, and its rounding
+    grows in the next (Res2Net's 3-channel splits, the GN stem's trained
+    scale, on an H100). `noise`: synthetic_train_batch's."""
     import torch
     from aod_meh_hua_torch.engine import two_stage
     from aod_meh_hua_torch.engine.train import create_train_state
@@ -3158,9 +3218,9 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
     from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
-    cfg, tcfg = ZOO_FAMILIES[family][1](), TrainConfig()
+    cfg, tcfg = ZOO_FAMILIES[family][1](**(tiny_over or {})), TrainConfig()
     what = f"{family} training"
-    _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7)
+    _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7, noise=noise)
     seed_model = build_two_stage(cfg, device="cpu", seed=1)
     seed_zero_starts(seed_model, seed=1)
     sharpen_frcnn(seed_model, cfg, torch.from_numpy(batch.images),
@@ -3175,7 +3235,7 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
     else:
         n["roi"] = (n_props, two_stage.roi_draws(cfg))
     draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(k_draws))
-              for k, (m, k_draws) in n.items()} for _ in range(CARD_VS_CPU_STEPS[family])]
+              for k, (m, k_draws) in n.items()} for _ in range(CARD_VS_CPU_STEPS.get(family, 2))]
 
     real_proposals = two_stage.make_proposal_fn
     cpu_props, flips = [], []
@@ -3198,25 +3258,66 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
         return {**dict(model.named_parameters()),
                 **{k: b for k, b in model.named_buffers() if k.startswith("bbox_head")}}
 
-    def steps(dev):
+    def host(model):
+        return {k: p.detach().cpu().clone() for k, p in tracked(model).items()}
+
+    def steps(dev, states=None):
+        """The draws' steps on dev, in turn, or (states) each from the
+        CPU's state before it; with the CPU's states before each step."""
         model = build_two_stage(cfg, device=dev)
         model.load_state_dict(weights)
-        initial = {k: p.detach().cpu().clone() for k, p in tracked(model).items()}
+        initial = host(model)
+        by_param = {p: name for name, p in model.named_parameters()}
         with mock.patch.object(two_stage, "make_proposal_fn",
                                lambda c: pinned(c, reference=not cpu_props)):
-            step = make_two_stage_train_step(model, cfg, create_train_state(model, tcfg), dev)
-        losses, dyn = [], []
-        for d in draws:
+            opt = create_train_state(model, tcfg)
+            step = make_two_stage_train_step(model, cfg, opt, dev)
+        losses, dyn, before, after = [], [], [], []
+        for i, d in enumerate(draws):
+            if states is not None:
+                model.load_state_dict(states[i]["weights"])
+                for p, name in by_param.items():
+                    opt.state[p].pop("momentum_buffer", None)
+                    if name in states[i]["momentum"]:
+                        opt.state[p]["momentum_buffer"] = states[i]["momentum"][name].to(dev)
+            before.append({"weights": {k: v.detach().cpu().clone()
+                                       for k, v in model.state_dict().items()},
+                           "momentum": {by_param[p]: s["momentum_buffer"].detach().cpu().clone()
+                                        for p, s in opt.state.items() if "momentum_buffer" in s},
+                           "tracked": host(model)})
             aux = step(batch, uniforms=lambda stage, m, k, d=d: tuple(u.to(dev) for u in d[stage]))
             losses.append({k: float(v) for k, v in aux.items()})
+            after.append(host(model))
             if family == "dynamic_rcnn":
                 dyn.append((float(model.dynamic.iou_thr), float(model.dynamic.beta),
                             int(model.dynamic.step)))
-        return (losses, {k: (initial[k], p.detach().cpu()) for k, p in tracked(model).items()},
-                dyn)
+        return (losses, {k: (initial[k], v) for k, v in after[-1].items()}, dyn, before, after)
 
-    cpu, gpu = steps("cpu"), steps(device)
-    out = steps_card_vs_cpu(what, list(cpu[0][0]), cpu[:2], gpu[:2])
+    cpu = steps("cpu")
+    gpu = steps(device, cpu[3] if from_cpu_state else None)
+    if from_cpu_state:  # each step alone, from the CPU's state before it
+        def held(i, run, **kw):
+            return steps_card_vs_cpu(f"{what} step {i + 1}", list(cpu[0][0]), (
+                [cpu[0][i]], {k: (cpu[3][i]["tracked"][k], cpu[4][i][k]) for k in cpu[4][i]}), (
+                [run[0][i]], {k: (cpu[3][i]["tracked"][k], run[4][i][k]) for k in run[4][i]}),
+                **kw)
+
+        # the CPU's own spread: each step again from its state with the batch's
+        # rows (and their draws) in the other order, which reorders the sums
+        # over the images; a tensor is held to the larger of the tolerance and
+        # the largest spread of any tensor, in units of the tolerance
+        swapped = row_swapped_steps(cfg, tcfg, batch, draws, cpu[3])
+        spread = [held(i, swapped, check=False) for i in range(len(draws))]
+        limits = [(max(1.0, r["max_rel_loss_err"] / TRAIN_RTOL),
+                   max(1.0, r["max_param_err_of_max"] / TRAIN_RTOL),
+                   max(1.0, r["max_update_err_over_tol"])) for r in spread]
+        per_step = [held(i, gpu, limits=limits[i]) for i in range(len(draws))]
+        out = {k: (max(r[k] for r in per_step) if k.startswith("max") else
+                   [r[k] for r in per_step]) for k in per_step[0]}
+        out["each_step_from_the_cpu_state"] = True
+        out["limits_of_tolerance_by_step (loss, param, update)"] = limits
+    else:
+        out = steps_card_vs_cpu(what, list(cpu[0][0]), cpu[:2], gpu[:2])
     # each step's differences must start at a decision at the threshold
     # (the rest follow from it: a box suppressed no longer suppresses)
     at_thr = [any(abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) < 1e-4 for f in step)
@@ -3235,6 +3336,34 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn") -> dict:
     return out
 
 
+def row_swapped_steps(cfg, tcfg, batch, draws, states):
+    """The CPU's train step of each draw from `states` (the CPU's state
+    before it) on the batch with its rows, and the draws' rows, in the
+    other order: (losses, None, None, None, the tracked tensors after each
+    step), frcnn_card_vs_cpu's layout."""
+    import torch
+    from aod_meh_hua_torch.engine.train import create_train_state
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+
+    rows = type(batch)(*(np.ascontiguousarray(a[::-1]) for a in batch))
+    model = build_two_stage(cfg, device="cpu")
+    losses, after = [], []
+    for d, state in zip(draws, states):
+        model.load_state_dict(state["weights"])
+        opt = create_train_state(model, tcfg)
+        for name, p in model.named_parameters():
+            if name in state["momentum"]:
+                opt.state[p]["momentum_buffer"] = state["momentum"][name].clone()
+        step = make_two_stage_train_step(model, cfg, opt, "cpu")
+        aux = step(rows, uniforms=lambda stage, m, k, d=d: tuple(u.flip(0) for u in d[stage]))
+        losses.append({k: float(v) for k, v in aux.items()})
+        after.append({k: p.detach().clone() for k, p in model.named_parameters()})
+        after[-1].update({k: b.detach().clone() for k, b in model.named_buffers()
+                          if k.startswith("bbox_head")})
+    return losses, None, None, None, after
+
+
 def _dets_agree(a, b, i, rtol) -> bool:
     """Image i's detections of two NMSResults (host arrays) agree: the same
     valid slots, labels and source indices, boxes and scores to rtol."""
@@ -3249,7 +3378,9 @@ def _host_dets(d):
     return type(d)(*(t.cpu().numpy() for t in d))
 
 
-def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = False) -> dict:
+def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = False,
+                    over: dict = None, nms_inputs: bool = False, calibrate: bool = False,
+                    profile: bool = True, against_cpu: bool = True) -> dict:
     """The family's eval step over the 26 synthetic canvases at batch 8,
     both orientations: the family's full-width config, seed 0, its RPN
     and class heads sharpened on the first batch. img/s and peak memory
@@ -3262,19 +3393,28 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
     Faster R-CNN variants), where they differ, the proposals behind them
     compared stage by stage (eval_ties): every proposal that one device
     keeps and the other not named as a near-tie, and the detections
-    from the CPU's proposals with no difference allowed."""
+    from the CPU's proposals with no difference allowed, or with
+    `nms_inputs` (the families of BACKBONE_RUNS), any difference left
+    traced to the detection NMS's inputs (eval_ties). `over`: fields of
+    the full config replaced; `calibrate`: the frozen BN's statistics from
+    the first batch (calibrate_frozen_bn); `profile` False: no profiled
+    batch; `against_cpu` False: no CPU comparison (the backbone_type
+    switches, whose modules the tiny steps hold to the CPU's)."""
     import torch
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
     from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
     from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 
-    cfg = ZOO_FAMILIES[family][0]()
+    cfg = dataclasses.replace(ZOO_FAMILIES[family][0](), **(over or {}))
     what = f"{family} eval"
     model = build_two_stage(cfg, device=device, seed=0)
     seed_zero_starts(model, seed=0)
     triples, n = synthetic_pool(cfg)
     first = upload(triples[0][1], device)
+    if calibrate:
+        calibrate_frozen_bn(model, cfg.for_orientation(triples[0][0]), first.images,
+                            first.img_shapes)
     sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
     steps = {o: make_two_stage_eval_step(model, cfg.for_orientation(o), device=device)
              for o in ("landscape", "portrait")}
@@ -3300,10 +3440,15 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
     if n_dets == 0:
         fail(f"{what}: no detection in the pool")
     o0, b0 = batches[0]
-    prof = profile_stages(lambda: steps[o0](b0).valid.cpu(), FRCNN_GROUPS)
+    prof = (profile_stages(lambda: steps[o0](b0).valid.cpu(), FRCNN_GROUPS) if profile
+            else "not taken")
     with fixpoint_depths() as depths:
         steps[o0](b0).valid.cpu()
 
+    if not against_cpu:
+        return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall,
+                    peak_mem_bytes=peak, detections=n_dets, fixpoints=depths,
+                    profile_of_one_batch=prof, card_vs_cpu="not taken")
     # the timed sweep's first two canvases against the CPU's eval step on
     # those canvases, with the same weights
     cpu_model = build_two_stage(cfg, device="cpu")
@@ -3320,7 +3465,8 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
              for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
     ties = None
     if flips and named_ties:
-        ties = eval_ties(model, cpu_model, cfg.for_orientation(o0), two, want, device)
+        ties = eval_ties(model, cpu_model, cfg.for_orientation(o0), two, want, device,
+                         nms_inputs)
     elif flips:
         fail(f"{what} card vs CPU: {flips}")
     return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
@@ -3337,14 +3483,16 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
 TIE_IOU, TIE_SCORE_RTOL, TIE_THR_ATOL = 0.999, 1e-5, 1e-4
 
 
-def eval_ties(model, cpu_model, cfg, two, want, device) -> dict:
+def eval_ties(model, cpu_model, cfg, two, want, device, nms_inputs: bool = False) -> dict:
     """Where the card's detections on two canvases differ from the CPU's
     (`want`), the stage that parts them: the features of every level and
     the RPN outputs within FRCNN_RTOL of their max-abs; every proposal
     that one device keeps and the other not named (proposal_flips) and a
     near-tie (TIE_*), and the proposals' order aside; then the card's
     eval step from the CPU's proposals, whose detections must agree with
-    the CPU's with no difference. Fails otherwise."""
+    the CPU's with no difference, or, `nms_inputs`, where they differ,
+    must come from the detection NMS's inputs (nms_input_ties). Fails
+    otherwise."""
     import torch
     from aod_meh_hua_torch.engine import two_stage
     from aod_meh_hua_torch.engine.batch import prepare_images
@@ -3362,9 +3510,15 @@ def eval_ties(model, cpu_model, cfg, two, want, device) -> dict:
                             [t.cpu() for t in props])
     errs = [((g - c).abs().max() / c.abs().max().clamp(min=1e-30)).item()
             for c, g in zip(stage1["cpu"][0], stage1["card"][0])]
+    if max(errs) > FRCNN_RTOL and nms_inputs:
+        return stage1_f64_ties(model, cpu_model, cfg, two, stage1, max(errs), device)
     if max(errs) > FRCNN_RTOL:
         fail(f"eval card vs CPU: the features or the RPN differ by {max(errs)} of their max")
     flips = proposal_flips(stage1["card"][1], stage1["cpu"][1], cfg.rpn.nms_iou_thr)
+    replayed = None
+    if flips and nms_inputs:  # the card's RPN outputs through the CPU's proposals
+        replayed = proposals_from_card_rpn(cfg, stage1, two)
+        flips = []
     untied = []
     for f in flips:
         twins = [g for g in flips if g["image"] == f["image"] and g["which"] != f["which"]
@@ -3380,10 +3534,157 @@ def eval_ties(model, cpu_model, cfg, two, want, device) -> dict:
                            lambda c, device_loop=False: lambda *a: tuple(pinned)):
         got = _host_dets(two_stage.make_two_stage_eval_step(model, cfg, device=device)(two))
     off = [i for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
-    if off:
+    nms = None
+    if off and nms_inputs:
+        nms = nms_input_ties(model, cpu_model, cfg, two, pinned, stage1["cpu"][1], got, device)
+    elif off:
         fail(f"eval card vs CPU: images {off} differ from the CPU's proposals")
     return {"stage1_err_of_max": max(errs), "proposal_flips": flips,
-            "from_cpu_proposals": "agree", "detections": int(got.valid.sum())}
+            "card_rpn_through_cpu_proposals": replayed,
+            "from_cpu_proposals": "agree" if not off else f"images {off} differ",
+            "nms_inputs": nms, "detections": int(got.valid.sum())}
+
+
+def stage1_f64_ties(model, cpu_model, cfg, two, stage1, err: float, device) -> dict:
+    """Where the card's stage 1 (the FPN levels and the RPN outputs) on two
+    canvases differs from the CPU's beyond FRCNN_RTOL of max-abs (GN+WS:
+    53 GroupNorms, each dividing by its group's spread, lose about 1e-4
+    in f32 on an H100 and 1.4e-3 on the CPU): the
+    same stage 1 on the CPU in float64, against which the card's f32 must
+    be no farther than the CPU's f32 is (or FRCNN_RTOL); then the rest of
+    the eval step on the CPU from the card's stage 1, whose detections
+    must be the card's, or differ from them only where the detection
+    NMS's inputs agree and the card's inputs through the CPU's NMS give
+    the card's detections (nms_input_ties' rule). Fails otherwise."""
+    import copy
+
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+    from aod_meh_hua_torch.engine.batch import prepare_images
+
+    b = upload(two, "cpu")
+    with torch.no_grad():
+        f64 = copy.deepcopy(cpu_model).double()(
+            prepare_images(b.images, b.img_shapes, cfg).double())
+    ref = [t.double() for t in list(f64[0]) + [f64[1], f64[2]]]
+
+    def err_of(outs):
+        return max(((a.double() - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+                   for a, r in zip(outs, ref))
+
+    card_err, cpu_err = err_of(stage1["card"][0]), err_of(stage1["cpu"][0])
+    if card_err > max(FRCNN_RTOL, cpu_err):
+        fail(f"eval card vs CPU: the card's stage 1 is {card_err} of its max from the f64 "
+             f"one, the CPU's {cpu_err}")
+    got = _host_dets(two_stage.make_two_stage_eval_step(model, cfg, device=device)(two))
+    outs = stage1["card"][0]
+    n = len(outs) - 2
+    inputs = {}
+    real_nms = two_stage.TwoStageEvalStep._nms
+
+    def capture(name):
+        def nms(self, boxes, fg):
+            inputs[name] = (boxes.detach().cpu(), fg.detach().cpu())
+            return real_nms(self, boxes, fg)
+        return nms
+
+    with mock.patch.object(cpu_model, "forward",
+                           lambda images: (tuple(outs[:n]), outs[n], outs[n + 1])), \
+            mock.patch.object(two_stage.TwoStageEvalStep, "_nms", capture("cpu")):
+        replay = _host_dets(two_stage.make_two_stage_eval_step(cpu_model, cfg, device="cpu")(two))
+    off = [i for i in range(2) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
+    nms = None
+    if off:
+        with mock.patch.object(two_stage.TwoStageEvalStep, "_nms", capture("card")):
+            two_stage.make_two_stage_eval_step(model, cfg, device=device)(two)
+        (cb, cf), (gb, gf) = inputs["cpu"], inputs["card"]
+        score_err = ((gf - cf).abs().max() / cf.abs().max().clamp(min=1e-30)).item()
+        box_err = (gb - cb).abs().max().item()
+        through = _host_dets(two_stage.TwoStageEvalStep(cpu_model, cfg)._nms(gb, gf))
+        if score_err > FRCNN_RTOL or box_err > 1e-3 or any(
+                not _dets_agree(through, got, i, FRCNN_RTOL) for i in range(2)):
+            fail(f"eval card vs CPU from the card's stage 1: images {off} differ, the NMS "
+                 f"inputs by {score_err} of their max and {box_err} px")
+        nms = {"score_err_of_max": score_err, "box_err_px": box_err,
+               "card_inputs_through_cpu_nms": "the card's detections"}
+    return {"stage1_err_of_max": err, "stage1_err_of_the_f64_max": {"card": card_err,
+                                                                   "cpu": cpu_err},
+            "from_the_card_stage1_on_the_cpu": "agree" if not off else f"images {off} differ",
+            "nms_inputs": nms, "detections": int(got.valid.sum())}
+
+
+def proposals_from_card_rpn(cfg, stage1, two) -> str:
+    """Where the card's proposals differ from the CPU's although the RPN
+    outputs agree (FRCNN_RTOL of max-abs, checked before): the card's RPN
+    outputs through the proposal function on the CPU must give the card's
+    proposals (the same valid slots, boxes within 1e-3 px, scores rtol
+    FRCNN_RTOL). Then the proposal NMS is one function on both devices,
+    and the proposals part by the rounding of its inputs alone (scores of
+    HRNet's saturated objectness, 0.976, swapping order between two boxes
+    at IoU 0.77, on an H100). Fails otherwise."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+
+    rpn_cls, rpn_reg = stage1["card"][0][-2:]
+    img_shapes = torch.from_numpy(np.asarray(two.img_shapes))
+    replay = two_stage.make_proposal_fn(cfg)(
+        rpn_cls, rpn_reg, torch.from_numpy(two_stage.anchor_table(cfg)), img_shapes,
+        cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)
+    boxes, scores, valid = stage1["card"][1]
+    if not (torch.equal(replay[2], valid)
+            and torch.allclose(replay[0], boxes, rtol=0, atol=1e-3)
+            and torch.allclose(replay[1], scores, rtol=FRCNN_RTOL, atol=0)):
+        fail("eval card vs CPU: the card's RPN outputs through the CPU's proposal function "
+             "differ from the card's proposals")
+    return "the card's proposals"
+
+
+def nms_input_ties(model, cpu_model, cfg, two, pinned, cpu_props, got, device) -> dict:
+    """Where the card's detections from the CPU's proposals (`got`) still
+    differ from the CPU's: the detection NMS's inputs (each proposal's
+    class-specific boxes and scores) of the card and of the CPU, within
+    FRCNN_RTOL of the scores' max-abs and 1e-3 px; and the card's inputs
+    through the NMS on the CPU, which must give the card's detections
+    with no difference. Then the NMS is one function on both devices, and
+    the detections part by the rounding of its inputs at its decisions
+    alone (with random weights and 2000 proposals, near-duplicate boxes
+    of near-equal scores meet at its threshold and at its
+    max_per_img cut). Fails otherwise."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+
+    inputs = {}
+
+    def capture(name):
+        real = two_stage.TwoStageEvalStep._nms
+
+        def nms(self, boxes, fg):
+            inputs[name] = (boxes.detach().cpu(), fg.detach().cpu())
+            return real(self, boxes, fg)
+
+        return nms
+
+    for name, m, dev, props in (("cpu", cpu_model, "cpu", cpu_props),
+                                ("card", model, device, pinned)):
+        with mock.patch.object(two_stage, "make_proposal_fn",
+                               lambda c, device_loop=False, p=props: lambda *a: tuple(p)), \
+                mock.patch.object(two_stage.TwoStageEvalStep, "_nms", capture(name)):
+            two_stage.make_two_stage_eval_step(m, cfg, device=dev)(upload(two, dev))
+    (cb, cf), (gb, gf) = inputs["cpu"], inputs["card"]
+    score_err = ((gf - cf).abs().max() / cf.abs().max().clamp(min=1e-30)).item()
+    box_err = (gb - cb).abs().max().item()
+    if score_err > FRCNN_RTOL or box_err > 1e-3:
+        fail(f"eval card vs CPU: the detection NMS's inputs differ: scores {score_err} of "
+             f"their max, boxes {box_err} px")
+    step = two_stage.TwoStageEvalStep(cpu_model, cfg)
+    replay = _host_dets(step._nms(gb, gf))
+    off = [i for i in range(2) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
+    if off:
+        fail(f"eval card vs CPU: the card's NMS inputs through the CPU's NMS differ from the "
+             f"card's detections on images {off}")
+    return {"score_err_of_max": score_err, "box_err_px": box_err,
+            "card_inputs_through_cpu_nms": "the card's detections",
+            "detections_card": int(got.valid.sum())}
 
 
 def frcnn_cli_path(device, family: str = "faster_rcnn", root: Path = None) -> dict:
@@ -3485,23 +3786,45 @@ ZOO_REQUESTS, ZOO_CLIENTS = 12, 4
 TTA_REPS = 3            # timed TTA calls per family, after one warm-up
 
 
-def zoo_family_path(device, card: str, family: str, with_eval: bool) -> dict:
+def zoo_family_path(device, card: str, family: str, with_eval: bool, run: dict = None) -> dict:
     """One family at full width: its training (frcnn_train_path), its tiny
     config's steps card against CPU (frcnn_card_vs_cpu) and, with_eval,
-    its eval over the synthetic pool (frcnn_eval_path). Each reading is
-    printed as it comes."""
+    its eval over the synthetic pool (frcnn_eval_path). `run` (a
+    BACKBONE_RUNS entry): its name, the full and tiny configs' overrides
+    and the timed train steps. Each reading is printed as it comes."""
     import torch
 
-    out = {"train": frcnn_train_path(device, family)}
+    # the families after Faster R-CNN: 2 + 4 steps, no profiled step or batch,
+    # the script's time limit (the fuller readings of earlier runs: PERF.md)
+    run = run or {"name": family, "full": {}, "tiny": {},
+                  "steps": TRAIN_STEPS if family == "faster_rcnn" else TWO_STAGE_STEPS,
+                  "profile_train": family == "faster_rcnn"}
+    name = run["name"]
+    calibrate, profile = run.get("calibrate_bn", False), run.get("profile_train", True)
+    t0 = time.time()
+    out = {"train": frcnn_train_path(device, family, run["full"], run["steps"], calibrate,
+                                     profile)}
+    out["train"]["path_s"] = time.time() - t0
     torch.cuda.empty_cache()
-    print(f"{family} training:", json.dumps(out["train"]), f"[{card}]", flush=True)
-    out["card_vs_cpu"] = frcnn_card_vs_cpu(device, family)
-    print(f"{family} training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
+    print(f"{name} training:", json.dumps(out["train"]), f"[{card}]", flush=True)
+    t0 = time.time()
+    out["card_vs_cpu"] = frcnn_card_vs_cpu(device, family, run["tiny"],
+                                           from_cpu_state=run.get("from_cpu_state", False),
+                                           noise=run.get("noise", 0))
+    out["card_vs_cpu"]["path_s"] = time.time() - t0
+    print(f"{name} training card vs CPU:", json.dumps(out["card_vs_cpu"]), f"[{card}]",
           flush=True)
     if with_eval:
-        out["eval"] = frcnn_eval_path(device, family, named_ties=family in VARIANT_FAMILIES)
+        backbone = name != family or family in BACKBONE_FAMILIES
+        t0 = time.time()
+        out["eval"] = frcnn_eval_path(device, family, named_ties=family in VARIANT_FAMILIES
+                                      or backbone, over=run["full"], nms_inputs=backbone,
+                                      calibrate=calibrate, profile=run.get("profile_eval",
+                                                                           profile),
+                                      against_cpu=run.get("eval_against_cpu", True))
+        out["eval"]["path_s"] = time.time() - t0
         torch.cuda.empty_cache()
-        print(f"{family} eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
+        print(f"{name} eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
     return out
 
 
@@ -3679,6 +4002,102 @@ def variants_path(device, card: str) -> tuple:
     print("train_detector --family libra_rcnn, Detector and FPS tool:",
           json.dumps(out["libra_rcnn_cli"]), f"[{card}]", flush=True)
     shutil.rmtree(VARIANTS, ignore_errors=True)
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
+# --- the rest of Faster R-CNN's config variants ---------------------------------------
+
+BACKBONES = REPO / "build" / "chip_smoke_backbones"
+BACKBONE_FAMILIES = ("pisa_faster_rcnn", "gn_ws", "resnest", "hrnet", "fpg")
+# HRNet's and FPG's canvas: their pyramids need sides that divide by 64
+# (models/two_stage.py check_canvas), so 640 x 1024 where the others take 608
+EXACT_CANVAS = (640, 1024)
+BACKBONE_TRAIN_STEPS = 2  # timed steps at batch 2 after the 2 warm-up ones
+# GN+WS's tiny card-vs-CPU batch carries the eval canvases' pixel noise: on
+# the cells of one colour alone each GroupNorm normalises near-constant maps,
+# whose variance cancels, and the card's and the CPU's gradients part by
+# 2e-5 of their max at layer4 (1e-6 with the noise; ResNet's 8e-7 either
+# way), so that the stem's gn1.weight update lands 10.7 tolerances off
+# (on an H100; ROADMAP Queue 3)
+GN_NOISE = 20
+# each run: its name, family, the full config's overrides, the tiny config's
+# (the card-vs-CPU steps; RegNetX-400MF, the smallest arch, at the tiny canvas)
+BACKBONE_RUNS = tuple(
+    {"name": name, "family": family, "full": full, "tiny": tiny, "steps": BACKBONE_TRAIN_STEPS,
+     "from_cpu_state": True, "calibrate_bn": name == "hrnet",
+     # a profiled step or batch where a module of its own has a range there
+     "profile_train": name == "pisa_faster_rcnn", "profile_eval": name in ("hrnet", "fpg"),
+     # the switches' eval is Faster R-CNN's on another backbone, whose
+     # modules the tiny steps hold to the CPU's: the phase's time limit
+     "eval_against_cpu": family != "faster_rcnn",
+     "noise": GN_NOISE if name == "gn_ws" else 0}
+    for name, family, full, tiny in (
+        ("pisa_faster_rcnn", "pisa_faster_rcnn", {}, {}),
+        ("gn_ws", "gn_ws", {}, {}),
+        ("resnest", "resnest", {}, {}),
+        ("hrnet", "hrnet", {"canvas": EXACT_CANVAS}, {}),
+        ("fpg", "fpg", {"canvas": EXACT_CANVAS}, {}),
+        ("resnext", "faster_rcnn", {"backbone_type": "resnext"}, {"backbone_type": "resnext"}),
+        ("res2net", "faster_rcnn", {"backbone_type": "res2net"}, {"backbone_type": "res2net"}),
+        ("regnet", "faster_rcnn", {"backbone_type": "regnet"},
+         {"backbone_type": "regnet", "regnet_arch": "regnetx_400mf"})))
+BACKBONE_EXPORT = "gn_ws"  # the family exported at batch 8 (a subprocess traces it)
+
+
+def backbones_path(device, card: str) -> tuple:
+    """The phase of the rest of Faster R-CNN's config variants: PISA,
+    GN+WS and ResNeSt at 608 x 1024, HRNet-w32 and FPG at EXACT_CANVAS (and
+    its portrait), ResNeXt-50 32x4d, Res2Net-50 and RegNetX-3.2GF as
+    backbone_type on Faster R-CNN, each through zoo_family_path with its
+    eval (training at batch 2, the tiny steps on the card against the
+    CPU, the eval over the 26 canvases at batch 8); the trainer's CLI with
+    --family pisa_faster_rcnn (frcnn_cli_path); BACKBONE_EXPORT's eval step
+    exported at batch 8 in both orientations by a subprocess while the
+    families run, loaded from its archive and held to the eager step,
+    every image bit for bit; PISA's train step on two gloo ranks sharing
+    the card against the one-process step (two_stage_ranks_path). Each
+    path's kernel launch counts reset just before it and read just after:
+    neither kernel lies on these paths, so each must read 0. Returns
+    (result, launches by path)."""
+    import torch
+
+    t0 = time.time()
+    shutil.rmtree(DEPLOY, ignore_errors=True)
+    DEPLOY.mkdir(parents=True)
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        count_path(out, launches, name, fn)
+
+    cfg, model, triples, n = sharpened_two_stage(device, BACKBONE_EXPORT)
+    proc = start_export_program(BACKBONE_EXPORT, model)
+    for run in BACKBONE_RUNS:
+        counted(run["name"], lambda run=run: zoo_family_path(device, card, run["family"], True,
+                                                             run))
+    counted("pisa_faster_rcnn_cli", lambda: frcnn_cli_path(device, "pisa_faster_rcnn",
+                                                           BACKBONES / "cli"))
+    print("train_detector --family pisa_faster_rcnn, Detector and FPS tool:",
+          json.dumps(out["pisa_faster_rcnn_cli"]), f"[{card}]", flush=True)
+    shutil.rmtree(BACKBONES, ignore_errors=True)
+
+    def export():
+        reading, _ = exported_against_eager(device, cfg, model, triples, n,
+                                            finish_export_program(proc, BACKBONE_EXPORT))
+        if reading["images_bit_equal"] != n:
+            fail(f"{BACKBONE_EXPORT} export: {reading['images_bit_equal']} of {n} images "
+                 "bit-equal to the eager step")
+        return reading
+
+    counted(f"{BACKBONE_EXPORT}_export", export)
+    print(f"{BACKBONE_EXPORT} export:", json.dumps(out[f"{BACKBONE_EXPORT}_export"]),
+          f"[{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    counted("pisa_ranks", lambda: two_stage_ranks_path(device, ("pisa_faster_rcnn",)))
+    print("PISA train steps on two ranks:", json.dumps(out["pisa_ranks"]), f"[{card}]",
+          flush=True)
+    shutil.rmtree(DEPLOY, ignore_errors=True)
     out["phase_s"] = time.time() - t0
     return out, launches
 
@@ -3992,7 +4411,7 @@ def two_stage_plain_steps(model, cfg, init, batch, draws, device) -> dict:
 
 
 def rank_two_stage_steps(spec: dict) -> dict:
-    """Rank program: each RANK_FAMILIES train step at full width, data
+    """Rank program: each of spec's families' train steps at full width, data
     parallel over gloo on the global batch of 2 (one image per rank),
     each of DIST_STEPS steps from the state the one process reached
     before it (spec's file: states and global draws), rank 0 saving the
@@ -4011,7 +4430,7 @@ def rank_two_stage_steps(spec: dict) -> dict:
     rank, world, device = rank_setup()
     out = {"rank": rank, "world": world, "device": str(device), "backend": dist.get_backend()}
     reset_launches()
-    for family in RANK_FAMILIES:
+    for family in spec["families"]:
         lcfg, batch = synthetic_train_batch(ZOO_FAMILIES[family][0](), "landscape",
                                             TrainConfig().batch_size, DIST_BATCH_SEED)
         saved = torch.load(spec[family], map_location="cpu")
@@ -4046,8 +4465,8 @@ def rank_two_stage_steps(spec: dict) -> dict:
     return out
 
 
-def two_stage_ranks_path(device) -> dict:
-    """RANK_FAMILIES' full-width train steps (TrainConfig(), batch 2, the
+def two_stage_ranks_path(device, families=RANK_FAMILIES) -> dict:
+    """The families' full-width train steps (TrainConfig(), batch 2, the
     RPN head sharpened) on two gloo ranks sharing cuda:0 (subprocesses,
     rank_two_stage_steps) against the one-process step on the same batch
     under the same draws, each of DIST_STEPS steps taken by both from the
@@ -4066,8 +4485,8 @@ def two_stage_ranks_path(device) -> dict:
 
     DIST.mkdir(parents=True, exist_ok=True)
     tb = TrainConfig().batch_size
-    spec, plain = {}, {}
-    for family in RANK_FAMILIES:
+    spec, plain = {"families": list(families)}, {}
+    for family in families:
         lcfg, batch = synthetic_train_batch(ZOO_FAMILIES[family][0](), "landscape", tb,
                                             DIST_BATCH_SEED)
         model = build_two_stage(lcfg, device=device, seed=0)
@@ -4090,7 +4509,7 @@ def two_stage_ranks_path(device) -> dict:
     if any(v for r in ranks for v in r["launches"].values()):
         fail(f"two-stage ranks: a hand-written kernel launched: {[r['launches'] for r in ranks]}")
     out, off = {"ranks_wall_s": ranks_s, "launches_per_rank": [r["launches"] for r in ranks]}, []
-    for family in RANK_FAMILIES:
+    for family in families:
         if ranks[0][family]["aux"] != ranks[1][family]["aux"]:
             off.append(f"{family}: the ranks report different aux")
         got_w = torch.load(DIST / f"two_stage_{family}_weights.pt", map_location="cpu")
@@ -4889,6 +5308,13 @@ def main() -> int:
           f"[{card}]", flush=True)
     print(f"Faster R-CNN variants phase: {variants['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    backbones, backbones_launches = backbones_path(device, card)
+    print("Faster R-CNN backbones, necks, GN+WS and PISA phase, s by path:",
+          json.dumps({k: v["path_s"] for k, v in backbones.items() if k != "phase_s"}),
+          f"[{card}]", flush=True)
+    print(f"Faster R-CNN backbones, necks, GN+WS and PISA phase: {backbones['phase_s']:.1f} s "
+          f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -4899,7 +5325,7 @@ def main() -> int:
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
                  "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
                  "faster_rcnn": frcnn_launches, **zoo_launches, **deploy_launches,
-                 **variants_launches}
+                 **variants_launches, **backbones_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

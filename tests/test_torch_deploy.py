@@ -184,7 +184,7 @@ def test_exported_step_holds_the_operator_and_equals_the_eager_step(shared):
 
 def test_export_cli_refuses_other_families():
     with pytest.raises(SystemExit):  # a family the port does not build
-        export_model.main(["--cpu", "--family", "pisa_faster_rcnn"])
+        export_model.main(["--cpu", "--family", "mask_rcnn"])
     with pytest.raises(ValueError, match="retinanet smoke mode"):
         export_model.main(["--mini", "--cpu", "--family", "ssd"])
 

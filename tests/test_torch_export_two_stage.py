@@ -101,4 +101,4 @@ def test_config_for_takes_every_family():
         assert isinstance(step, TwoStageEvalStep) and step.device_loop
     assert set(export_model.EXPORTED_FAMILIES) == {"retinanet", "ssd", *ZOO_FAMILIES}
     with pytest.raises(SystemExit):
-        export_model.parse_args(["--family", "pisa_faster_rcnn"])
+        export_model.parse_args(["--family", "mask_rcnn"])

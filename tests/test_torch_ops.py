@@ -333,16 +333,19 @@ def test_port_imports_no_jax():
     what the machine with the card lacks (OpenCV, PIL, torchvision,
     msgpack)."""
     files = sorted((REPO / "aod_meh_hua_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 76
-    # the two-stage families' modules (the variants' attention and necks),
-    # the config printer and the deployment tools among them
+    assert len(files) > 82
+    # the two-stage families' modules (the variants' attention, necks and
+    # backbones, PISA's step), the config printer and the deployment tools
+    # among them
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"aod_meh_hua_torch/{m}.py" for m in (
         "ops/roi_align", "ops/sampler", "ops/nms", "models/two_stage", "engine/two_stage",
         "engine/train", "engine/tta", "tools/train_detector", "tools/print_config",
         "tools/deployment/export_model", "tools/deployment/package_model",
         "tools/deployment/test_exported", "tools/deployment/serve",
-        "utils/profiling", "models/attention", "models/fpn")} <= names
+        "utils/profiling", "models/attention", "models/fpn", "models/resnest",
+        "models/hrnet", "models/fpg", "models/gn_ws", "models/backbones",
+        "engine/pisa")} <= names
     refused = ("jax", "jaxlib", "flax", "aod_meh_hua_tpu", "cv2", "PIL", "torchvision",
                "msgpack",
                # the root `tools` too: the port copies from tools/analysis, it does not import it

@@ -139,8 +139,8 @@ def test_variant_configs_equal(family):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backbone_type", "resnest"), ("backbone_dcn", "dcn"), ("backbone_gcb_ratio", 0.25),
-    ("neck_type", "hrfpn"), ("neck_type", "fpg"), ("neck_type", "nasfpn"),
+    ("backbone_type", "swin"), ("backbone_dcn", "dcn"), ("backbone_gcb_ratio", 0.25),
+    ("backbone_dcn", "mdcn"), ("backbone_gcb_ratio", 0.0625), ("neck_type", "nasfpn"),
     ("roi_extractor", "generic"), ("bfp_refine_type", "conv")])
 def test_variant_switches_refuse_the_rest(field, value):
     for family in ("libra_rcnn", "groie"):

@@ -244,5 +244,5 @@ def test_cli_runs_on_the_card_unless_told(voc, tmp_path, monkeypatch):
         train_detector.main(["--family", "faster_rcnn", "--mini", "--voc07", voc,
                              "--work-dir", str(tmp_path)])
     with pytest.raises(SystemExit):  # the ported registry's choices only
-        train_detector.main(["--family", "pisa_faster_rcnn", "--voc07", voc,
+        train_detector.main(["--family", "mask_rcnn", "--voc07", voc,
                              "--work-dir", str(tmp_path)])

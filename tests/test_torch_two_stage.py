@@ -121,10 +121,10 @@ def test_zoo_registry_holds_the_ported_families():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("backbone_type", "resnext", "item 15"), ("neck_type", "fpg", "item 15"),
-    ("backbone_dcn", "dcn", "item 15"), ("backbone_gcb_ratio", 0.25, "item 15"),
-    ("neck_type", "hrfpn", "item 15"), ("backbone_type", "resnest", "item 15"),
-    ("backbone_type", "hrnet", "item 15"), ("backbone_type", "res2net", "item 15"),
+    ("backbone_type", "swin", "item 15"), ("neck_type", "nasfpn", "item 15"),
+    ("backbone_dcn", "dcn", "item 15.5"), ("backbone_gcb_ratio", 0.25, "item 15.5"),
+    ("backbone_dcn", "mdcn", "item 15.5"), ("backbone_gcb_ratio", 0.0625, "item 15.5"),
+    ("roi_extractor", "generic", "item 15"), ("stem_s2d", True, "item 16"),
     ("compute_dtype", "bfloat16", "item 16"), ("remat", True, "item 16")])
 def test_variants_raise(field, value, item):
     cfg = tcfg.tiny_faster_rcnn_config(**{field: value})

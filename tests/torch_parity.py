@@ -212,9 +212,11 @@ def _two_stage_tree(family, overrides):
                                         build_faster_rcnn)
     from aod_meh_hua_tpu.utils.config import ZOO_FAMILIES
 
+    from aod_meh_hua_tpu.models.gn_ws import build_gn_ws
+
     cfg = ZOO_FAMILIES[family][1](**dict(overrides))
-    build = {"cascade_rcnn": build_cascade_rcnn,
-             "double_head_rcnn": build_double_head_rcnn}.get(family, build_faster_rcnn)
+    build = {"cascade_rcnn": build_cascade_rcnn, "double_head_rcnn": build_double_head_rcnn,
+             "gn_ws": build_gn_ws}.get(family, build_faster_rcnn)
     model = build(cfg)
     h, w = cfg.canvas
     return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
