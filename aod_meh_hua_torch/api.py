@@ -1,5 +1,5 @@
 """High-level inference API for the ported families (MEH-RetinaNet,
-MEH-SSD, Faster, Cascade, Dynamic and Double-Head R-CNN).
+MEH-SSD, the two-stage families of utils/config.py ZOO_FAMILIES).
 
 Port of aod_meh_hua_tpu/api.py:24-111 (`init_detector`), :112-205
 (`make_eval_step_for`), :214-420 (`_default_pipeline`, `Detector` with
@@ -16,8 +16,12 @@ takes (cfg, model, variables). Its steps run on the model's device. The
 other families of the JAX registry raise (ROADMAP Queue 1 item 15), and
 so do the two-stage families' uncertainty column (the JAX package's is
 the dense families' only) and drawing (item 13). TTA covers the dense
-families, Faster R-CNN and Cascade R-CNN; Dynamic and Double-Head R-CNN
-raise there, as in the JAX package, whose TTA lacks them too.
+families, Faster R-CNN and Cascade R-CNN; the other two-stage families
+raise there, as in the JAX package, whose TTA lacks them too. The
+RPN-only and Cascade RPN families' detections are their proposals, one
+class (num_fg_classes 1); Fast R-CNN's eval takes proposals from outside
+(engine/rpn_only.py make_fast_rcnn_eval_step), so its Detector and
+make_eval_step_for raise a ValueError, as JAX api.py:204-209 does.
 """
 
 from __future__ import annotations
@@ -92,7 +96,9 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) ->
 
 
 def make_eval_step_for(model, cfg, device="cuda"):
-    """The family's eval step on `device`: step(EvalBatch) -> NMSResult."""
+    """The family's eval step on `device`: step(EvalBatch) -> NMSResult (a
+    one-class ProposalResult for rpn and cascade_rpn); fast_rcnn raises a
+    ValueError (its eval takes proposals)."""
     if _family(cfg) in TWO_STAGE_FAMILIES:
         return make_two_stage_eval_step(model, cfg, device=device)
     return make_eval_step(model, cfg, device=device)

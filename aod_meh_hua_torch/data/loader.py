@@ -1,7 +1,9 @@
 """Batch loaders: host-side assembly of fixed-shape batches.
 
 Port of aod_meh_hua_tpu/data/loader.py:41-343, the RetinaNet path
-(`_shared_pool`, `_Prefetcher`, `_pad_gt`, `TrainLoader`, `EvalLoader`),
+(`_shared_pool`, `_Prefetcher`, `_pad_gt`, `TrainLoader`, `EvalLoader`)
+and Fast R-CNN's proposals (`transform_proposals` :91-104,
+`_pad_proposals` :107-115, the TrainLoader's `proposal_source`),
 which replaces the reference's DataLoader + GroupSampler + collate stack
 (mmdet/datasets/builder.py:76-147, samplers/group_sampler.py):
 
@@ -16,6 +18,10 @@ which replaces the reference's DataLoader + GroupSampler + collate stack
 * Across ranks (parallel/), a TrainLoader gives each rank its block of
   rows of the global batch (`rows`): every rank draws the whole batch's
   order, flips and per-sample seeds, and decodes only its own images.
+* With a `proposal_source` (Fast R-CNN) the TrainLoader yields
+  engine/rpn_only.py ProposalBatch: each image's original-coordinate
+  proposals through its own resize, clip and flip, padded into the
+  config's num_proposals slots.
 * EvalLoader: a sequential sweep per orientation group; the tail batch is
   padded to full size and flagged invalid; batches carry their source
   indices. A rank sweeps its parallel.rank_indices slice.
@@ -98,6 +104,35 @@ def _pad_gt(samples, max_gt):
     return boxes, labels, valid
 
 
+def transform_proposals(props: np.ndarray, sample: dict) -> np.ndarray:
+    """Original-coordinate proposals [P, 4] through the sample's geometry,
+    the scale, clip and flip prepare_sample applies to its gt boxes (the
+    reference transforms loaded proposals with the bboxes,
+    datasets/pipelines/transforms.py Resize and RandomFlip)."""
+    props = np.asarray(props, np.float32).reshape(-1, 4) * sample["scale_factor"]
+    new_h, new_w = int(sample["img_shape"][0]), int(sample["img_shape"][1])
+    props[:, 0::2] = np.clip(props[:, 0::2], 0, new_w)
+    props[:, 1::2] = np.clip(props[:, 1::2], 0, new_h)
+    if sample["flipped"]:
+        x1 = props[:, 0].copy()
+        props[:, 0] = new_w - props[:, 2]
+        props[:, 2] = new_w - x1
+    return props
+
+
+def _pad_proposals(prop_list, num_slots: int):
+    """Per-image proposals -> ([B, num_slots, 4], valid [B, num_slots]),
+    the first num_slots of each."""
+    b = len(prop_list)
+    out = np.zeros((b, num_slots, 4), np.float32)
+    valid = np.zeros((b, num_slots), bool)
+    for i, p in enumerate(prop_list):
+        n = min(len(p), num_slots)
+        out[i, :n] = p[:n]
+        valid[i, :n] = True
+    return out, valid
+
+
 def _orientation_of(dataset, idx: int) -> str:
     return "landscape" if dataset.aspect_flag(int(idx)) else "portrait"
 
@@ -128,13 +163,15 @@ class TrainLoader:
         those images; batch_size stays the global batch.
         augment_fn(img, ann, rng) -> (img, ann) runs before prepare_sample
         with the sample's own RandomState (the SSD augment chain,
-        data/ssd_augment.py). with_masks (Mask R-CNN) and proposal_source
-        (Fast R-CNN) belong to families the port does not have yet and
-        raise."""
+        data/ssd_augment.py). proposal_source: callable(dataset index) ->
+        [P, 4] float32 proposals in original-image coordinates (the
+        reference's proposal_file, datasets/custom.py:181); the loader then
+        yields engine/rpn_only.py ProposalBatch, the proposals through the
+        sample's resize, clip and flip (transform_proposals), in
+        model_cfg.num_proposals slots (Fast R-CNN). with_masks (Mask R-CNN)
+        belongs to a family the port does not have yet and raises."""
         if with_masks:
-            _not_ported("with_masks (the Mask R-CNN family)", "15")
-        if proposal_source is not None:
-            _not_ported("proposal_source (Fast R-CNN)", "15")
+            _not_ported("with_masks (the Mask R-CNN family)", "15.4")
         self.dataset = dataset
         self.indices = np.asarray(indices)
         self.cfg = model_cfg
@@ -150,6 +187,7 @@ class TrainLoader:
         self.rows = range(index * per, (index + 1) * per)
         self.prefetch = prefetch
         self.augment_fn = augment_fn
+        self.proposal_source = proposal_source
         self.num_workers = num_workers
         self._pool = _shared_pool(num_workers) if num_workers > 0 else None
         self._gen = model_cfg.build_anchor_generator()
@@ -188,7 +226,10 @@ class TrainLoader:
             ann = self.dataset.get_ann_info(int(i))
             if self.augment_fn is not None:
                 img, ann = self.augment_fn(img, ann, r)
-            return prepare_sample(img, ann, self.pipeline, rng=r)
+            sample = prepare_sample(img, ann, self.pipeline, rng=r)
+            if self.proposal_source is not None:
+                sample["proposals"] = transform_proposals(self.proposal_source(int(i)), sample)
+            return sample
 
         # a short tail repeats its samples to keep the shape: global row r
         # is sample r % len(batch_idx); this rank decodes its rows' samples
@@ -206,6 +247,12 @@ class TrainLoader:
         sizes = self.cfg.for_orientation(orientation).featmap_sizes()
         av = anchor_valid_flags(self._gen, sizes, pad_shapes)
         shapes = np.stack([s["img_shape"] for s in samples])
+        if self.proposal_source is not None:
+            from ..engine.rpn_only import ProposalBatch
+
+            props, pvalid = _pad_proposals([s["proposals"] for s in samples],
+                                           self.cfg.num_proposals)
+            return ProposalBatch(images, boxes, labels, valid, shapes, props, pvalid)
         return Batch(images, boxes, labels, valid, av, shapes)
 
     def burn_epochs(self, n: int) -> None:

@@ -2,7 +2,10 @@
 train and eval steps of Faster, Cascade, Dynamic and Double-Head R-CNN
 and of the Faster R-CNN variants on the Faster R-CNN step (Libra R-CNN,
 PAFPN, CARAFE, GRoIE, empirical attention, HRNet, ResNeSt, FPG, GN+WS;
-PISA's step is engine/pisa.py, on this module's stages) (torch).
+PISA's step is engine/pisa.py, on this module's stages, and so are the
+proposal families' steps and eval modules, engine/rpn_only.py,
+cascade_rpn.py, trident.py and grid_rcnn.py, which TRAIN_STEPS and
+eval_module dispatch to) (torch).
 
 Port of aod_meh_hua_tpu/engine/two_stage.py: `make_proposal_fn` :55-97,
 `_rpn_targets_single` :100-119, `_roi_sample_single` :132-167 (with
@@ -73,6 +76,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+import importlib
+
+from ..models import cascade_rpn as _crpn, grid_rcnn as _grid
+from ..models.trident import BRANCH_SPAN
 from ..models.two_stage import (CONV_BRANCH_SPAN, FASTER_RCNN_VARIANTS, GROIE_SPAN,
                                 VARIANT_SPANS, check_two_stage_options)
 from ..ops.assigner import max_iou_assign
@@ -93,14 +100,19 @@ from .train import DataAxis, _clip_by_global_norm, _sum_gradients
 # R-CNN's statistics, the double head's rescaled extraction and conv
 # branch, and the ranges of the Faster R-CNN variants' modules (the
 # backbone's attention, the CARAFE reassembly, the BFP, GRoIE's fusion),
-# each inside the stage that runs it
+# each inside the stage that runs it, PISA's no-grad RoI pass and sampler,
+# and the proposal families' own modules (Cascade RPN's deform conv, the
+# tridented stage 3, the grid head) and stages (Cascade RPN's region
+# assignment and refinement, Grid R-CNN's targets and refinement)
 # PISA's no-grad RoI pass over every candidate and its ScoreHLR sampler
 # (engine/pisa.py)
 PISA_SPAN = "pisa.score_hlr"
 STAGES = ("faster_rcnn.stage1", "faster_rcnn.rpn_targets", "faster_rcnn.proposals",
           "faster_rcnn.roi_sample", "faster_rcnn.roi_align", "faster_rcnn.roi_head",
           "faster_rcnn.detections", "cascade_rcnn.refine", "dynamic_rcnn.statistics",
-          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN) + VARIANT_SPANS + (PISA_SPAN,)
+          "double_head_rcnn.roi_align_reg", CONV_BRANCH_SPAN) + VARIANT_SPANS + (
+    PISA_SPAN, _crpn.DEFORM_SPAN, _crpn.REFINE_SPAN, BRANCH_SPAN, _grid.GRID_SPAN,
+    _grid.TARGETS_SPAN, _grid.REFINE_SPAN)
 
 # uniforms(stage, n, k) -> k draws [B, n] that rank each image's n
 # candidates of stage "rpn" (the anchors), "roi" (gts + proposals) or the
@@ -262,13 +274,16 @@ def roi_sample(u, props, prop_valid, gt_boxes, gt_labels, gt_valid,
 
 
 def extract_rois(cfg, feats, rois: torch.Tensor,
-                 routing_rois: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 routing_rois: Optional[torch.Tensor] = None,
+                 roi_size: Optional[int] = None) -> torch.Tensor:
     """Multi-level RoIAlign of rois [B, S, 4] over the first
     len(roi_strides) FPN levels: [B * S, roi, roi, C] float32, each RoI
-    on the level of its routing RoI (itself by default)."""
+    on the level of its routing RoI (itself by default); roi_size
+    overrides cfg.rcnn.roi_size (Grid R-CNN's grid branch extracts at 14)."""
     rc = cfg.rcnn
     return batched_multilevel_roi_align(feats[:len(rc.roi_strides)], rois, rc.roi_strides,
-                                        rc.roi_size, rc.sampling_ratio, rc.finest_scale,
+                                        rc.roi_size if roi_size is None else roi_size,
+                                        rc.sampling_ratio, rc.finest_scale,
                                         routing_rois=routing_rois)
 
 
@@ -317,12 +332,34 @@ def _check_step(model, cfg, device) -> torch.device:
 
 
 def _device_batch(batch: Batch, dev) -> Batch:
+    """The batch on `dev`: a Batch, or Fast R-CNN's ProposalBatch
+    (engine/rpn_only.py)."""
+    if hasattr(batch, "proposals"):
+        from .rpn_only import ProposalBatch
+
+        return ProposalBatch(images=as_tensor(batch.images, dev),
+                             gt_boxes=as_tensor(batch.gt_boxes, dev, torch.float32),
+                             gt_labels=as_tensor(batch.gt_labels, dev, torch.long),
+                             gt_valid=as_tensor(batch.gt_valid, dev, torch.bool),
+                             img_shapes=as_tensor(batch.img_shapes, dev),
+                             proposals=as_tensor(batch.proposals, dev, torch.float32),
+                             prop_valid=as_tensor(batch.prop_valid, dev, torch.bool))
     return Batch(images=as_tensor(batch.images, dev),
                  gt_boxes=as_tensor(batch.gt_boxes, dev, torch.float32),
                  gt_labels=as_tensor(batch.gt_labels, dev, torch.long),
                  gt_valid=as_tensor(batch.gt_valid, dev, torch.bool),
                  anchor_valid=as_tensor(batch.anchor_valid, dev, torch.bool),
                  img_shapes=as_tensor(batch.img_shapes, dev))
+
+
+def rpn_loss(rpn_cls, rpn_reg, t: RPNTargets, data: DataAxis):
+    """The RPN's BCE over its sampled anchors and L1 over the positives,
+    each over the global batch's sample count: (loss_cls, loss_bbox)."""
+    num_total = data.sum(t.num_samples.sum().float()).clamp(min=1.0)
+    loss_cls = (binary_cross_entropy_with_logits(
+        rpn_cls, t.is_pos.float(), reduction="none") * t.weights).sum() / num_total
+    loss_bbox = (torch.abs(rpn_reg - t.bbox_targets) * t.is_pos[..., None]).sum() / num_total
+    return loss_cls, loss_bbox
 
 
 def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniforms,
@@ -337,11 +374,7 @@ def _rpn_stage(model, cfg, proposal_fn, batch: Batch, anchors, uniforms: Uniform
     with _span(STAGES[1]):
         t = rpn_targets(*uniforms("rpn", anchors.shape[0], 2), anchors, batch.anchor_valid,
                         batch.gt_boxes, batch.gt_valid, cfg.rpn)
-    num_total = data.sum(t.num_samples.sum().float()).clamp(min=1.0)
-    loss_rpn_cls = (binary_cross_entropy_with_logits(
-        rpn_cls, t.is_pos.float(), reduction="none") * t.weights).sum() / num_total
-    loss_rpn_bbox = (torch.abs(rpn_reg - t.bbox_targets)
-                     * t.is_pos[..., None]).sum() / num_total
+    loss_rpn_cls, loss_rpn_bbox = rpn_loss(rpn_cls, rpn_reg, t, data)
     with torch.no_grad(), _span(STAGES[2]):
         props, _, prop_valid = proposal_fn(rpn_cls.detach(), rpn_reg.detach(), anchors,
                                            batch.img_shapes, cfg.rpn.train_nms_pre,
@@ -688,14 +721,59 @@ def make_pisa_rcnn_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     return make(model, cfg, optimizer, device=device, mesh=mesh)
 
 
+def _step_of(module: str, name: str) -> Callable:
+    """The maker `name` of this package's `module` (the proposal families'
+    steps, engine/rpn_only.py, cascade_rpn.py, trident.py, grid_rcnn.py,
+    which build on this module), imported when it is called."""
+    def make(model, cfg, optimizer, device="cuda", mesh=None):
+        return getattr(importlib.import_module(f"{__package__}.{module}"), name)(
+            model, cfg, optimizer, device=device, mesh=mesh)
+
+    return make
+
+
 # family -> its train step's maker (the JAX trainer's make_steps,
-# tools/train_detector.py:128-132, 185-188: the Faster R-CNN variants take
-# Faster R-CNN's step, PISA its own)
+# tools/train_detector.py:128-192: the Faster R-CNN variants take Faster
+# R-CNN's step, PISA and the proposal families their own)
 TRAIN_STEPS = {"cascade_rcnn": make_cascade_train_step,
                "dynamic_rcnn": make_dynamic_rcnn_train_step,
                "double_head_rcnn": make_double_head_train_step,
                **{family: make_faster_rcnn_train_step for family in FASTER_RCNN_VARIANTS},
-               "pisa_faster_rcnn": make_pisa_rcnn_train_step}
+               "pisa_faster_rcnn": make_pisa_rcnn_train_step,
+               "rpn": _step_of("rpn_only", "make_rpn_train_step"),
+               "cascade_rpn": _step_of("cascade_rpn", "make_crpn_train_step"),
+               "tridentnet": _step_of("trident", "make_trident_train_step"),
+               "fast_rcnn": _step_of("rpn_only", "make_fast_rcnn_train_step"),
+               "grid_rcnn": _step_of("grid_rcnn", "make_grid_rcnn_train_step")}
+
+
+def step_draws(cfg) -> Dict[str, Tuple[int, int]]:
+    """stage -> (n, k): the uniforms cfg's family's train step asks its
+    source for, k draws [B, n] per stage (`Uniforms`): the RPN's anchors
+    ("rpn"), the RoI candidates ("roi", the cascade's "roi{i}"), Trident's
+    per branch ("rpn{r}", "roi{r}"), Grid R-CNN's jitter ("jitter", four
+    per sampled RoI, one draw)."""
+    family = cfg.family
+    n_anchor = cfg.level_bounds()[-1][1]
+    n_props = cfg.max_gt + cfg.rpn.train_max_per_img
+    if family in ("rpn", "cascade_rpn"):
+        return {"rpn": (n_anchor, 2)}
+    if family == "fast_rcnn":
+        return {"roi": (cfg.max_gt + cfg.num_proposals, 2)}
+    if family == "tridentnet":
+        out = {}
+        for r in range(len(cfg.trident_dilations)):
+            out[f"rpn{r}"] = (n_anchor, 2)
+            out[f"roi{r}"] = (cfg.rpn.train_max_per_img, 2)
+        return out
+    if family == "cascade_rcnn":
+        return {"rpn": (n_anchor, 2), **{
+            f"roi{i}": (n_props if i == 0 else cfg.max_gt + cfg.rcnn.sampler_num, 2)
+            for i in range(cfg.num_stages)}}
+    out = {"rpn": (n_anchor, 2), "roi": (n_props, roi_draws(cfg))}
+    if family == "grid_rcnn":
+        out["jitter"] = (cfg.rcnn.sampler_num * 4, 1)
+    return out
 
 
 def make_two_stage_train_step(model, cfg, optimizer, device="cuda", mesh=None) -> Callable:
@@ -807,14 +885,42 @@ class TwoStageEvalStep(torch.nn.Module):
         return self._class_specific(props, prop_valid, cls, reg, batch)
 
 
+# family -> (module of this package, its eval module's class): the proposal
+# families' (each a TwoStageEvalStep with its own forward); the others take
+# TwoStageEvalStep itself
+_EVAL_MODULES = {"rpn": ("rpn_only", "RPNEvalStep"),
+                 "cascade_rpn": ("cascade_rpn", "CascadeRPNEvalStep"),
+                 "tridentnet": ("trident", "TridentEvalStep"),
+                 "grid_rcnn": ("grid_rcnn", "GridRCNNEvalStep")}
+FAST_RCNN_EVAL = ("fast_rcnn eval needs external proposals: use "
+                  "engine.rpn_only.make_fast_rcnn_eval_step(model, cfg)(batch, proposals, "
+                  "prop_valid), the reference's proposal_file contract "
+                  "(detectors/fast_rcnn.py)")
+
+
+def eval_module(model, cfg, device_loop: bool = False) -> TwoStageEvalStep:
+    """cfg's family's eval module: TwoStageEvalStep, or the proposal
+    family's subclass of it (RPN-only and Cascade RPN give a
+    ProposalResult). Fast R-CNN's takes proposals from outside
+    (engine/rpn_only.py make_fast_rcnn_eval_step) and raises here."""
+    if cfg.family == "fast_rcnn":
+        raise ValueError(FAST_RCNN_EVAL)
+    if cfg.family in _EVAL_MODULES:
+        module, name = _EVAL_MODULES[cfg.family]
+        cls = getattr(importlib.import_module(f"{__package__}.{module}"), name)
+        return cls(model, cfg, device_loop)
+    return TwoStageEvalStep(model, cfg, device_loop)
+
+
 def make_two_stage_eval_step(model, cfg, device="cuda") -> Callable:
     """Returns step(batch: EvalBatch) -> NMSResult ([B, max_per_img]
-    fields, boxes in original-image coordinates): cfg's family's
-    TwoStageEvalStep under torch.no_grad(), on `device` where `model`
-    lives, on a batch of numpy arrays or tensors. The same contract as
+    fields, boxes in original-image coordinates; a ProposalResult of the
+    same fields for RPN-only and Cascade RPN): cfg's family's eval module
+    (eval_module) under torch.no_grad(), on `device` where `model` lives,
+    on a batch of numpy arrays or tensors. The same contract as
     engine/eval.py make_eval_step."""
     dev = _check_step(model, cfg, device)
-    module = TwoStageEvalStep(model, cfg)
+    module = eval_module(model, cfg)
 
     @torch.no_grad()
     def step(batch: EvalBatch) -> NMSResult:

@@ -82,12 +82,23 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)  # atomic: a concurrent builder sees all or nothing
 
 
-def build_all() -> None:
-    """Build every kernel, one nvcc per source, all started together."""
-    started = {n: _start(n) for n in SIGNATURES}
+def start_build() -> dict:
+    """Start one nvcc per kernel not yet built, all together, and return
+    at once: pass the result to finish_build (the caller may work on the
+    card meanwhile)."""
+    return {n: _start(n) for n in SIGNATURES}
+
+
+def finish_build(started: dict) -> None:
+    """Wait for start_build's nvcc processes; raises when one failed."""
     for n, s in started.items():
         if s is not None:
             _finish(n, s)
+
+
+def build_all() -> None:
+    """Build every kernel, one nvcc per source, all started together."""
+    finish_build(start_build())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,8 +13,14 @@ pafpn_i} of PAFPN and neck/{lateral_i, carafe_i/{channel_compressor,
 content_encoder}, fpn_conv_i} of the CARAFE FPN, Libra's
 bfp/refine/{g, theta, phi, conv_out}, GRoIE's groie_pre and groie_post,
 and the backbone blocks' gen_attention, whose key_bias, geom_bias and
-gamma keep their names and whose geom_fc_x/y are bias-free Dense). Conv
-kernels go HWIO -> OIHW and Dense kernels [in, out] -> [out, in]; the
+gamma keep their names and whose geom_fc_x/y are bias-free Dense; the
+proposal families' trees: TridentNet's one shared stage-3 kernel per
+block, Cascade RPN's deform conv kernel [9, in, out] -> [out, in, 3, 3],
+Grid R-CNN's per-point deconvs and GroupNorms). Conv kernels go HWIO ->
+OIHW and Dense kernels [in, out] -> [out, in]; a flax ConvTranspose
+kernel [kh, kw, in, out], which lax.conv_transpose correlates unflipped,
+goes to torch's ConvTranspose2d weight [in, out, kh, kw] flipped in both
+spatial axes (the grid head's deconv{1,2}_{i}); the
 box heads' first fc reads its input in the JAX head's (h, w, c) order,
 so its columns carry over as they are. BN scale/bias/mean/var (the
 frozen backbone's and the double head's trainable BN alike), GroupNorm's
@@ -61,6 +67,8 @@ _NAME_RULES = (
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
          "key_bias": "key_bias", "geom_bias": "geom_bias", "gamma": "gamma"}
+# the flax ConvTranspose modules of the ported trees (Grid R-CNN's grid head)
+_CONV_TRANSPOSE = re.compile(r"^deconv\d+_\d+$")
 # Dynamic R-CNN's state in batch_stats (JAX engine/two_stage.py:479)
 DYNAMIC_KEY = "__dynamic_rcnn__"
 DYNAMIC_LEAVES = ("iou_hist", "beta_hist", "iou_thr", "beta")
@@ -104,6 +112,21 @@ def _ssd_module(mods) -> str:
     raise KeyError(f"no port module for the JAX SSD's {path!r}")
 
 
+def _kernel(arr: np.ndarray, module: str) -> np.ndarray:
+    """A flax kernel in the port's layout: a conv's HWIO -> OIHW, a
+    ConvTranspose's [kh, kw, in, out] -> [in, out, kh, kw] flipped
+    spatially, a deform conv's [9, in, out] -> [out, in, 3, 3] (taps
+    row-major), a Dense kernel [in, out] -> [out, in]."""
+    if arr.ndim == 4:
+        if _CONV_TRANSPOSE.match(module):
+            return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 3:
+        taps, cin, cout = arr.shape
+        return arr.transpose(2, 1, 0).reshape(cout, cin, 3, 3)
+    return arr.T
+
+
 def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} numpy tree -> the state_dict of the port
     model of its family (MEHRetinaNet, MEHSSD for a tree with VGG convs,
@@ -124,8 +147,7 @@ def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
             if name not in _LEAF:
                 raise KeyError(f"{'/'.join(path)}: no port counterpart")
             if name == "kernel":
-                # HWIO -> OIHW; a Dense kernel [in, out] -> [out, in]
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                arr = _kernel(arr, mods[-1] if mods else "")
             module = _ssd_module(mods) if ssd else ".".join(_module_name(m) for m in mods)
             key = f"{module}.{_LEAF[name]}" if module else _LEAF[name]
             out[key] = torch.from_numpy(np.array(arr, order="C"))

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from ..utils.config import RetinaNetConfig
 from ..utils.device import resolve_device
@@ -33,6 +34,20 @@ def flatten_levels(level_maps: Sequence[torch.Tensor], channels: int) -> torch.T
     """
     flat = [m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, channels) for m in level_maps]
     return torch.cat(flat, dim=1)
+
+
+class SkipDefaultInit(TorchFunctionMode):
+    """Build modules without torch's default init of their conv and
+    linear layers (kaiming_uniform_ and uniform_ leave the tensor as it
+    is): the builders' init_weights draw every one of them from the seed
+    (tests/test_torch_model.py holds the state dicts equal), and the
+    default draws were most of a full-width model's build time on the
+    card's host."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is nn.init.kaiming_uniform_ or func is nn.init.uniform_:
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **(kwargs or {}))
 
 
 class MEHRetinaNet(nn.Module):
@@ -89,6 +104,7 @@ def build_retinanet(cfg: RetinaNetConfig, device="cuda", seed: int = 0) -> MEHRe
     """A seeded MEH-RetinaNet in eval mode on `device` (channels_last).
     Raises when device is CUDA and there is no card."""
     dev = resolve_device(device)
-    model = MEHRetinaNet(cfg)
+    with SkipDefaultInit():
+        model = MEHRetinaNet(cfg)
     model.init_weights(seed)
     return model.to(device=dev, memory_format=torch.channels_last).eval()

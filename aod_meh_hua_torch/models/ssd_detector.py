@@ -21,7 +21,7 @@ from torch import nn
 
 from ..utils.config import SSDConfig
 from ..utils.device import resolve_device
-from .detector import flatten_levels
+from .detector import SkipDefaultInit, flatten_levels
 from .ssd_head import SSDMEHHead
 from .ssd_neck import SSDNeck
 from .vgg import SSDVGG
@@ -79,6 +79,7 @@ def build_ssd(cfg: SSDConfig, device="cuda", seed: int = 0) -> MEHSSD:
     """A seeded MEH-SSD in eval mode on `device`. Raises when device is
     CUDA and there is no card."""
     dev = resolve_device(device)
-    model = MEHSSD(cfg)
+    with SkipDefaultInit():
+        model = MEHSSD(cfg)
     model.init_weights(seed)
     return model.to(dev).eval()

@@ -3,7 +3,10 @@ Dynamic and Double-Head forms, and the Faster R-CNN variants on its
 model (Libra R-CNN, PAFPN, CARAFE, GRoIE, empirical attention, PISA,
 HRNet, ResNeSt, FPG, the backbone_type switches of models/backbones.py)
 or on its surface (GN+WS, `GNWSFasterRCNN`); the RPN head, the shared
-2-fc box head, the double head, and the detectors that hold them.
+2-fc box head, the double head, and the detectors that hold them. The
+proposal families (RPN-only, Fast R-CNN, Cascade RPN, TridentNet, Grid
+R-CNN) have their models in models/rpn_only.py, cascade_rpn.py,
+trident.py and grid_rcnn.py, built here (`build_two_stage`).
 
 Port of aod_meh_hua_tpu/models/two_stage.py (`RPNHead` :32-61,
 `Shared2FCBBoxHead` :64-97, `FasterRCNN` :100-212 with the ResNet
@@ -51,7 +54,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import span
 from .attention import ATTENTION_SPAN, GeneralizedAttention
 from .backbones import BACKBONES, build_backbone
-from .detector import flatten_levels
+from .detector import SkipDefaultInit, flatten_levels
 from .fpg import FPG, FPG_SPAN
 from .fpn import BFP, BFP_SPAN, CARAFE_SPAN, FPN, FPNCARAFE, PAFPN
 from .gn_ws import Shared4Conv1FCBBoxHead, WSFPN, WSResNet
@@ -262,7 +265,7 @@ class FasterRCNN(nn.Module):
         self.neck = self._build_neck(cfg)
         self.bfp = (BFP(cfg.fpn_channels, cfg.bfp_refine_level)
                     if cfg.bfp_refine_level is not None else None)
-        self.rpn_head = RPNHead(cfg.fpn_channels, cfg.rpn.num_anchors)
+        self.rpn_head = self._build_rpn_head(cfg)
         self.groie_pre = self.groie_post = None
         if cfg.roi_extractor == "groie":
             c = cfg.fpn_channels
@@ -275,6 +278,9 @@ class FasterRCNN(nn.Module):
 
     def _build_neck(self, cfg) -> nn.Module:
         return _build_neck(cfg)
+
+    def _build_rpn_head(self, cfg) -> nn.Module:
+        return RPNHead(cfg.fpn_channels, cfg.rpn.num_anchors)
 
     def _build_roi_head(self, cfg) -> None:
         self.bbox_head = Shared2FCBBoxHead(cfg.num_classes, cfg.fpn_channels,
@@ -295,7 +301,8 @@ class FasterRCNN(nn.Module):
                     fc.weight.copy_(torch.randn(fc.weight.shape, generator=gen)
                                     * fc.in_features ** -0.5)
                     fc.bias.zero_()
-        self.rpn_head.init_weights(gen)
+        if self.rpn_head is not None:
+            self.rpn_head.init_weights(gen)
         for head in self._roi_heads():
             head.init_weights(gen)
         if self.bfp is not None:
@@ -570,15 +577,31 @@ class GNWSFasterRCNN(FasterRCNN):
 _GN_WS_BASE = {"backbone_type": "resnet", "neck_type": "fpn", "roi_extractor": "single",
                "bfp_refine_level": None, "backbone_attention": None}
 
+def _proposal_families():
+    """The proposal families' models (models/rpn_only.py, cascade_rpn.py,
+    trident.py, grid_rcnn.py), which build on this module's."""
+    from .cascade_rpn import CascadeRPNNet
+    from .grid_rcnn import GridRCNN
+    from .rpn_only import FastRCNN, RPNOnly
+    from .trident import TridentFasterRCNN
+
+    return {"rpn": RPNOnly, "cascade_rpn": CascadeRPNNet, "tridentnet": TridentFasterRCNN,
+            "fast_rcnn": FastRCNN, "grid_rcnn": GridRCNN}
+
+
 # family -> the port's model class (the Faster R-CNN variants on FasterRCNN,
 # as JAX api.py:50-104 builds them with init_faster_rcnn, PISA's too: its
-# novelty is the train step; GN+WS on its own model)
+# novelty is the train step; GN+WS on its own model; the proposal families'
+# in _proposal_families)
 _MODELS = {"faster_rcnn": FasterRCNN, "cascade_rcnn": CascadeRCNN,
            "dynamic_rcnn": DynamicRCNN, "double_head_rcnn": DoubleHeadRCNN,
            **{family: FasterRCNN for family in FASTER_RCNN_VARIANTS},
            "gn_ws": GNWSFasterRCNN}
+# the proposal families: RPN-only and Cascade RPN (their eval gives proposals),
+# TridentNet, Fast R-CNN (on proposals from outside) and Grid R-CNN
+PROPOSAL_FAMILIES = ("rpn", "cascade_rpn", "tridentnet", "fast_rcnn", "grid_rcnn")
 # the two-stage families the port builds
-TWO_STAGE_FAMILIES = tuple(_MODELS)
+TWO_STAGE_FAMILIES = tuple(_MODELS) + PROPOSAL_FAMILIES
 
 
 def build_two_stage(cfg, device="cuda", seed: int = 0) -> FasterRCNN:
@@ -586,6 +609,7 @@ def build_two_stage(cfg, device="cuda", seed: int = 0) -> FasterRCNN:
     (channels_last). Raises when device is CUDA and there is no card."""
     check_two_stage_options(cfg)
     dev = resolve_device(device)
-    model = _MODELS[cfg.family](cfg)
+    with SkipDefaultInit():
+        model = (_MODELS.get(cfg.family) or _proposal_families()[cfg.family])(cfg)
     model.init_weights(seed)
     return model.to(device=dev, memory_format=torch.channels_last).eval()

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -102,13 +102,18 @@ class AnchorGenerator:
     scales_per_octave: int = 3
     scale_major: bool = True
     center_offset: float = 0.0
+    # an explicit scale list (TridentNet's (2, 4, 8, 16, 32)); None derives
+    # the octave schedule (JAX ops/anchors.py:108-123)
+    scales: Optional[Sequence[float]] = None
 
     def __post_init__(self):
         self.strides = [(s, s) if isinstance(s, int) else tuple(s) for s in self.strides]
-        self.scales = np.array(
-            [self.octave_base_scale * 2 ** (i / self.scales_per_octave) for i in range(self.scales_per_octave)],
-            dtype=np.float32,
-        )
+        if self.scales is not None:
+            self.scales = np.asarray(self.scales, dtype=np.float32)
+        else:
+            self.scales = np.array(
+                [self.octave_base_scale * 2 ** (i / self.scales_per_octave)
+                 for i in range(self.scales_per_octave)], dtype=np.float32)
         self._ratios = np.asarray(self.ratios, dtype=np.float32)
         self.base_anchors: List[np.ndarray] = []
         for sw, sh in self.strides:

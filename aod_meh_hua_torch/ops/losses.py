@@ -1,14 +1,16 @@
 """Classification and regression losses of MEH-RetinaNet and MEH-SSD
 (torch): focal, the EDL variants, L1, softmax cross-entropy, and Libra
-R-CNN's balanced L1.
+R-CNN's balanced L1, and Cascade RPN's IoU loss.
 
-Port of aod_meh_hua_tpu/ops/losses.py:25-162, :177-200 and :238-271, which mirrors the
+Port of aod_meh_hua_tpu/ops/losses.py:25-162, :177-200, :238-271 and
+:323-352 (`_aligned_iou_terms`, `iou_loss`), which mirrors the
 reference's mmdet/models/losses/EDL_Softmax_FocalLoss.py:31-68 (the live
 cls loss: softmax -> pseudo-logit -> sigmoid focal loss),
 EDL_FocalLoss.py, EDL_ReLU.py, mmcv's sigmoid_focal_loss kernel (per
 (anchor, class) terms with integer targets), smooth_l1_loss.py (L1Loss,
 the live bbox loss), cross_entropy_loss.py (SSD's and the RoI head's CE
-over C+1 columns, the RPN's sigmoid BCE) and utils.py weight_reduce_loss. Labels run over
+over C+1 columns, the RPN's sigmoid BCE), iou_loss.py (IoULoss) and
+utils.py weight_reduce_loss. Labels run over
 [0, C], where C is background.
 """
 
@@ -159,4 +161,27 @@ def balanced_l1_loss(pred: torch.Tensor, target: torch.Tensor, weight=None, beta
         diff < beta,
         alpha / b * (b * diff + 1.0) * torch.log1p(b * diff / beta) - alpha * diff,
         gamma * diff + gamma / b - alpha * beta)
+    return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def aligned_iou(pred: torch.Tensor, target: torch.Tensor, eps: float) -> torch.Tensor:
+    """IoU of aligned box pairs pred[i], target[i] (x1, y1, x2, y2): the
+    overlap over the union, the union at least eps."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:], target[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+    ap = (pred[..., 2] - pred[..., 0]).clamp(min=0.0) * (pred[..., 3] - pred[..., 1]).clamp(min=0.0)
+    at = ((target[..., 2] - target[..., 0]).clamp(min=0.0)
+          * (target[..., 3] - target[..., 1]).clamp(min=0.0))
+    return overlap / (ap + at - overlap).clamp(min=eps)
+
+
+def iou_loss(pred: torch.Tensor, target: torch.Tensor, weight=None, linear: bool = False,
+             eps: float = 1e-6, reduction: str = "mean", avg_factor=None,
+             loss_weight: float = 1.0) -> torch.Tensor:
+    """IoULoss (iou_loss.py): -log(iou), or 1 - iou in linear mode, the
+    IoU clipped below at eps."""
+    ious = aligned_iou(pred, target, eps).clamp(min=eps)
+    loss = (1.0 - ious) if linear else -torch.log(ious)
     return loss_weight * weight_reduce_loss(loss, weight, reduction, avg_factor)

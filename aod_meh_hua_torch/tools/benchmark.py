@@ -16,7 +16,8 @@ Queue 1 item 16).
 `benchmark(cfg, ...)` is the same measurement on a config the caller
 gives: RetinaNetConfig(fused_blocks=True) for the fused kernel, the
 tests' tiny ones. The step is the family's (api.make_eval_step_for): for
-Faster R-CNN the two-stage eval step.
+the two-stage families their eval step (for rpn and cascade_rpn the
+proposals); fast_rcnn, whose eval takes proposals, raises a ValueError.
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
 """Serving export: the eval step (forward -> decode -> NMS) as a
 torch.export program with the weights inside, for every family the port
-builds: the dense ones (RetinaNet, SSD; engine/eval.py EvalStep) and the
-two-stage ones (Faster, Cascade, Dynamic and Double-Head R-CNN;
-engine/two_stage.py TwoStageEvalStep, the cascade's three stages in one
-program, Dynamic R-CNN's as Faster R-CNN's, the double head's BN at its
-running statistics).
+builds but Fast R-CNN: the dense ones (RetinaNet, SSD; engine/eval.py
+EvalStep) and the two-stage ones (engine/two_stage.py eval_module:
+TwoStageEvalStep for Faster, Cascade, Dynamic and Double-Head R-CNN and
+the Faster R-CNN variants, the cascade's three stages in one program,
+Dynamic R-CNN's as Faster R-CNN's, the double head's BN at its running
+statistics; its subclasses for the RPN-only and Cascade RPN families,
+whose programs return their proposals as a one-class ProposalResult,
+TridentNet's test branch and Grid R-CNN's grid refinement). Fast R-CNN's
+eval takes proposals from outside and is not exported, as the JAX
+package's make_eval_step_for refuses it.
 
 Port of tools/deployment/export_model.py of the JAX package (flags
 :17-84), whose artifact is a jax.export StableHLO blob; here it is a
@@ -41,15 +46,15 @@ import torch
 
 from ...engine.batch import EvalBatch
 from ...engine.eval import EvalStep, batch_on
-from ...engine.two_stage import TwoStageEvalStep
+from ...engine.two_stage import eval_module as two_stage_eval_module
 from ...models.resnet import folds_in_graph
 from ...ops import fused_block  # noqa: F401 (registers aod_meh_hua_torch::fused_bottleneck)
 from ...ops.nms import NMSResult
 from ...utils.config import ALL_FAMILIES
 from ...utils.device import pin_numerics
 
-# every family the port builds
-EXPORTED_FAMILIES = ALL_FAMILIES
+# every family the port builds but Fast R-CNN, whose eval step takes proposals
+EXPORTED_FAMILIES = tuple(f for f in ALL_FAMILIES if f != "fast_rcnn")
 
 
 def config_for(family: str, mini: bool = False):
@@ -78,11 +83,11 @@ def example_batch(cfg, batch: int, device) -> EvalBatch:
 
 
 def eval_module(cfg, model, device_loop: bool = False) -> torch.nn.Module:
-    """The family's eval step as a module: TwoStageEvalStep for a
-    two-stage family, EvalStep for the dense ones."""
+    """The family's eval step as a module: a two-stage family's
+    (engine/two_stage.py eval_module), EvalStep for the dense ones."""
     if cfg.family in ("retinanet", "ssd"):
         return EvalStep(model, cfg, device_loop=device_loop)
-    return TwoStageEvalStep(model, cfg, device_loop=device_loop)
+    return two_stage_eval_module(model, cfg, device_loop=device_loop)
 
 
 def export_eval_step(cfg, model, batch: int) -> torch.export.ExportedProgram:

@@ -80,10 +80,10 @@ class ArchiveDetector:
     the archive's exported eval steps (weights inside, on the device they
     were exported on), the preprocessing geometry is the MANIFEST's. It
     has the predict_batch(images) of api.Detector that the Batcher
-    drives. Every family's program returns the same NMSResult, so a
-    two-stage archive (Faster, Cascade, Dynamic or Double-Head R-CNN)
-    serves as a dense one: the manifest's family and geometry are all it
-    reads."""
+    drives. Every family's program returns the same fields (an
+    NMSResult, or the RPN families' one-class ProposalResult), so a
+    two-stage archive serves as a dense one: the manifest's family and
+    geometry are all it reads."""
 
     def __init__(self, archive_path: str):
         from .package_model import load_archive
@@ -285,12 +285,12 @@ def make_handler(batcher, classes, score_thr):
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
-    from ...utils.config import ALL_FAMILIES
+    from .export_model import EXPORTED_FAMILIES
 
     ap = argparse.ArgumentParser(description="HTTP detection server")
-    ap.add_argument("--family", default="retinanet", choices=ALL_FAMILIES,
+    ap.add_argument("--family", default="retinanet", choices=EXPORTED_FAMILIES,
                     help="retinanet, ssd or a ported zoo family (utils/config.py "
-                         "ZOO_FAMILIES)")
+                         "ZOO_FAMILIES) but fast_rcnn, whose eval takes proposals")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--archive", default=None,
                     help="serve a package_model.py archive instead of (family, checkpoint)")

@@ -4,17 +4,22 @@ card: a step-decayed SGD epoch loop with the VOC mAP evaluated every
 
 Port of tools/train_detector.py of the JAX package (:27-667; the
 reference's upstream mmdet tools/train.py over a VOC config) for the
-families of utils/config.py ZOO_FAMILIES: `faster_rcnn`, `cascade_rcnn`,
-`dynamic_rcnn`, `double_head_rcnn` and the Faster R-CNN variants
-`libra_rcnn`, `pafpn`, `carafe`, `groie` and `empirical_attention`
-(on Faster R-CNN's step), each with its train step (engine/two_stage.py
-TRAIN_STEPS, the JAX tool's make_steps). It keeps
-the JAX flags this family uses (--family, --voc07, --voc12, --work-dir,
---epochs, --lr-steps, --batch-size, --lr, --momentum, --weight-decay,
---seed, --eval-interval, --mini, --no-validate, and the ranks' flags
---num-devices, --distributed, --coordinator, --num-processes and
---process-id) and adds --cpu, the port's way to ask for the CPU; it runs
-on the card otherwise. It writes
+families of utils/config.py ZOO_FAMILIES (Faster, Cascade, Dynamic and
+Double-Head R-CNN, the Faster R-CNN variants, and the proposal families
+`rpn`, `cascade_rpn`, `tridentnet`, `fast_rcnn` and `grid_rcnn`), each
+with its train step (engine/two_stage.py TRAIN_STEPS, the JAX tool's
+make_steps, :128-192). It keeps the JAX flags these families use
+(--family, --voc07, --voc12, --work-dir, --epochs, --lr-steps,
+--batch-size, --lr, --momentum, --weight-decay, --seed, --eval-interval,
+--mini, --no-validate, the ranks' flags --num-devices, --distributed,
+--coordinator, --num-processes and --process-id, and Fast R-CNN's
+--proposal-file and --proposal-file-val) and adds --cpu, the port's way
+to ask for the CPU; it runs on the card otherwise. The RPN-only and
+Cascade RPN families are evaluated by class-agnostic AR@100
+(engine/rpn_only.py proposal_recall, reported as "mAP" and "AR@100", JAX
+:501-511); Fast R-CNN trains and evaluates on the proposals of an .npz
+keyed by dataset index, [P, 5] in original-image coordinates
+(tools/gen_proposals.py writes one; JAX :84-92, :526-538, :602-621). It writes
 the JAX tool's files: one `train_log.jsonl` row per epoch ({"epoch",
 "loss", "lr"} and "mAP" after an eval), `metrics.json`,
 `{family}_final.ckpt` (a torch state_dict, which api.init_detector and
@@ -106,8 +111,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--coordinator", default=None, help="coordinator address host:port")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
-    ap.add_argument("--proposal-file", default=None, help="fast_rcnn (not ported)")
-    ap.add_argument("--proposal-file-val", default=None, help="fast_rcnn (not ported)")
+    ap.add_argument("--proposal-file", default=None,
+                    help="fast_rcnn: .npz of per-image [P, 5] proposals keyed by dataset "
+                         "index, original image coordinates (tools/gen_proposals.py)")
+    ap.add_argument("--proposal-file-val", default=None,
+                    help="fast_rcnn: proposals of the val split; defaults to --proposal-file")
     ap.add_argument("--oversample-thr", type=float, default=None, help="(not ported)")
     ap.add_argument("--dataset-type", default="coco", choices=["coco", "lvis"],
                     help="the JSON flavour of --coco-* (not ported)")
@@ -127,7 +135,6 @@ def refuse_unported(args) -> None:
         (args.oversample_thr, "--oversample-thr (ClassBalancedDataset)", "14"),
         (args.instaboost, "--instaboost (data/instaboost.py)", "14"),
         (args.albu, "--albu (data/albu.py)", "14"),
-        (args.proposal_file or args.proposal_file_val, "--proposal-file (Fast R-CNN)", "15"),
         (args.teacher_ckpt, "--teacher-ckpt (LD)", "15"),
         (args.dtype != "float32", f"--dtype {args.dtype}", "16"),
     ]
@@ -146,29 +153,50 @@ def pipeline_for(cfg, mini: bool):
                           device_normalize=True)
 
 
+def fast_rcnn_proposals(proposals, ebatch, idx, num_slots: int):
+    """The eval batch's proposals for Fast R-CNN: each image's [P, 5]
+    original-coordinate rows of the .npz scaled to its canvas, the padding
+    rows empty, in num_slots slots (JAX :612-619)."""
+    from aod_meh_hua_torch.data.loader import _pad_proposals
+
+    sf = np.asarray(ebatch.scale_factors)
+    plist = [proposals[str(int(i))][:, :4] * sf[k] for k, i in enumerate(idx)]
+    plist += [np.zeros((0, 4), np.float32)] * (len(sf) - len(plist))
+    return _pad_proposals(plist, num_slots)
+
+
 def evaluate(model, cfg, val, pipe, batch_size: int, device, process_id: int = 0,
-             process_count: int = 1, work_dir: str = "") -> Dict:
+             process_count: int = 1, work_dir: str = "", proposals=None) -> Dict:
     """The eval sweep of `val` (every image, both orientations) through the
     family's eval step: {"results": per image per class [k, 5] arrays in
-    dataset order, "mAP": VOC07 11-point mAP at IoU 0.5}. Across ranks
-    each sweeps its rank_indices slice and the results are gathered
+    dataset order, "mAP": VOC07 11-point mAP at IoU 0.5}; for the RPN-only
+    and Cascade RPN families "mAP" and "AR@100" are the class-agnostic
+    proposal recall at 100 (proposal_recall). Fast R-CNN's step takes
+    `proposals` (the .npz's arrays by dataset index). Across ranks each
+    sweeps its rank_indices slice and the results are gathered
     (collect_objects, a collective: every rank calls it) into dataset
     order, from which every rank computes the one mAP."""
     from aod_meh_hua_torch.api import make_eval_step_for
     from aod_meh_hua_torch.data.loader import EvalLoader
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
+    from aod_meh_hua_torch.engine.rpn_only import make_fast_rcnn_eval_step, proposal_recall
     from aod_meh_hua_torch.parallel import collect_objects, rank_indices
     from aod_meh_hua_torch.utils.voc_eval import eval_map
 
+    fast = cfg.family == "fast_rcnn"
     steps, results, order = {}, [], []
     for orientation, ebatch, idx in EvalLoader(
             val, rank_indices(len(val), process_id, process_count), pipe,
             batch_size=batch_size):
         if orientation not in steps:
-            steps[orientation] = make_eval_step_for(model, cfg.for_orientation(orientation),
-                                                    device)
-        dets = steps[orientation](ebatch)
-        results.extend(detections_to_per_class(dets, cfg.num_classes,
+            make = make_fast_rcnn_eval_step if fast else make_eval_step_for
+            steps[orientation] = make(model, cfg.for_orientation(orientation), device)
+        if fast:
+            dets = steps[orientation](ebatch, *fast_rcnn_proposals(proposals, ebatch, idx,
+                                                                   cfg.num_proposals))
+        else:
+            dets = steps[orientation](ebatch)
+        results.extend(detections_to_per_class(dets, cfg.num_fg_classes,
                                                np.asarray(ebatch.valid)))
         order.extend(idx.tolist())
     if process_count > 1:
@@ -177,6 +205,11 @@ def evaluate(model, cfg, val, pipe, batch_size: int, device, process_id: int = 0
         order = [i for _, o in parts for i in o]
     results = [r for _, r in sorted(zip(order, results), key=lambda p: p[0])]
     anns = [val.get_ann_info(i) for i in range(len(val))]
+    if cfg.family in ("rpn", "cascade_rpn"):
+        boxes = [r[0][:, :4] for r in results]
+        ar = proposal_recall(boxes, [np.ones(len(b), bool) for b in boxes],
+                             [a["bboxes"] for a in anns])
+        return {"results": results, "mAP": ar, "AR@100": ar}
     return {"results": results,
             "mAP": eval_map(results, anns, iou_thr=0.5, mode="11points")["mAP"]}
 
@@ -231,6 +264,15 @@ def main(argv: Optional[Sequence[str]] = None):
     from aod_meh_hua_torch.parallel import gather_to_host, replicate, shard_batch
     from aod_meh_hua_torch.utils.config import TrainConfig
 
+    proposals = proposals_val = None
+    if args.family == "fast_rcnn":
+        if not args.proposal_file:
+            raise SystemExit("--family fast_rcnn requires --proposal-file "
+                             "(generate with tools/gen_proposals.py)")
+        # read whole: the loader's decode threads index it together
+        proposals = dict(np.load(args.proposal_file))
+        proposals_val = (dict(np.load(args.proposal_file_val)) if args.proposal_file_val
+                         else proposals)
     proc_id, proc_count, device, mesh = join_ranks(args, "cpu" if args.cpu else "cuda")
     is_main = proc_id == 0
     os.makedirs(args.work_dir, exist_ok=True)
@@ -259,7 +301,9 @@ def main(argv: Optional[Sequence[str]] = None):
     pipe = pipeline_for(cfg, args.mini)
     # every rank walks the same global batches, in the same orientations
     loader = TrainLoader(train_set, np.arange(len(train_set)), cfg, pipe,
-                         batch_size=args.batch_size, seed=args.seed)
+                         batch_size=args.batch_size, seed=args.seed,
+                         proposal_source=(None if proposals is None
+                                          else lambda i: proposals[str(i)][:, :4]))
     steps = {}
     # every rank draws the global batch's uniforms from the same stream
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -282,8 +326,9 @@ def main(argv: Optional[Sequence[str]] = None):
               f"lr {lr:g}, {time.time() - t0:.1f}s", flush=True)
         row = {"epoch": epoch, "loss": mean_loss, "lr": lr}
         if val is not None and (epoch + 1) % args.eval_interval == 0:
-            row["mAP"] = evaluate(model, cfg, val, pipe, max(args.batch_size, 4), device,
-                                  proc_id, proc_count, args.work_dir)["mAP"]
+            ev = evaluate(model, cfg, val, pipe, max(args.batch_size, 4), device, proc_id,
+                          proc_count, args.work_dir, proposals_val)
+            row.update({k: ev[k] for k in ("mAP", "AR@100") if k in ev})
             print(f"epoch {epoch}: mAP {row['mAP']:.4f}", flush=True)
         metrics.append(row)
         if is_main:

@@ -8,10 +8,13 @@ A copy of `AnchorConfig`, `TestCfg`, `HUACfg`, `RetinaNetConfig`,
 `LibraRCNNConfig`, `PAFPNFasterRCNNConfig`, `CARAFEFasterRCNNConfig`,
 `GRoIEFasterRCNNConfig`, `EmpiricalAttentionConfig`,
 `GNWSFasterRCNNConfig`, `FPGFasterRCNNConfig`, `HRNetFasterRCNNConfig`,
-`ResNeStFasterRCNNConfig`, `PISAFasterRCNNConfig` and their tiny
-factories (:301-455, :598-621, :625-681, :790-819, :823-860, :1097-1131,
-:2513, :2532, :2551, :2570-2612, :2973, :2992-3010, :3312, :3331-3440)
-with `ZOO_FAMILIES` (:3569) cut to the families the port has, and the
+`ResNeStFasterRCNNConfig`, `PISAFasterRCNNConfig`, the proposal
+families' `RPNOnlyConfig`, `TridentNetConfig`, `CascadeRPNConfig`,
+`FastRCNNConfig` and `GridRCNNConfig`, and their tiny factories
+(:301-455, :583-595, :598-621, :625-681, :700-787, :790-819, :823-860,
+:1064-1083, :1097-1131, :2513, :2532, :2551, :2570-2612, :2719-2795,
+:2935, :2973, :2992-3010, :3312, :3331-3440) with `ZOO_FAMILIES` (:3569)
+cut to the families the port has, and the
 reference-config loader (`_cfg_get`, `_KNOWN_TOP_KEYS`, `_LOSS_CLS_MAP`,
 `_warn`, `reference_data_roots`, `load_reference_config`, :2297-2510).
 The port keeps its own copy because it imports nothing of the JAX
@@ -870,10 +873,187 @@ def tiny_resnest_config(**overrides) -> ResNeStFasterRCNNConfig:
     return ResNeStFasterRCNNConfig(**base)
 
 
+@dataclass(frozen=True)
+class RPNOnlyConfig(FasterRCNNConfig):
+    """Proposal-only RPN (reference mmdet/models/detectors/rpn.py +
+    configs/rpn/rpn_r50_fpn_1x_coco.py): backbone + FPN + RPNHead
+    trained alone on class-agnostic gt boxes; eval emits the proposals
+    as single-class detections and is scored by AR@k proposal recall
+    (fast_eval_recall)."""
+
+    family = "rpn"
+
+    @property
+    def num_fg_classes(self) -> int:
+        return 1
+
+
+@dataclass(frozen=True)
+class TridentNetConfig(FasterRCNNConfig):
+    """TridentNet (reference configs/tridentnet/
+    tridentnet_r50_caffe_1x_coco.py + mmdet/models/backbones/
+    trident_resnet.py + detectors/trident_faster_rcnn.py +
+    roi_heads/trident_roi_head.py): a C4 Faster R-CNN whose stage-3
+    conv2s share ONE kernel applied at dilations (1, 2, 3) — three
+    scale-specialized branches riding the batch axis at train time
+    (gts replicated branch-major), with only branch test_branch_idx=1
+    run at eval. RoI head = single-level RoIAlign 14 on C4 + the conv5
+    ResLayer (stride 2) + avg-pool BBoxHead (faster_rcnn_r50_caffe_c4).
+    Caffe normalization (BGR, std 1)."""
+
+    block_counts: Tuple[int, ...] = (3, 4, 6)
+    head_blocks: int = 3
+    trident_dilations: Tuple[int, ...] = (1, 2, 3)
+    test_branch_idx: int = 1
+    c4_stride: int = 16
+    anchor_scales: Tuple[float, ...] = (2.0, 4.0, 8.0, 16.0, 32.0)
+    rpn: RPNCfg = field(default_factory=lambda: RPNCfg(
+        anchor_strides=(16,), ratios=(0.5, 1.0, 2.0),
+        train_nms_pre=4000, train_max_per_img=500,
+        test_nms_pre=2000, test_max_per_img=1000))
+    rcnn: RCNNCfg = field(default_factory=lambda: RCNNCfg(
+        sampler_num=128, pos_fraction=0.5, roi_size=14, roi_strides=(16,)))
+    img_mean: Tuple[float, ...] = (103.530, 116.280, 123.675)
+    img_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    img_to_rgb: bool = False
+
+    family = "tridentnet"
+
+    @property
+    def num_anchors_per_cell(self) -> int:
+        return len(self.rpn.ratios) * len(self.anchor_scales)
+
+    def build_anchor_generator(self):
+        from ..ops.anchors import AnchorGenerator
+
+        return AnchorGenerator(strides=self.rpn.anchor_strides,
+                               ratios=self.rpn.ratios,
+                               scales=self.anchor_scales)
+
+    def featmap_sizes(self):
+        h, w = self.canvas
+        assert h % 32 == 0 and w % 32 == 0
+        return [(h // self.c4_stride, w // self.c4_stride)]
+
+    def level_bounds(self):
+        (h, w), = self.featmap_sizes()
+        return [(0, h * w * self.num_anchors_per_cell)]
+
+
+@dataclass(frozen=True)
+class CascadeRPNConfig(RPNOnlyConfig):
+    """Cascade RPN (reference configs/cascade_rpn/
+    crpn_r50_caffe_fpn_1x_coco.py + mmdet/models/dense_heads/
+    cascade_rpn_head.py): two-stage anchor refinement with a single
+    square anchor per cell — stage 0 adapts features with a dilated
+    conv and regresses on region-assigned anchors (IoU loss on decoded
+    boxes, no cls); stage 1 runs an anchor-offset deform conv on the
+    bridged features over the refined anchors (MaxIoU .7/.7/.3 +
+    RandomSampler 256, BCE + IoU loss). Proposal NMS iou 0.8."""
+
+    rpn: RPNCfg = field(default_factory=lambda: RPNCfg(
+        ratios=(1.0,), pos_iou_thr=0.7, neg_iou_thr=0.7, min_pos_iou=0.3,
+        sampler_num=256, pos_fraction=0.5, nms_iou_thr=0.8,
+        train_nms_pre=2000, train_max_per_img=2000,
+        test_nms_pre=2000, test_max_per_img=2000))
+    s0_stds: Tuple[float, ...] = (0.1, 0.1, 0.5, 0.5)
+    s1_stds: Tuple[float, ...] = (0.05, 0.05, 0.1, 0.1)
+    center_ratio: float = 0.2
+    ignore_ratio: float = 0.5
+    stage0_dilation: int = 3
+
+    family = "cascade_rpn"
+
+
+@dataclass(frozen=True)
+class FastRCNNConfig(FasterRCNNConfig):
+    """Fast R-CNN (reference mmdet/models/detectors/fast_rcnn.py +
+    configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py): backbone + FPN +
+    RoI head consuming EXTERNALLY supplied proposals (the reference's
+    proposal_file .pkls; here fixed-width [B, P, 4] arrays with a valid
+    mask). num_proposals is P, the per-image proposal slot count."""
+
+    num_proposals: int = 512
+
+    family = "fast_rcnn"
+
+
+@dataclass(frozen=True)
+class GridRCNNConfig(FasterRCNNConfig):
+    """Grid R-CNN (reference configs/grid_rcnn/grid_rcnn_r50_fpn_
+    gn-head_2x_coco.py + roi_heads/grid_roi_head.py + mask_heads/
+    grid_head.py): cls-only RoI head; box geometry from a 9-point grid
+    heatmap head (8 GN convs at 576ch, neighbor fusion, grouped
+    deconvs to 28x28 sub-region maps) trained on jittered positives and
+    decoded by boundary voting. RPN bbox loss here is plain L1 (the
+    reference's SmoothL1 beta 1/9 — equal above |x| = 1/9)."""
+
+    grid_points: int = 9
+    grid_convs: int = 8
+    grid_point_channels: int = 64
+    grid_roi_size: int = 14
+    grid_pos_radius: int = 1
+    grid_loss_weight: float = 15.0
+
+    family = "grid_rcnn"
+
+
+def tiny_rpn_config(**overrides) -> RPNOnlyConfig:
+    """A shrunken proposal-only RPN for fast CPU unit tests."""
+    base = _tiny_two_stage()
+    del base["rcnn"]
+    base.update(overrides)
+    return RPNOnlyConfig(**base)
+
+
+def tiny_fast_rcnn_config(**overrides) -> FastRCNNConfig:
+    """A shrunken Fast R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(num_proposals=64)
+    base.update(overrides)
+    return FastRCNNConfig(**base)
+
+
+def tiny_trident_config(**overrides) -> TridentNetConfig:
+    """A shrunken TridentNet for fast CPU unit tests."""
+    base = dict(
+        canvas=(64, 128),
+        block_counts=(1, 1, 1),
+        head_blocks=1,
+        stem_width=8,
+        num_classes=6,
+        max_gt=8,
+        anchor_scales=(1.0, 2.0, 4.0),
+        rpn=RPNCfg(anchor_strides=(16,), ratios=(0.5, 1.0, 2.0),
+                   train_nms_pre=96, train_max_per_img=48,
+                   test_nms_pre=96, test_max_per_img=48, sampler_num=64),
+        rcnn=RCNNCfg(sampler_num=32, pos_fraction=0.5, roi_size=14,
+                     roi_strides=(16,)),
+        test=TestCfg(nms_pre=48, pre_nms_cands=48, max_per_img=20),
+    )
+    base.update(overrides)
+    return TridentNetConfig(**base)
+
+
+def tiny_cascade_rpn_config(**overrides) -> CascadeRPNConfig:
+    """A shrunken Cascade RPN for fast CPU unit tests."""
+    base = _tiny_two_stage(rpn_kw=dict(ratios=(1.0,), pos_iou_thr=0.7, neg_iou_thr=0.7,
+                                       min_pos_iou=0.3, nms_iou_thr=0.8))
+    del base["rcnn"]
+    base.update(overrides)
+    return CascadeRPNConfig(**base)
+
+
+def tiny_grid_rcnn_config(**overrides) -> GridRCNNConfig:
+    """A shrunken Grid R-CNN for fast CPU unit tests."""
+    base = _tiny_two_stage(grid_point_channels=8)  # conv_out 72, still divisible by GN 36
+    base.update(overrides)
+    return GridRCNNConfig(**base)
+
+
 # The model-zoo families the port has: name -> (full-size config class,
 # tiny test-config factory), the JAX package's ZOO_FAMILIES (:3569) cut to
 # them, in its order. Every port CLI reads its --family choices here; the
-# other 38 families of the JAX registry come with ROADMAP Queue 1 item 15.
+# other 33 families of the JAX registry come with ROADMAP Queue 1 item 15.
 ZOO_FAMILIES = {
     "faster_rcnn": (FasterRCNNConfig, tiny_faster_rcnn_config),
     "libra_rcnn": (LibraRCNNConfig, tiny_libra_config),
@@ -881,13 +1061,18 @@ ZOO_FAMILIES = {
     "dynamic_rcnn": (DynamicRCNNConfig, tiny_dynamic_rcnn_config),
     "double_head_rcnn": (DoubleHeadRCNNConfig, tiny_double_head_config),
     "cascade_rcnn": (CascadeRCNNConfig, tiny_cascade_config),
+    "rpn": (RPNOnlyConfig, tiny_rpn_config),
+    "cascade_rpn": (CascadeRPNConfig, tiny_cascade_rpn_config),
+    "tridentnet": (TridentNetConfig, tiny_trident_config),
     "hrnet": (HRNetFasterRCNNConfig, tiny_hrnet_config),
     "resnest": (ResNeStFasterRCNNConfig, tiny_resnest_config),
     "groie": (GRoIEFasterRCNNConfig, tiny_groie_config),
     "fpg": (FPGFasterRCNNConfig, tiny_fpg_config),
     "gn_ws": (GNWSFasterRCNNConfig, tiny_gn_ws_config),
     "empirical_attention": (EmpiricalAttentionConfig, tiny_empirical_attention_config),
+    "fast_rcnn": (FastRCNNConfig, tiny_fast_rcnn_config),
     "pisa_faster_rcnn": (PISAFasterRCNNConfig, tiny_pisa_rcnn_config),
+    "grid_rcnn": (GridRCNNConfig, tiny_grid_rcnn_config),
     "carafe": (CARAFEFasterRCNNConfig, tiny_carafe_config),
 }
 

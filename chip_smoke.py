@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit, and builds every CUDA kernel
    of the port from the sources in this checkout (one nvcc per source,
-   all started together, timed).
+   all started together, timed) while the SSD paths of 12, on which no
+   hand-written kernel lies, run on the card.
 2. Kernel phase, TF32 off: each kernel against its plain PyTorch version
    at its paths' shapes (the TTA's batch-1 canvases too) and at small
    edge cases, and CUDA-event times of the kernel, the plain version and
@@ -67,7 +68,8 @@
 11. NMS fixpoint: one score step profiled with the convergence checked
    after every map application and every CHECK_INTERVAL of them: host
    syncs, wall and device time.
-12. SSD300 (SSDConfig(): VGG16, 8732 anchors, 21 columns): 2 + 10 train
+12. SSD300 (SSDConfig(): VGG16, 8732 anchors, 21 columns; its training,
+   tiny steps and scoring while the kernels build, before 2): 2 + 10 train
    steps at batch 8 with the SSD CLI's warmup, a tiny SSD's two steps on
    the card against the CPU, Entropy_NMS through score_pool at batch 64
    over 128 canvases with the foreground logits sharpened, Entropy_ALL
@@ -105,8 +107,9 @@
    forward), ms per image, held to the same TTA through an unfused twin
    with the same weights (rtol 1e-4, at most SERVE_MAX_FLIPS named
    decision flips). The eval step exported with torch.export at
-   batch 8 in both orientations (5 fused operator nodes each), saved,
-   packaged and loaded back: on the 26 synthetic canvases its
+   batch 8 in both orientations (5 fused operator nodes each) and saved
+   by a subprocess started before the score_pool CLI phase
+   (start_serving_export), packaged and loaded back: on the 26 synthetic canvases its
    detections against the eager step's (bit-equal, or to rtol 1e-4 with
    at most SERVE_MAX_FLIPS named decision flips), its launches, its ms
    per batch against eager in turns; test_exported's sweep of the AL
@@ -159,12 +162,14 @@
    packaged into one archive each and loaded back: export and load
    seconds, archive MB, the 26 synthetic canvases through the loaded
    programs against the eager TwoStageEvalStep (no image may differ),
-   ms per batch of the two in turns (Faster R-CNN's programs trace in a
-   subprocess while the cascade's trace here); the cascade's archive
-   behind the HTTP server (ArchiveDetector, 16 requests of the fixture
-   JPEGs, each reply held to a Detector's rows); the Faster and Double-Head R-CNN
-   train steps at full width on two gloo ranks sharing cuda:0 (global
-   batch 2) against the one-process step, after each of two steps (see
+   ms per batch of the two in turns (each family's programs trace in a
+   subprocess of its own, started before the Faster R-CNN phase, while
+   it and the zoo phase run); the cascade's
+   archive behind the HTTP server (ArchiveDetector, 16 requests of the
+   fixture JPEGs, each reply held to a Detector's rows); the Faster,
+   Double-Head and PISA R-CNN train steps at full width on two gloo ranks
+   sharing cuda:0 (global batch 2, one group of rank subprocesses)
+   against the one-process step, after each of two steps (see
    two_stage_ranks_path), ms per step per rank. Each path's launch
    counts must read 0.
 21. The Faster R-CNN variants phase (variants_path): Libra R-CNN (the BFP
@@ -180,7 +185,27 @@
    trainer's CLI with --family libra_rcnn for one epoch on a fixture tree
    (build/chip_smoke_variants/), its Detector and the FPS tool. Each
    path's launch counts must read 0.
-22. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
+22. The rest of Faster R-CNN's config variants (backbones_path): PISA,
+   GN+WS, ResNeSt, HRNet and FPG (640x1024) and the backbone_type
+   switches ResNeXt, Res2Net and RegNetX through zoo_family_path (2 + 2
+   train steps, the tiny steps from the CPU's state, the eval over the
+   26 canvases, the switches' over SWITCH_POOL's 16), the PISA trainer's
+   CLI, and GN+WS exported at batch 8 by a subprocess and held to eager
+   (PISA's train step on two gloo ranks runs in the deploy phase). Each
+   path's launch counts must read 0.
+23. The proposal families (proposals_path): RPN-only, Fast R-CNN,
+   Cascade RPN, TridentNet and Grid R-CNN at full width (608x1024, seed
+   0, heads sharpened): 2 + 2 train steps at batch 2 (TridentNet's 6
+   branch rows, its gts near its branch-0 proposals), the tiny steps on
+   the card against the CPU from the CPU's state, the eval over the 26
+   canvases at batch 8 with one profiled batch (AR@100 of the two RPN
+   families against synthetic gts, their proposals held to the CPU's as
+   sets; Fast R-CNN on the RPN's proposals of the pool; the others'
+   detections held to the CPU's); the RPN -> gen_proposals -> Fast
+   R-CNN workflow through the CLIs on a fixture tree; the trainer's CLI
+   with --family grid_rcnn, its Detector and the FPS tool. No export on
+   the card. Each path's launch counts must read 0.
+24. Distributed phase (aod_meh_hua_torch/parallel/; the card is one, and
    NCCL refuses two ranks on one card): NCCL at world size 1, where the
    full-width data-parallel step (TrainConfig(), batch 2) must equal the
    plain step bit for bit after 2 steps and the FSDP2 step must be
@@ -198,7 +223,7 @@
    cuts on its tree, which must acquire the AL phase's X_L_1 (but for
    named near-ties at the cut), only rank 0 writing. Every subprocess
    has a wall limit and a process-group timeout.
-23. Prints the script's seconds, a per-case line, a `{"kernels": [...]}`
+25. Prints the script's seconds, a per-case line, a `{"kernels": [...]}`
    line, the card line and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, without a card or outside a checkout
@@ -207,8 +232,10 @@ of the repository. Every failed check raises.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -231,7 +258,16 @@ MATMUL_TOL = 2.0 ** -7  # of max|ref|: one bf16 ulp; kernel and plain version ro
 TF32_PEAK_OPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 PROBE_ITERS = 10
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
-TWO_STAGE_STEPS = 4  # the timed train steps of the two-stage families after Faster R-CNN
+# the timed train steps of the two-stage families after Faster R-CNN (zoo and
+# variants phases): 2, for the script's time limit
+TWO_STAGE_STEPS = 2
+# the canvases of the timed sweep's first batch that the two-stage families
+# after Faster R-CNN hold to the CPU's eval step (Faster R-CNN keeps 2): 1,
+# for the script's time limit (a full-width CPU eval of
+# TridentNet's 1,000 RoIs per canvas through its res5 head takes about 20 s)
+LATER_CPU_CANVASES = 1
+# and evaluate the pool's first batch of each orientation (16 canvases) where Faster
+# R-CNN and the proposal families take all 26 (zoo_family_path)
 TRAIN_RTOL = 1e-4   # card vs CPU losses; parameters to 1e-4 of each tensor's max|p|
 # card vs CPU updates (new - old): 1e-3 of each tensor's max|update| plus two
 # f32 ulps of its max|p| (the rounding of new - old), tests/test_torch_train.py's
@@ -252,6 +288,27 @@ SCALE_AGG = "scaleAvg_classAvg"  # the reference AL scripts' aggregation for the
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+_CHILDREN = []  # the subprocesses this script started (spawn)
+
+
+def spawn(args: list, env: dict, log) -> subprocess.Popen:
+    """This script in a subprocess (`args` after its path; output to
+    `log`), which main kills at its exit if it still runs."""
+    proc = subprocess.Popen([sys.executable, "-u", "-X", "faulthandler",
+                             str(REPO / "chip_smoke.py"), *args],
+                            env=dict(env, CHIP_SMOKE_PID=str(os.getpid())), stdout=log,
+                            stderr=subprocess.STDOUT, cwd=str(REPO))
+    _CHILDREN.append(proc)
+    return proc
+
+
+def kill_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
 
 
 def card_line() -> str:
@@ -491,13 +548,22 @@ def synthetic_pool(cfg, seed: int = 0, pool=None, batch: int = BATCH):
     """(orientation, EvalBatch, indices) triples of seeded uint8 canvases:
     32-pixel cells of random colour plus noise, varied img_shapes and
     scale_factors, the last batch of each orientation padded. pool: the
-    images per orientation (POOL by default)."""
+    images per orientation (POOL by default). Made once per canvas, seed,
+    pool and batch (drawing them took 1-2 s of host time per family): the
+    callers read the arrays and never write them."""
+    pool = pool or POOL
+    canvases = tuple(cfg.for_orientation(o).canvas for o in pool)
+    triples, n = _synthetic_pool(canvases, seed, tuple(pool.items()), batch)
+    return list(triples), n
+
+
+@functools.lru_cache(maxsize=8)
+def _synthetic_pool(canvases, seed, pool, batch):
     from aod_meh_hua_torch.engine.batch import EvalBatch
 
     rng = np.random.RandomState(seed)
     triples, start = [], 0
-    for orientation, n in (pool or POOL).items():
-        h, w = cfg.for_orientation(orientation).canvas
+    for (orientation, n), (h, w) in zip(pool, canvases):
         coarse = rng.randint(0, 256, (n, h // 32, w // 32, 3)).astype(np.uint8)
         imgs = coarse.repeat(32, axis=1).repeat(32, axis=2)
         imgs = np.clip(imgs.astype(np.int16) + rng.randint(-20, 21, imgs.shape), 0, 255)
@@ -513,6 +579,37 @@ def synthetic_pool(cfg, seed: int = 0, pool=None, batch: int = BATCH):
                             np.arange(start + i, start + i + k)))
         start += n
     return triples, start
+
+
+def cpu_twin(model):
+    """The card model's copy on the CPU, in eval mode, for a reference
+    check (a copy: a fresh build's seeded init, which the weights would
+    replace, took about a second of host time)."""
+    import copy
+
+    return copy.deepcopy(model).cpu().eval()
+
+
+_SEEDED = {}  # repr(cfg) -> its seed-0 two-stage model on the CPU (the last three)
+
+
+def seeded_two_stage(cfg, device):
+    """build_two_stage(cfg, device, seed=0), copied from the CPU model of an
+    earlier build of the same config while one is kept: a family's train,
+    eval and export paths build the same model, and its seeded init took a
+    second or more of host time."""
+    import copy
+
+    from aod_meh_hua_torch.models.two_stage import build_two_stage
+
+    key = repr(cfg)
+    model = _SEEDED.pop(key, None)
+    if model is None:
+        model = build_two_stage(cfg, device="cpu", seed=0)
+    _SEEDED[key] = model  # the newest last
+    while len(_SEEDED) > 3:
+        _SEEDED.pop(next(iter(_SEEDED)))
+    return copy.deepcopy(model).to(device)
 
 
 def upload(batch, device):
@@ -1200,14 +1297,19 @@ def run_cli(main, argv) -> tuple:
     return driver, flags
 
 
+# the extra epochs' deterministic cuDNN setting, in order (one of each: the
+# script's time limit)
+DETERMINISM_EPOCHS = (False, True)
+
+
 def epoch_rate_by_determinism(driver, x_l) -> dict:
-    """One more training epoch of the driver's model over x_l with
-    deterministic cuDNN off, on, on, off (TF32 off throughout): img/s
-    through the loader of each, the mean per setting."""
+    """One more training epoch of the driver's model over x_l per entry of
+    DETERMINISM_EPOCHS (deterministic cuDNN off or on; TF32 off
+    throughout): img/s through the loader of each, the mean per setting."""
     import torch
 
     rates = {False: [], True: []}
-    for det in (False, True, True, False):
+    for det in DETERMINISM_EPOCHS:
         torch.backends.cudnn.deterministic = det
         torch.cuda.synchronize()
         t0 = time.time()
@@ -2174,7 +2276,8 @@ def ssl_path(device):
     cfg, tcfg = RetinaNetConfig(), TrainConfig()
     model = build_retinanet(cfg, device=device, seed=0)
     lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
-    batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
+    batch = train_batch_for(cfg, batch)
+    batch = type(batch)(*(torch.from_numpy(a).to(device) for a in batch))
     images = prepare_images(batch.images, batch.img_shapes, lcfg)
     sharpen_cls_head(model, images)
 
@@ -2518,7 +2621,7 @@ def al_ensemble_path(device, voc07: Path) -> dict:
 
 SERVE = REPO / "build" / "chip_smoke_serve"
 TTA_SCALES = [(1000, 600), (800, 480)]  # the default resize and a smaller one
-SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
+SERVE_REQUESTS, SERVE_CLIENTS = 32, 16  # two requests per client: the script's time limit
 SERVE_SCORE_THR = 0.3
 SERVE_MAX_FLIPS = B64_MAX_FLIPS  # replies or images off by a flipped decision
 FPS_ITERS, FPS_WARMUP = 10, 2
@@ -2656,13 +2759,38 @@ def serve_load(det, payloads, expected, what, per_forward: int = FUSED_PER_FORWA
                 launches=launches)
 
 
-def serving_path(device, voc07: Path) -> tuple:
-    """The serving phase (see the module docstring). Returns (result,
-    launches by path)."""
+def start_serving_export(device) -> tuple:
+    """The serving phase's model, a full-width fused RetinaNet
+    (init_detector, seed 0, its cls head sharpened on the first fixture),
+    and the subprocess that exports its eval step (start_export_program),
+    started before the score_pool CLI phase so that the tracing runs beside
+    the CLI phases: (cfg, model, process)."""
+    import torch
+    from aod_meh_hua_torch.api import Detector, init_detector
+    from aod_meh_hua_torch.data.jpeg import imread
+    from aod_meh_hua_torch.data.pipeline import prepare_sample
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.utils.config import RetinaNetConfig
+
+    shutil.rmtree(SERVE, ignore_errors=True)
+    SERVE.mkdir(parents=True)
+    cfg = RetinaNetConfig(fused_blocks=True)
+    model = init_detector(cfg, seed=0, device=device)
+    s0 = prepare_sample(imread(str(sorted(FIXTURES.glob("*.jpg"))[0])), None,
+                        Detector(cfg, model).pipeline, flip=False)
+    sharpen_cls_head(model, prepare_images(torch.from_numpy(s0["image"][None]).to(device),
+                                           torch.from_numpy(s0["img_shape"][None]).to(device),
+                                           cfg.for_orientation(s0["orientation"])))
+    return cfg, model, start_export_program("retinanet", model, SERVE)
+
+
+def serving_path(device, voc07: Path, started: tuple) -> tuple:
+    """The serving phase (see the module docstring) on start_serving_export's
+    model and programs. Returns (result, launches by path)."""
     import dataclasses
 
     import torch
-    from aod_meh_hua_torch.api import Detector, init_detector
+    from aod_meh_hua_torch.api import Detector
     from aod_meh_hua_torch.data.jpeg import imread
     from aod_meh_hua_torch.data.loader import EvalLoader
     from aod_meh_hua_torch.data.pipeline import PipelineConfig, prepare_sample
@@ -2673,22 +2801,14 @@ def serving_path(device, voc07: Path) -> tuple:
     from aod_meh_hua_torch.tools import benchmark
     from aod_meh_hua_torch.tools.deployment import export_model, package_model, test_exported
     from aod_meh_hua_torch.tools.deployment.serve import ArchiveDetector
-    from aod_meh_hua_torch.utils.config import RetinaNetConfig
     from aod_meh_hua_torch.utils.voc_eval import eval_map
 
     t_phase = time.time()
-    shutil.rmtree(SERVE, ignore_errors=True)
-    SERVE.mkdir(parents=True)
-    cfg = RetinaNetConfig(fused_blocks=True)
-    model = init_detector(cfg, seed=0, device=device)
+    cfg, model, export_proc = started
     det = Detector(cfg, model)
     files = sorted(FIXTURES.glob("*.jpg"))
     imgs = [imread(str(p)) for p in files]
     samples = [prepare_sample(i, None, det.pipeline, flip=False) for i in imgs]
-    s0 = samples[0]
-    sharpen_cls_head(model, prepare_images(torch.from_numpy(s0["image"][None]).to(device),
-                                           torch.from_numpy(s0["img_shape"][None]).to(device),
-                                           cfg.for_orientation(s0["orientation"])))
     result, launches = {}, {}
 
     # TTA: identity against __call__, then two scales and the flip
@@ -2730,25 +2850,22 @@ def serving_path(device, voc07: Path) -> tuple:
                                                                            "flip")},
                          flipped_images=tta_flips)
 
-    # the fused eval step exported at batch 8 in both orientations, saved,
-    # packaged and loaded; on the synthetic canvases against the eager step
-    t0 = time.time()
-    paths = {}
-    for o in ("landscape", "portrait"):
-        program = export_model.export_eval_step(cfg.for_orientation(o), model, BATCH)
-        if export_model.fused_nodes(program) != FUSED_PER_FORWARD:
-            fail(f"export ({o}): {export_model.fused_nodes(program)} fused operator nodes")
-        paths[o] = str(SERVE / f"{o}.pt2")
-        export_model.save_program(program, paths[o])
-        del program
-    export_s = time.time() - t0
+    # the fused eval step exported at batch 8 in both orientations and saved
+    # (start_serving_export's subprocess), packaged and loaded; on the
+    # synthetic canvases against the eager step
+    exported = finish_export_program(export_proc, "retinanet", SERVE)
+    for o, nodes in exported["fused_nodes"].items():
+        if nodes != FUSED_PER_FORWARD:
+            fail(f"export ({o}): {nodes} fused operator nodes")
+    export_s = exported["export_s"]
+    paths = {o: str(SERVE / f"retinanet_{o}.pt2") for o in ("landscape", "portrait")}
     t0 = time.time()
     archive = package_model.package(paths["landscape"], str(SERVE), "retinanet_fused",
                                     artifact_portrait=paths["portrait"],
                                     classes=VOC_CLASSES,
                                     geometry=package_model.geometry_for(cfg, BATCH))
-    manifest, programs = package_model.load_archive(archive)
-    modules = {o: p.module() for o, p in programs.items()}
+    adet = ArchiveDetector(archive)  # its programs here, and behind the server below
+    manifest, modules = adet.manifest, adet.programs
     load_s = time.time() - t0
     triples, n_pool = synthetic_pool(cfg)
 
@@ -2839,11 +2956,10 @@ def serving_path(device, voc07: Path) -> tuple:
     det.predict_batch(imgs, max_batch=BATCH)  # warm-up
     result["serve"] = serve_load(det, payloads, expected, "serve")
     launches["serve"] = result["serve"]["launches"]
-    adet = ArchiveDetector(archive)
     adet.predict_batch(imgs)  # warm-up
     result["serve_archive"] = serve_load(adet, payloads, expected, "serve_archive")
     launches["serve_archive"] = result["serve_archive"]["launches"]
-    del adet, modules, programs, steps
+    del adet, modules, steps
     model = det = None
     torch.cuda.empty_cache()
 
@@ -2879,6 +2995,12 @@ FRCNN_GROUPS = {"empirical_attention.gen_attention": "backbone attention blocks"
                 "hrnet.hrfpn": "HRFPN resizes, reduction, pools and convs",
                 "fpg.neck": "FPG neck (laterals, 9 stages, last convs)",
                 "pisa.score_hlr": "PISA no-grad RoI pass and ScoreHLR sampler",
+                "cascade_rpn.deform": "Cascade RPN deform conv gathers",
+                "cascade_rpn.refine": "Cascade RPN anchor refinement and offsets",
+                "trident.branches": "TridentNet stage 3 (three dilations)",
+                "grid_rcnn.grid_head": "Grid R-CNN grid head",
+                "grid_rcnn.targets": "Grid R-CNN jitter and targets",
+                "grid_rcnn.refine": "Grid R-CNN boundary voting",
                 "faster_rcnn.stage1": "convolutions (backbone, FPN, RPN head)",
                 "faster_rcnn.proposals": "proposal top-k, decode and NMS",
                 "faster_rcnn.roi_align": "RoIAlign gathers",
@@ -2905,6 +3027,8 @@ def class_logits(model, cfg, feats, props, head: int):
     f = roi_features(model, cfg, feats, props)
     if cfg.family == "cascade_rcnn":
         return model.roi_forward(f, head)[0]
+    if cfg.family == "grid_rcnn":  # the cls-only head
+        return model.roi_forward(f)
     if cfg.family == "double_head_rcnn":
         reg = extract_rois(cfg, feats, scale_rois(props, cfg.reg_roi_scale_factor),
                            routing_rois=props)
@@ -2928,9 +3052,9 @@ BFP_BIAS_STD = 0.05
 
 
 def seed_zero_starts(model, seed: int) -> int:
-    """The zero-start parameters of `model`'s attention blocks, BFP and
-    GroupNorms drawn from a CPU generator seeded `seed`, in module order;
-    returns the number of attention blocks."""
+    """The zero-start parameters of `model`'s attention blocks, BFP,
+    GroupNorms and grid head drawn from a CPU generator seeded `seed`, in
+    module order; returns the number of attention blocks."""
     import torch
     from aod_meh_hua_torch.models.attention import GeneralizedAttention
 
@@ -2951,6 +3075,15 @@ def seed_zero_starts(model, seed: int) -> int:
         for m in model.modules():
             if isinstance(m, torch.nn.GroupNorm):
                 m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * BFP_BIAS_STD)
+        # Grid R-CNN's conv and deconv biases, zero at init: the GroupNorm
+        # after each subtracts most of their gradient (deconv1_4's bias 1.26
+        # tolerances apart, card from CPU, after one tiny step from zero on
+        # an H100)
+        grid = getattr(model, "grid_head", None)
+        for m in (grid.modules() if grid is not None else ()):
+            if (isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))
+                    and m.bias is not None and not m.bias.any()):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * BFP_BIAS_STD)
     return len(blocks)
 
 
@@ -2960,7 +3093,11 @@ def calibrate_frozen_bn(model, cfg, images, img_shapes) -> None:
     seeing the calibrated ones before it: the statistics a trained model's
     frozen BN holds, where the identity's let a random HRNet's features
     grow through its 36 blocks and exchange sums until the first train
-    step diverges (loss 548.5, then 4.4e11 and NaN, on an H100)."""
+    step diverges (loss 548.5, then 4.4e11 and NaN, on an H100).
+    TridentNet's res5 box head, whose frozen BN follows the backbone's,
+    also takes them, from one forward on the test proposals' RoIs: at
+    identity statistics its first train step's loss was 77.1, then 3432
+    (on an H100)."""
     import torch
     from aod_meh_hua_torch.engine.batch import prepare_images
     from aod_meh_hua_torch.models.resnet import FrozenBatchNorm2d
@@ -2970,11 +3107,21 @@ def calibrate_frozen_bn(model, cfg, images, img_shapes) -> None:
         m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
         m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
 
-    hooks = [m.register_forward_pre_hook(take) for m in model.backbone.modules()
+    trident = cfg.family == "tridentnet"
+    frozen = (model.modules() if trident else model.backbone.modules())
+    hooks = [m.register_forward_pre_hook(take) for m in frozen
              if isinstance(m, FrozenBatchNorm2d)]
     try:
         with torch.no_grad():
-            model(prepare_images(images, img_shapes, cfg))
+            feat, cls, reg = model(prepare_images(images, img_shapes, cfg))
+            if trident:
+                from aod_meh_hua_torch.engine.trident import extract_c4_rois
+                from aod_meh_hua_torch.engine.two_stage import anchor_table, make_proposal_fn
+
+                props = make_proposal_fn(cfg)(
+                    cls, reg, torch.from_numpy(anchor_table(cfg)).to(cls.device), img_shapes,
+                    cfg.rpn.test_nms_pre, cfg.rpn.test_max_per_img)[0]
+                model.roi_forward(extract_c4_rois(cfg, feat, props))
     finally:
         for h in hooks:
             h.remove()
@@ -2995,7 +3142,9 @@ def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
 
     with torch.no_grad():
         x = prepare_images(images, img_shapes, cfg)
-        model.rpn_head.rpn_cls.weight.mul_(RPN_LOGIT_STD / model(x)[1].std().item())
+        conv = objectness_conv(model)
+        if conv is not None:
+            conv.weight.mul_(RPN_LOGIT_STD / model(x)[1].std().item())
         if not classes:
             return
         feats, rpn_cls, rpn_reg = model(x)
@@ -3007,6 +3156,85 @@ def sharpen_frcnn(model, cfg, images, img_shapes, classes: bool = True) -> None:
             head.fc_cls.weight[-1].zero_()
             cls = class_logits(model, cfg, feats, props, i)
             head.fc_cls.weight.mul_(CLS_LOGIT_STD / cls.std().item())
+
+
+def objectness_conv(model):
+    """The conv whose output is the model's objectness, the second output of
+    its forward (the RPN head's rpn_cls; Cascade RPN's stage-1 s1_cls), or
+    None (Fast R-CNN has no RPN)."""
+    head = getattr(model, "rpn_head", None)
+    return head.rpn_cls if head is not None else getattr(model, "s1_cls", None)
+
+
+# TridentNet's train gts: its best proposals at least this share of the
+# canvas's short side wide and tall (50 px at 608 x 1024)
+TRIDENT_GT_SIDE = 1 / 12
+
+
+def gts_near_proposals(model, cfg, batch):
+    """TridentNet's batch (of tensors) with each image's gts its three best
+    proposals of branch 0 (the model on the batch) at least TRIDENT_GT_SIDE
+    of the canvas wide and tall, each moved by a twentieth of its size:
+    its RoI sampler takes no gt as a candidate, and at random weights the
+    500 proposals of a step missed every random box at IoU 0.5, and the
+    best ones, thin boxes clipped at a border, every box moved by pixels
+    (on an H100), where the step's positives are checked."""
+    import torch
+    from aod_meh_hua_torch.engine.batch import prepare_images
+    from aod_meh_hua_torch.engine.two_stage import anchor_table, make_proposal_fn
+
+    b = batch.images.shape[0]
+    with torch.no_grad():
+        feat = model.features(prepare_images(batch.images, batch.img_shapes, cfg))
+        cls, reg = model.rpn(feat)
+        props, _, valid = make_proposal_fn(cfg)(
+            cls[:b], reg[:b], torch.from_numpy(anchor_table(cfg)).to(cls.device),
+            batch.img_shapes, cfg.rpn.train_nms_pre, cfg.rpn.train_max_per_img)
+    gt_boxes, gt_valid = torch.zeros_like(batch.gt_boxes), torch.zeros_like(batch.gt_valid)
+    side = min(cfg.canvas) * TRIDENT_GT_SIDE
+    for i in range(b):
+        wh = props[i, :, 2:] - props[i, :, :2]
+        big = valid[i] & (wh >= side).all(-1)
+        pick = big.nonzero().flatten()[:3]
+        if len(pick) == 0:
+            fail(f"tridentnet training: no proposal of {side} px on image {i}")
+        box = props[i, pick]
+        size = (box[:, 2:] - box[:, :2]).repeat(1, 2)
+        gt_boxes[i, :len(pick)] = box + size * torch.tensor([0.05, 0.025, 0.075, 0.05],
+                                                            device=box.device)
+        gt_valid[i, :len(pick)] = True
+    limit = torch.stack([batch.img_shapes[:, 1], batch.img_shapes[:, 0]] * 2, -1)[:, None]
+    gt_boxes = torch.minimum(gt_boxes, limit.to(gt_boxes.dtype))
+    return batch._replace(gt_boxes=gt_boxes, gt_valid=gt_valid)
+
+
+def train_batch_for(cfg, batch, seed: int = 0):
+    """synthetic_train_batch's Batch as the family's train batch: for Fast
+    R-CNN a ProposalBatch whose cfg.num_proposals slots hold four jittered
+    copies of each gt, then seeded random boxes inside the image (the last
+    eight slots of the last image invalid)."""
+    if cfg.family != "fast_rcnn":
+        return batch
+    from aod_meh_hua_torch.engine.rpn_only import ProposalBatch
+
+    rng = np.random.RandomState(seed + 100)
+    b, p = batch.images.shape[0], cfg.num_proposals
+    props = np.zeros((b, p, 4), np.float32)
+    for i in range(b):
+        h, w = batch.img_shapes[i]
+        rows = [g + rng.randn(4) * 0.05 * (g[2:] - g[:2]).repeat(2)
+                for g in batch.gt_boxes[i][batch.gt_valid[i]] for _ in range(4)]
+        while len(rows) < p:
+            bw, bh = rng.uniform(0.05, 0.5) * w, rng.uniform(0.05, 0.5) * h
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            rows.append([x1, y1, x1 + bw, y1 + bh])
+        props[i] = np.asarray(rows[:p], np.float32)
+        props[i, :, 0::2] = np.clip(props[i, :, 0::2], 0, w)
+        props[i, :, 1::2] = np.clip(props[i, :, 1::2], 0, h)
+    valid = np.ones((b, p), bool)
+    valid[-1, -8:] = False
+    return ProposalBatch(batch.images, batch.gt_boxes, batch.gt_labels, batch.gt_valid,
+                         batch.img_shapes, props, valid)
 
 
 @contextlib.contextmanager
@@ -3097,21 +3325,22 @@ def frcnn_train_path(device, family: str = "faster_rcnn", over: dict = None,
     statistics from the batch first (calibrate_frozen_bn); `profile`
     False: no profiled step."""
     import torch
-    from aod_meh_hua_torch.engine.batch import Batch
     from aod_meh_hua_torch.engine.train import create_train_state, frozen_mask
     from aod_meh_hua_torch.engine.two_stage import make_two_stage_train_step
-    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
     cfg, tcfg = dataclasses.replace(ZOO_FAMILIES[family][0](), **(over or {})), TrainConfig()
     what = f"{family} training"
-    model = build_two_stage(cfg, device=device, seed=0)
+    model = seeded_two_stage(cfg, device)
     seed_zero_starts(model, seed=0)
     lcfg, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=5)
-    batch = Batch(*(torch.from_numpy(a).to(device) for a in batch))
+    batch = train_batch_for(cfg, batch)
+    batch = type(batch)(*(torch.from_numpy(a).to(device) for a in batch))
     if calibrate:
         calibrate_frozen_bn(model, lcfg, batch.images, batch.img_shapes)
     sharpen_frcnn(model, lcfg, batch.images, batch.img_shapes, classes=False)
+    if family == "tridentnet":
+        batch = gts_near_proposals(model, lcfg, batch)
     opt = create_train_state(model, tcfg, frozen_stages=cfg.frozen_stages)
     mask = frozen_mask(model, cfg.frozen_stages)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -3132,7 +3361,12 @@ def frcnn_train_path(device, family: str = "faster_rcnn", over: dict = None,
     for k, v in traj.items():
         if not np.isfinite(v).all():
             fail(f"{what}: {k} is not finite: {v}")
-    if not min(traj["num_pos"]) > 0:
+    # TridentNet samples no gt as a candidate: its first step's positives
+    # are the gts near its proposals (gts_near_proposals); each SGD step of
+    # a random RPN moves its 500 proposals off them (0 positives by the
+    # third step at a 192 x 320 canvas on the CPU)
+    pos = traj["num_pos"][:1] if family == "tridentnet" else traj["num_pos"]
+    if not min(pos) > 0 or (family == "tridentnet" and not traj["loss_bbox"][0] > 0):
         fail(f"{what}: a step sampled no positive RoI: {traj['num_pos']}")
     if not traj["loss"][-1] < traj["loss"][0]:
         fail(f"{what}: the loss did not fall: {traj['loss']}")
@@ -3145,11 +3379,13 @@ def frcnn_train_path(device, family: str = "faster_rcnn", over: dict = None,
     with fixpoint_depths() as depths:
         float(step(batch, gen)["loss"])
     pcfg, pbatch = synthetic_train_batch(cfg, "portrait", tcfg.batch_size, seed=6)
-    paux = make_two_stage_train_step(model, pcfg, opt, device=device)(pbatch, gen)
+    paux = make_two_stage_train_step(model, pcfg, opt, device=device)(
+        train_batch_for(cfg, pbatch), gen)
     if not all(np.isfinite(float(v)) for v in paux.values()):
         fail(f"{what}: a portrait loss is not finite: {paux}")
     out = dict(batch=tcfg.batch_size, canvas=list(lcfg.canvas), warmup=TRAIN_WARMUP,
                steps=steps, ms_per_step=ms, img_per_s=tcfg.batch_size * 1e3 / ms,
+               rows=batch.images.shape[0] * len(getattr(cfg, "trident_dilations", (1,))),
                peak_mem_bytes=peak, proposal_nms_iou=cfg.rpn.nms_iou_thr,
                numerics=numerics_flags(), trajectory=traj, proposal_fixpoints=depths,
                portrait=(pcfg.canvas, {k: float(v) for k, v in paux.items()}),
@@ -3188,6 +3424,8 @@ CARD_VS_CPU_STEPS = {"faster_rcnn": 2, "cascade_rcnn": 2, "dynamic_rcnn": 5,
                      "double_head_rcnn": 2, "libra_rcnn": 2, "pafpn": 2, "carafe": 2,
                      "groie": 2, "empirical_attention": 2}  # 2 for the families after them
 DYNAMIC_TOL = 1e-6  # Dynamic R-CNN's threshold and beta, card against CPU
+# the families whose train step takes no proposals of its own RPN
+NO_TRAIN_PROPOSALS = ("rpn", "cascade_rpn", "fast_rcnn")
 
 
 def frcnn_card_vs_cpu(device, family: str = "faster_rcnn", tiny_over: dict = None,
@@ -3221,21 +3459,19 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn", tiny_over: dict = Non
     cfg, tcfg = ZOO_FAMILIES[family][1](**(tiny_over or {})), TrainConfig()
     what = f"{family} training"
     _, batch = synthetic_train_batch(cfg, "landscape", tcfg.batch_size, seed=7, noise=noise)
+    batch = train_batch_for(cfg, batch)
     seed_model = build_two_stage(cfg, device="cpu", seed=1)
     seed_zero_starts(seed_model, seed=1)
     sharpen_frcnn(seed_model, cfg, torch.from_numpy(batch.images),
                   torch.from_numpy(batch.img_shapes), classes=False)
+    if family == "tridentnet":  # as its full-width training (gts_near_proposals)
+        batch = type(batch)(*(t.numpy() for t in gts_near_proposals(
+            seed_model, cfg, type(batch)(*(torch.from_numpy(a) for a in batch)))))
     weights = seed_model.state_dict()
     gen = torch.Generator().manual_seed(3)
-    n_props = cfg.max_gt + cfg.rpn.train_max_per_img
-    n = {"rpn": (cfg.level_bounds()[-1][1], 2)}
-    if family == "cascade_rcnn":
-        n.update({f"roi{i}": (n_props if i == 0 else cfg.max_gt + cfg.rcnn.sampler_num, 2)
-                  for i in range(cfg.num_stages)})
-    else:
-        n["roi"] = (n_props, two_stage.roi_draws(cfg))
     draws = [{k: tuple(torch.rand((tcfg.batch_size, m), generator=gen) for _ in range(k_draws))
-              for k, (m, k_draws) in n.items()} for _ in range(CARD_VS_CPU_STEPS.get(family, 2))]
+              for k, (m, k_draws) in two_stage.step_draws(cfg).items()}
+             for _ in range(CARD_VS_CPU_STEPS.get(family, 2))]
 
     real_proposals = two_stage.make_proposal_fn
     cpu_props, flips = [], []
@@ -3319,10 +3555,14 @@ def frcnn_card_vs_cpu(device, family: str = "faster_rcnn", tiny_over: dict = Non
     else:
         out = steps_card_vs_cpu(what, list(cpu[0][0]), cpu[:2], gpu[:2])
     # each step's differences must start at a decision at the threshold
-    # (the rest follow from it: a box suppressed no longer suppresses)
+    # (the rest follow from it: a box suppressed no longer suppresses); the
+    # families whose step makes no proposals (RPN-only, Cascade RPN, Fast
+    # R-CNN) record none
     at_thr = [any(abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) < 1e-4 for f in step)
               for step in flips if step]
-    if (len(flips) != len(draws) or max(len(f) for f in flips) > FRCNN_MAX_PROPOSAL_FLIPS
+    makes = family not in NO_TRAIN_PROPOSALS
+    if (len(flips) != (len(draws) if makes else 0)
+            or max((len(f) for f in flips), default=0) > FRCNN_MAX_PROPOSAL_FLIPS
             or not all(at_thr)):
         fail(f"{what} card vs CPU: the proposals differ: {flips}")
     out["proposal_flips_per_step"] = flips
@@ -3380,16 +3620,18 @@ def _host_dets(d):
 
 def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = False,
                     over: dict = None, nms_inputs: bool = False, calibrate: bool = False,
-                    profile: bool = True, against_cpu: bool = True) -> dict:
+                    pool: dict = None, cpu_canvases: int = 2,
+                    profile: bool = True, against_cpu: bool = True,
+                    first_batches: bool = False) -> dict:
     """The family's eval step over the 26 synthetic canvases at batch 8,
     both orientations: the family's full-width config, seed 0, its RPN
     and class heads sharpened on the first batch. img/s and peak memory
     over a sweep that also reads the detections to the host per class,
     after a warm-up sweep; the split of one batch's device time by stage;
-    each NMS fixpoint's depth; the first two canvases of the timed
-    sweep's first batch held to the CPU's eval step on those two
-    canvases: the same valid slots, labels and sources, boxes and scores
-    to FRCNN_RTOL, with no difference allowed; or, `named_ties` (the
+    each NMS fixpoint's depth; the first `cpu_canvases` canvases of the
+    timed sweep's first batch held to the CPU's eval step on them: the
+    same valid slots, labels and sources, boxes and scores to
+    FRCNN_RTOL, with no difference allowed; or, `named_ties` (the
     Faster R-CNN variants), where they differ, the proposals behind them
     compared stage by stage (eval_ties): every proposal that one device
     keeps and the other not named as a near-tie, and the detections
@@ -3399,18 +3641,25 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
     the full config replaced; `calibrate`: the frozen BN's statistics from
     the first batch (calibrate_frozen_bn); `profile` False: no profiled
     batch; `against_cpu` False: no CPU comparison (the backbone_type
-    switches, whose modules the tiny steps hold to the CPU's)."""
+    switches, whose modules the tiny steps hold to the CPU's); `pool`:
+    synthetic_pool's images per orientation (POOL by default);
+    `cpu_canvases`: the canvases held to the CPU's (2 by default);
+    `first_batches`: the pool's first batch of each orientation only (16
+    of the 26 canvases, the same first canvases)."""
     import torch
     from aod_meh_hua_torch.engine.eval import detections_to_per_class
     from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
-    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 
     cfg = dataclasses.replace(ZOO_FAMILIES[family][0](), **(over or {}))
     what = f"{family} eval"
-    model = build_two_stage(cfg, device=device, seed=0)
+    model = seeded_two_stage(cfg, device)
     seed_zero_starts(model, seed=0)
-    triples, n = synthetic_pool(cfg)
+    triples, n = synthetic_pool(cfg, pool=pool)
+    if first_batches:
+        seen = set()
+        triples = [t for t in triples if not (t[0] in seen or seen.add(t[0]))]
+        n = sum(len(idx) for _, _, idx in triples)
     first = upload(triples[0][1], device)
     if calibrate:
         calibrate_frozen_bn(model, cfg.for_orientation(triples[0][0]), first.images,
@@ -3427,7 +3676,8 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
             rows += detections_to_per_class(outs[-1], cfg.num_classes, batch_valid=b.valid)
         return rows, outs[0]
 
-    sweep()
+    for o in ("landscape", "portrait"):  # warm-up: one batch of each canvas
+        steps[o](next(b for bo, b in batches if bo == o)).valid.cpu()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
@@ -3451,18 +3701,18 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
                     profile_of_one_batch=prof, card_vs_cpu="not taken")
     # the timed sweep's first two canvases against the CPU's eval step on
     # those canvases, with the same weights
-    cpu_model = build_two_stage(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    two = type(triples[0][1])(*(a[:2] for a in triples[0][1]))
+    cpu_model = cpu_twin(model)
+    k = cpu_canvases
+    two = type(triples[0][1])(*(a[:k] for a in triples[0][1]))
     want = _host_dets(make_two_stage_eval_step(cpu_model, cfg.for_orientation(o0),
                                                device="cpu")(two))
-    got = _host_dets(type(timed_first)(*(t[:2] for t in timed_first)))
+    got = _host_dets(type(timed_first)(*(t[:k] for t in timed_first)))
     flips = [{"image": i, "card_valid": int(got.valid[i].sum()),
               "cpu_valid": int(want.valid[i].sum()),
               "first_slot_off": int(np.argmax(~(np.isclose(got.scores[i], want.scores[i],
                                                            rtol=FRCNN_RTOL)
                                                 & (got.labels[i] == want.labels[i]))))}
-             for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+             for i in range(k) if not _dets_agree(got, want, i, FRCNN_RTOL)]
     ties = None
     if flips and named_ties:
         ties = eval_ties(model, cpu_model, cfg.for_orientation(o0), two, want, device,
@@ -3471,7 +3721,7 @@ def frcnn_eval_path(device, family: str = "faster_rcnn", named_ties: bool = Fals
         fail(f"{what} card vs CPU: {flips}")
     return dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
                 detections=n_dets, fixpoints=depths, profile_of_one_batch=prof,
-                card_vs_cpu={"images": 2, "flips": flips, "named_ties": ties,
+                card_vs_cpu={"images": k, "flips": flips, "named_ties": ties,
                              "detections": int(got.valid.sum())})
 
 
@@ -3533,7 +3783,7 @@ def eval_ties(model, cpu_model, cfg, two, want, device, nms_inputs: bool = False
     with mock.patch.object(two_stage, "make_proposal_fn",
                            lambda c, device_loop=False: lambda *a: tuple(pinned)):
         got = _host_dets(two_stage.make_two_stage_eval_step(model, cfg, device=device)(two))
-    off = [i for i in range(2) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+    off = [i for i in range(len(two.valid)) if not _dets_agree(got, want, i, FRCNN_RTOL)]
     nms = None
     if off and nms_inputs:
         nms = nms_input_ties(model, cpu_model, cfg, two, pinned, stage1["cpu"][1], got, device)
@@ -3592,7 +3842,7 @@ def stage1_f64_ties(model, cpu_model, cfg, two, stage1, err: float, device) -> d
                            lambda images: (tuple(outs[:n]), outs[n], outs[n + 1])), \
             mock.patch.object(two_stage.TwoStageEvalStep, "_nms", capture("cpu")):
         replay = _host_dets(two_stage.make_two_stage_eval_step(cpu_model, cfg, device="cpu")(two))
-    off = [i for i in range(2) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
+    off = [i for i in range(len(two.valid)) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
     nms = None
     if off:
         with mock.patch.object(two_stage.TwoStageEvalStep, "_nms", capture("card")):
@@ -3602,7 +3852,7 @@ def stage1_f64_ties(model, cpu_model, cfg, two, stage1, err: float, device) -> d
         box_err = (gb - cb).abs().max().item()
         through = _host_dets(two_stage.TwoStageEvalStep(cpu_model, cfg)._nms(gb, gf))
         if score_err > FRCNN_RTOL or box_err > 1e-3 or any(
-                not _dets_agree(through, got, i, FRCNN_RTOL) for i in range(2)):
+                not _dets_agree(through, got, i, FRCNN_RTOL) for i in range(len(two.valid))):
             fail(f"eval card vs CPU from the card's stage 1: images {off} differ, the NMS "
                  f"inputs by {score_err} of their max and {box_err} px")
         nms = {"score_err_of_max": score_err, "box_err_px": box_err,
@@ -3678,7 +3928,7 @@ def nms_input_ties(model, cpu_model, cfg, two, pinned, cpu_props, got, device) -
              f"their max, boxes {box_err} px")
     step = two_stage.TwoStageEvalStep(cpu_model, cfg)
     replay = _host_dets(step._nms(gb, gf))
-    off = [i for i in range(2) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
+    off = [i for i in range(len(two.valid)) if not _dets_agree(replay, got, i, FRCNN_RTOL)]
     if off:
         fail(f"eval card vs CPU: the card's NMS inputs through the CPU's NMS differ from the "
              f"card's detections on images {off}")
@@ -3687,10 +3937,16 @@ def nms_input_ties(model, cpu_model, cfg, two, pinned, cpu_props, got, device) -
             "detections_card": int(got.valid.sum())}
 
 
+# the two-stage trainers' fixture trees: 8 trainval images, 4 steps at batch 2 in
+# their epoch (the AL phase's tree holds 32), for the script's time limit
+TWO_STAGE_CLI_TRAINVAL = 8
+
+
 def frcnn_cli_path(device, family: str = "faster_rcnn", root: Path = None) -> dict:
     """The trainer's CLI (python -m aod_meh_hua_torch.tools.train_detector,
     in process) with --family at full width for one epoch with eval on a
-    VOC07 tree of the fixture JPEGs (32 trainval, 8 test) under `root`;
+    VOC07 tree of the fixture JPEGs (TWO_STAGE_CLI_TRAINVAL trainval, 8
+    test) under `root`;
     its checkpoint back through init_detector (equal to the CLI's
     model), then, its heads sharpened, a Detector's predict_batch on the
     8 test JPEGs against the eval step's rows on the same canvases; last
@@ -3706,7 +3962,7 @@ def frcnn_cli_path(device, family: str = "faster_rcnn", root: Path = None) -> di
 
     root = root or FRCNN
     shutil.rmtree(root, ignore_errors=True)
-    voc07 = synthetic_voc(root)
+    voc07 = synthetic_voc(root, n_trainval=TWO_STAGE_CLI_TRAINVAL)
     work = root / "work"
     t0 = time.time()
     (model, cfg, metrics), flags = run_cli(train_detector.main, [
@@ -3783,7 +4039,7 @@ def frcnn_path(device, card: str) -> tuple:
 ZOO = REPO / "build" / "chip_smoke_zoo"
 ZOO_SERVE_THR = 0.05    # the tiny heads' scores sit near 1/7: rows above this gate
 ZOO_REQUESTS, ZOO_CLIENTS = 12, 4
-TTA_REPS = 3            # timed TTA calls per family, after one warm-up
+TTA_REPS = 1            # timed TTA calls per family, after one warm-up
 
 
 def zoo_family_path(device, card: str, family: str, with_eval: bool, run: dict = None) -> dict:
@@ -3794,7 +4050,7 @@ def zoo_family_path(device, card: str, family: str, with_eval: bool, run: dict =
     and the timed train steps. Each reading is printed as it comes."""
     import torch
 
-    # the families after Faster R-CNN: 2 + 4 steps, no profiled step or batch,
+    # the families after Faster R-CNN: 2 + TWO_STAGE_STEPS steps, no profiled step or batch,
     # the script's time limit (the fuller readings of earlier runs: PERF.md)
     run = run or {"name": family, "full": {}, "tiny": {},
                   "steps": TRAIN_STEPS if family == "faster_rcnn" else TWO_STAGE_STEPS,
@@ -3821,7 +4077,11 @@ def zoo_family_path(device, card: str, family: str, with_eval: bool, run: dict =
                                       or backbone, over=run["full"], nms_inputs=backbone,
                                       calibrate=calibrate, profile=run.get("profile_eval",
                                                                            profile),
-                                      against_cpu=run.get("eval_against_cpu", True))
+                                      against_cpu=run.get("eval_against_cpu", True),
+                                      pool=run.get("pool"),
+                                      cpu_canvases=2 if name == "faster_rcnn"
+                                      else LATER_CPU_CANVASES,
+                                      first_batches=name != "faster_rcnn")
         out["eval"]["path_s"] = time.time() - t0
         torch.cuda.empty_cache()
         print(f"{name} eval:", json.dumps(out["eval"]), f"[{card}]", flush=True)
@@ -3839,14 +4099,13 @@ def two_stage_tta_path(device) -> dict:
     from aod_meh_hua_torch.api import Detector
     from aod_meh_hua_torch.data.jpeg import imread
     from aod_meh_hua_torch.data.pipeline import PipelineConfig, prepare_sample
-    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 
     img = imread(str(sorted(FIXTURES.glob("*.jpg"))[3]))
     out = {}
     for family in ("faster_rcnn", "cascade_rcnn"):
         cfg = ZOO_FAMILIES[family][0]()
-        model = build_two_stage(cfg, device=device, seed=0)
+        model = seeded_two_stage(cfg, device)
         # the default pipeline: the first scale into the config's canvas
         det = Detector(cfg, model, pipeline=PipelineConfig(
             img_scale=TTA_SCALES[0], canvas=cfg.canvas, device_normalize=True))
@@ -3860,8 +4119,7 @@ def two_stage_tta_path(device) -> dict:
         for _ in range(TTA_REPS):
             got = det.tta(img, scales=TTA_SCALES, flip=True)
         ms = (time.perf_counter() - t0) * 1e3 / TTA_REPS
-        cpu_model = build_two_stage(cfg, device="cpu")
-        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_model = cpu_twin(model)
         want = Detector(cfg, cpu_model, pipeline=det.pipeline).tta(img, scales=TTA_SCALES,
                                                                     flip=True)
         agree = _agree(got, want, FRCNN_RTOL)
@@ -4021,6 +4279,9 @@ BACKBONE_TRAIN_STEPS = 2  # timed steps at batch 2 after the 2 warm-up ones
 # way), so that the stem's gn1.weight update lands 10.7 tolerances off
 # (on an H100; ROADMAP Queue 3)
 GN_NOISE = 20
+# the backbone_type switches' eval pool: one batch of each orientation, where
+# the other families take POOL's 26 canvases (for the script's time limit)
+SWITCH_POOL = {"landscape": BATCH, "portrait": BATCH}
 # each run: its name, family, the full config's overrides, the tiny config's
 # (the card-vs-CPU steps; RegNetX-400MF, the smallest arch, at the tiny canvas)
 BACKBONE_RUNS = tuple(
@@ -4031,6 +4292,7 @@ BACKBONE_RUNS = tuple(
      # the switches' eval is Faster R-CNN's on another backbone, whose
      # modules the tiny steps hold to the CPU's: the phase's time limit
      "eval_against_cpu": family != "faster_rcnn",
+     "pool": SWITCH_POOL if family == "faster_rcnn" else None,
      "noise": GN_NOISE if name == "gn_ws" else 0}
     for name, family, full, tiny in (
         ("pisa_faster_rcnn", "pisa_faster_rcnn", {}, {}),
@@ -4055,8 +4317,8 @@ def backbones_path(device, card: str) -> tuple:
     --family pisa_faster_rcnn (frcnn_cli_path); BACKBONE_EXPORT's eval step
     exported at batch 8 in both orientations by a subprocess while the
     families run, loaded from its archive and held to the eager step,
-    every image bit for bit; PISA's train step on two gloo ranks sharing
-    the card against the one-process step (two_stage_ranks_path). Each
+    every image bit for bit (PISA's train step on two gloo ranks runs in
+    the deploy phase, RANK_FAMILIES). Each
     path's kernel launch counts reset just before it and read just after:
     neither kernel lies on these paths, so each must read 0. Returns
     (result, launches by path)."""
@@ -4082,8 +4344,9 @@ def backbones_path(device, card: str) -> tuple:
     shutil.rmtree(BACKBONES, ignore_errors=True)
 
     def export():
-        reading, _ = exported_against_eager(device, cfg, model, triples, n,
-                                            finish_export_program(proc, BACKBONE_EXPORT))
+        reading, _ = exported_against_eager(
+            device, cfg, model, triples, n,
+            finish_export_program(proc, BACKBONE_EXPORT)["export_s"])
         if reading["images_bit_equal"] != n:
             fail(f"{BACKBONE_EXPORT} export: {reading['images_bit_equal']} of {n} images "
                  "bit-equal to the eager step")
@@ -4094,10 +4357,401 @@ def backbones_path(device, card: str) -> tuple:
           f"[{card}]", flush=True)
     del model
     torch.cuda.empty_cache()
-    counted("pisa_ranks", lambda: two_stage_ranks_path(device, ("pisa_faster_rcnn",)))
-    print("PISA train steps on two ranks:", json.dumps(out["pisa_ranks"]), f"[{card}]",
-          flush=True)
     shutil.rmtree(DEPLOY, ignore_errors=True)
+    out["phase_s"] = time.time() - t0
+    return out, launches
+
+
+# --- the proposal families: RPN-only, Fast R-CNN, Cascade RPN, TridentNet, Grid R-CNN --
+
+PROPOSALS = REPO / "build" / "chip_smoke_proposals"
+# in this order: Fast R-CNN's eval takes the RPN's proposals of the pool
+PROPOSAL_FAMILIES = ("rpn", "fast_rcnn", "cascade_rpn", "tridentnet", "grid_rcnn")
+PROPOSAL_TRAIN_STEPS = 2  # timed steps at batch 2 after the 2 warm-up ones
+# the families whose eval gives proposals, scored by AR@100 (fast_eval_recall)
+RECALL_FAMILIES = ("rpn", "cascade_rpn")
+
+
+def sharpen_classes(model, run) -> None:
+    """Zero the box head's fc_cls bias and background row and scale its
+    weight so that the class logits of one call of `run` (an eval step)
+    have a std of CLS_LOGIT_STD (sharpen_frcnn's rule, read through a
+    hook: TridentNet's head on C4, Grid R-CNN's cls-only one, Fast
+    R-CNN's on given proposals)."""
+    import torch
+
+    fc = model.bbox_head.fc_cls
+    outs = []
+    with torch.no_grad():
+        fc.bias.zero_()
+        fc.weight[-1].zero_()
+        hook = fc.register_forward_hook(lambda m, i, o: outs.append(o))
+        try:
+            run()
+        finally:
+            hook.remove()
+        fc.weight.mul_(CLS_LOGIT_STD / outs[0].std().item())
+
+
+def proposal_eval_path(device, family: str, pool_proposals: dict) -> dict:
+    """The family's eval at full width (seed 0, zero starts drawn, its
+    objectness and class heads sharpened on the first batch) over the 26
+    synthetic canvases at batch 8, both orientations: img/s and peak
+    memory of a sweep that reads the detections per class to the host,
+    after a warm-up sweep; one batch's device time by stage; the first
+    LATER_CPU_CANVASES canvases against the CPU's eval step on them (the
+    same valid slots, labels and sources, boxes and scores to FRCNN_RTOL,
+    any difference traced to near-ties by proposal_eval_ties). RPN-only
+    and Cascade RPN: their proposals' AR@100 against synthetic_gts, and
+    the RPN's proposals of the pool (original coordinates, score-ordered)
+    kept in `pool_proposals` by pool index;
+    Fast R-CNN's eval runs on them (tools/train_detector.py
+    fast_rcnn_proposals: scaled to each canvas, num_proposals slots)."""
+    import torch
+    from aod_meh_hua_torch.engine.eval import detections_to_per_class
+    from aod_meh_hua_torch.engine.rpn_only import make_fast_rcnn_eval_step, proposal_recall
+    from aod_meh_hua_torch.engine.two_stage import make_two_stage_eval_step
+    from aod_meh_hua_torch.tools.train_detector import fast_rcnn_proposals
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    cfg = ZOO_FAMILIES[family][0]()
+    what = f"{family} eval"
+    model = seeded_two_stage(cfg, device)
+    seed_zero_starts(model, seed=0)
+    triples, n = synthetic_pool(cfg)
+    fast = family == "fast_rcnn"
+
+    def make(m, ocfg, dev):
+        if fast:
+            return make_fast_rcnn_eval_step(m, ocfg, dev)
+        return make_two_stage_eval_step(m, ocfg, device=dev)
+
+    def args(batch, host, idx):
+        """The step's arguments: the batch, and for Fast R-CNN the pool's
+        proposals of its images (from the host batch's scale factors)."""
+        if not fast:
+            return (batch,)
+        props, valid = fast_rcnn_proposals(pool_proposals, host, idx, cfg.num_proposals)
+        return batch, torch.from_numpy(props).to(device), torch.from_numpy(valid).to(device)
+
+    steps = {o: make(model, cfg.for_orientation(o), device) for o in ("landscape", "portrait")}
+    batches = [(o, upload(b, device), b, idx) for o, b, idx in triples]
+    o0, b0, h0, i0 = batches[0]
+    if family == "tridentnet":  # as its training (calibrate_frozen_bn)
+        calibrate_frozen_bn(model, cfg.for_orientation(o0), b0.images, b0.img_shapes)
+    if objectness_conv(model) is not None:
+        sharpen_frcnn(model, cfg.for_orientation(o0), b0.images, b0.img_shapes, classes=False)
+    if family not in RECALL_FAMILIES:
+        sharpen_classes(model, lambda: steps[o0](*args(b0, h0, i0)))
+    nc = cfg.num_fg_classes
+
+    def sweep():
+        rows, outs = [], []
+        for o, b, h, idx in batches:
+            outs.append(steps[o](*args(b, h, idx)))
+            rows += detections_to_per_class(outs[-1], nc, batch_valid=b.valid)
+        return rows, outs[0]
+
+    for o in ("landscape", "portrait"):  # warm-up: one batch of each canvas
+        steps[o](*args(*next(x[1:] for x in batches if x[0] == o))).valid.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    rows, timed_first = sweep()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    if len(rows) != n or not all(np.isfinite(a).all() for r in rows for a in r):
+        fail(f"{what}: {len(rows)} images of {n}, or a detection not finite")
+    n_dets = sum(len(a) for r in rows for a in r)
+    if n_dets == 0:
+        fail(f"{what}: no detection in the pool")
+    prof = profile_stages(lambda: steps[o0](*args(b0, h0, i0)).valid.cpu(), FRCNN_GROUPS)
+    out = dict(batch=BATCH, images=n, sweep_s=wall, img_per_s=n / wall, peak_mem_bytes=peak,
+               detections=n_dets, profile_of_one_batch=prof)
+    if family in RECALL_FAMILIES:
+        anns = synthetic_gts(triples, 1)
+        ar = proposal_recall([r[0][:, :4] for r in rows], [np.ones(len(r[0]), bool) for r in rows],
+                             [a["bboxes"] for a in anns])
+        if not 0.0 <= ar <= 1.0:
+            fail(f"{what}: AR@100 {ar}")
+        out["AR@100_synthetic_gt"] = ar
+        if family == "rpn":
+            order = [i for _, _, idx in triples for i in idx]
+            pool_proposals.update({str(int(i)): r[0] for i, r in zip(order, rows)})
+    # the timed sweep's first two canvases against the CPU's eval step on them
+    cpu_model = cpu_twin(model)
+    k = LATER_CPU_CANVASES
+    two = type(triples[0][1])(*(a[:k] for a in triples[0][1]))
+    cpu_args = (two,) if not fast else (two,) + fast_rcnn_proposals(
+        pool_proposals, two, i0[:k], cfg.num_proposals)
+    rec = {}  # the CPU's proposals and NMS inputs, for proposal_eval_ties
+    with recording(rec, "cpu"):
+        want = _host_dets(make(cpu_model, cfg.for_orientation(o0), "cpu")(*cpu_args))
+    got = _host_dets(type(timed_first)(*(t[:k] for t in timed_first)))
+    ties = None
+    if family in RECALL_FAMILIES:
+        # proposals as sets: their slots follow the scores, whose near-ties
+        # (about 1e-7 apart) trade places between the devices
+        flips = proposals_agree(got, want, cfg.rpn.nms_iou_thr)
+        if flips:
+            fail(f"{what} card vs CPU: {flips}")
+    else:
+        flips = [i for i in range(k) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+        if flips:
+            ties = proposal_eval_ties(model, cpu_model, cfg.for_orientation(o0), make, rec,
+                                      args(upload(two, device), two, i0[:k]), want, device)
+    out["card_vs_cpu"] = {"images": k, "flips": flips, "ties": ties,
+                          "detections": int(got.valid.sum())}
+    return out
+
+
+@contextlib.contextmanager
+def recording(rec: dict, name: str, pinned=None):
+    """Within the block, every two-stage eval step records into `rec` its
+    RPN's outputs (name.rpn), its proposals (name.props) and its
+    detection NMS's inputs and output (name); with `pinned`, proposals,
+    the step takes those in place of its own."""
+    from aod_meh_hua_torch.engine import two_stage
+
+    real_nms, real_props = two_stage.TwoStageEvalStep._nms, two_stage.make_proposal_fn
+
+    def nms(self, boxes, fg):
+        res = real_nms(self, boxes, fg)
+        rec[name] = (boxes.detach().cpu(), fg.detach().cpu(), _host_dets(res))
+        return res
+
+    def make_fn(c, device_loop=False):
+        fn = real_props(c, device_loop)
+
+        def run(*a):
+            res = tuple(t.detach() for t in fn(*a))
+            rec[name + ".rpn"] = [t.detach().cpu() for t in a[:2]]
+            rec[name + ".props"] = [t.cpu() for t in res]
+            return res if pinned is None else tuple(t.to(res[0].device) for t in pinned)
+        return run
+
+    with mock.patch.object(two_stage, "make_proposal_fn", make_fn), \
+            mock.patch.object(two_stage.TwoStageEvalStep, "_nms", nms):
+        yield rec
+
+
+def proposal_eval_ties(model, cpu_model, cfg, make, rec, card_args, want, device) -> dict:
+    """Where a family's detections on the compared canvases (TridentNet's, Grid
+    R-CNN's, Fast R-CNN's) differ from the CPU's (`want`), the stage that
+    parts them, as eval_ties and nms_input_ties trace Faster R-CNN's:
+    every proposal that the card keeps and the CPU not, or the other way
+    round, decided at the NMS threshold (TIE_THR_ATOL) or the twin of one
+    the other device keeps, once the RPN's outputs agree within
+    FRCNN_RTOL of their max-abs: its score within FRCNN_RTOL and its box
+    at IoU TIE_IOU or within FRCNN_RTOL of its largest coordinate plus
+    1e-3 px (a random C4 trunk's proposals part by 1e-5 of their scores
+    and 2-6e-3 px, beyond proposal_flips' 1e-3 px, on an H100); from the
+    CPU's proposals, the detection
+    NMS's inputs within FRCNN_RTOL of the scores' max-abs and 1e-3 px, and
+    the card's inputs through the NMS on the CPU giving the card's NMS
+    output; for Grid R-CNN, whose boxes the grid then refines, each box
+    that still differs named with its heatmap's argmax near-tie. Fails
+    otherwise. `rec`: the CPU's run, recorded (recording)."""
+    import torch
+    from aod_meh_hua_torch.engine import two_stage
+    from aod_meh_hua_torch.ops.bbox import bbox_overlaps
+
+    for name, pin in (("card_own", None), ("card", rec.get("cpu.props"))):
+        with recording(rec, name, pin), torch.no_grad():
+            rec[name + ".out"] = _host_dets(make(model, cfg, device)(*card_args))
+    out = {}
+    if "cpu.props" in rec:
+        err = max(((g - c).abs().max() / c.abs().max().clamp(min=1e-30)).item()
+                  for c, g in zip(rec["cpu.rpn"], rec["card_own.rpn"]))
+        out["rpn_err_of_max"] = err
+        if err > FRCNN_RTOL:
+            fail(f"{cfg.family} eval card vs CPU: the RPN's outputs differ by {err} of their max")
+        flips = proposal_flips(rec["card_own.props"], rec["cpu.props"], cfg.rpn.nms_iou_thr)
+        untied = []
+        for f in flips:
+            box = np.asarray(f["box"])
+
+            def twin(g):
+                other = np.asarray(g["box"])
+                return (g["image"] == f["image"] and g["which"] != f["which"]
+                        and abs(g["score"] - f["score"]) <= FRCNN_RTOL * abs(f["score"])
+                        and (bbox_overlaps(torch.tensor([f["box"]]), torch.tensor([g["box"]]))
+                             .item() >= TIE_IOU
+                             or np.abs(other - box).max() <= FRCNN_RTOL * np.abs(box).max()
+                             + 1e-3))
+
+            twins = [g for g in flips if twin(g)]
+            if not twins and abs(f["max_iou_with_a_higher_one"] - f["iou_thr"]) > TIE_THR_ATOL:
+                untied.append(f)
+        if untied:
+            fail(f"{cfg.family} eval card vs CPU: proposals differ beyond near-ties: {untied}")
+        out["proposal_flips"] = flips
+    got = rec["card.out"]
+    n = got.valid.shape[0]
+    off = [i for i in range(n) if not _dets_agree(got, want, i, FRCNN_RTOL)]
+    out["from_cpu_proposals"] = "agree" if not off else f"images {off} differ"
+    if not off:
+        return out
+    (cb, cf, cres), (gb, gf, gres) = rec["cpu"], rec["card"]
+    score_err = ((gf - cf).abs().max() / cf.abs().max().clamp(min=1e-30)).item()
+    box_err = (gb - cb).abs().max().item()
+    replay = _host_dets(two_stage.TwoStageEvalStep(cpu_model, cfg)._nms(gb, gf))
+    replay_off = [i for i in range(n) if not _dets_agree(replay, gres, i, FRCNN_RTOL)]
+    out.update(nms_score_err_of_max=score_err, nms_box_err_px=box_err,
+               card_inputs_through_cpu_nms="the card's NMS output" if not replay_off
+               else f"images {replay_off} differ")
+    if score_err > FRCNN_RTOL or box_err > 1e-3 or replay_off:
+        fail(f"{cfg.family} eval card vs CPU: {out}")
+    if cfg.family == "grid_rcnn":
+        out["grid_refine"] = grid_refine_ties(got, want, gres, cres)
+    return out
+
+
+def grid_refine_ties(got, want, card_nms, cpu_nms) -> dict:
+    """Grid R-CNN's refined boxes where the NMS outputs agree: the same
+    valid slots, labels and scores, and each box that differs beyond
+    FRCNN_RTOL named (the grid heatmaps' argmax near-ties move a point by
+    a heatmap cell, 1 / 28 of its expanded box). Fails when the NMS outputs
+    differ, or a box moves by more than a cell's width of its box."""
+    off = []
+    for i in range(got.valid.shape[0]):
+        if not _dets_agree(card_nms, cpu_nms, i, FRCNN_RTOL):
+            fail(f"grid_rcnn eval card vs CPU: image {i}'s NMS outputs differ")
+        v = got.valid[i]
+        if not (np.array_equal(v, want.valid[i]) and np.array_equal(got.labels[i], want.labels[i])
+                and np.allclose(got.scores[i], want.scores[i], rtol=FRCNN_RTOL, atol=0)):
+            fail(f"grid_rcnn eval card vs CPU: image {i}'s slots, labels or scores differ")
+        gb, wb, nb = got.boxes[i][v], want.boxes[i][v], card_nms.boxes[i][v]
+        cell = 2.0 * np.maximum(nb[:, 2] - nb[:, 0], nb[:, 3] - nb[:, 1]) / 28.0
+        for j in np.nonzero(~np.isclose(gb, wb, rtol=FRCNN_RTOL, atol=1e-3).all(1))[0]:
+            moved = float(np.abs(gb[j] - wb[j]).max())
+            if moved > cell[j]:
+                fail(f"grid_rcnn eval card vs CPU: box {j} of image {i} moved {moved} px, "
+                     f"beyond a heatmap cell ({cell[j]} px)")
+            off.append({"image": i, "slot": int(j), "moved_px": moved, "cell_px": float(cell[j])})
+    return {"boxes_moved_by_a_cell_or_less": off}
+
+
+def proposals_agree(got, want, iou_thr: float) -> list:
+    """Two devices' proposals of the same images (host ProposalResults) as
+    sets: every proposal one keeps and the other not (proposal_flips,
+    boxes within 1e-3 px), and every kept one whose twin's score is not
+    within FRCNN_RTOL; [] when they agree."""
+    import torch
+
+    out = proposal_flips([torch.from_numpy(a) for a in (got.boxes, got.scores, got.valid)],
+                         [torch.from_numpy(a) for a in (want.boxes, want.scores, want.valid)],
+                         iou_thr)
+    for i in range(got.boxes.shape[0]):
+        gb, gs = got.boxes[i][got.valid[i]], got.scores[i][got.valid[i]]
+        wb, ws = want.boxes[i][want.valid[i]], want.scores[i][want.valid[i]]
+        close = np.abs(gb[:, None, :] - wb[None, :, :]).max(-1) <= 1e-3
+        for j in np.nonzero(close.any(1))[0]:
+            twin = ws[close[j]]
+            if not np.isclose(twin, gs[j], rtol=FRCNN_RTOL, atol=0).any():
+                out.append({"image": i, "score_off": [float(gs[j]), twin.tolist()]})
+    return out
+
+
+def proposal_family_path(device, card: str, family: str, pool_proposals: dict) -> dict:
+    """One proposal family at full width: training (frcnn_train_path, 2 +
+    PROPOSAL_TRAIN_STEPS steps at batch 2, no profiled step), its tiny
+    config's steps on the card against the CPU, each from the CPU's
+    state (frcnn_card_vs_cpu), and its eval (proposal_eval_path). Each
+    reading is printed as it comes."""
+    import torch
+
+    out = {}
+    for name, fn in (
+            ("train", lambda: frcnn_train_path(device, family, None, PROPOSAL_TRAIN_STEPS,
+                                               calibrate=family == "tridentnet",
+                                               profile=False)),
+            ("card_vs_cpu", lambda: frcnn_card_vs_cpu(device, family, from_cpu_state=True)),
+            ("eval", lambda: proposal_eval_path(device, family, pool_proposals))):
+        t0 = time.time()
+        out[name] = fn()
+        out[name]["path_s"] = time.time() - t0
+        torch.cuda.empty_cache()
+        print(f"{family} {name}:", json.dumps(out[name]), f"[{card}]", flush=True)
+    return out
+
+
+def proposal_cli_path(device, root: Path) -> dict:
+    """The RPN -> gen_proposals -> Fast R-CNN workflow through the port's
+    CLIs, in process, at full width on a VOC07 tree of the fixture JPEGs
+    (TWO_STAGE_CLI_TRAINVAL trainval, 8 test) under `root`: train_detector --family rpn for
+    one epoch (its eval AR@100), gen_proposals from its checkpoint for
+    each split, train_detector --family fast_rcnn --proposal-file
+    --proposal-file-val for one epoch; each CLI must pin the numerics."""
+    from aod_meh_hua_torch.tools import gen_proposals, train_detector
+
+    shutil.rmtree(root, ignore_errors=True)
+    voc07 = synthetic_voc(root, n_trainval=TWO_STAGE_CLI_TRAINVAL)
+    work = root / "work"
+    out = {}
+    t0 = time.time()
+    (_, _, rpn_metrics), _ = run_cli(train_detector.main, [
+        "--family", "rpn", "--voc07", str(voc07), "--work-dir", str(work / "rpn"),
+        "--epochs", "1"])
+    out["rpn_cli_s"] = time.time() - t0
+    row = rpn_metrics[-1]
+    if not (np.isfinite(row["loss"]) and 0.0 <= row.get("AR@100", -1) <= 1.0):
+        fail(f"train_detector --family rpn: {rpn_metrics}")
+    files = {}
+    for split, n in (("trainval", TWO_STAGE_CLI_TRAINVAL), ("test", AL_TEST)):
+        files[split] = str(work / f"{split}.npz")
+        t0 = time.time()
+        props, _ = run_cli(gen_proposals.main, [
+            "--voc07", str(voc07), "--checkpoint", str(work / "rpn" / "rpn_final.ckpt"),
+            "--split", f"ImageSets/Main/{split}.txt", "--out", files[split]])
+        out[f"gen_proposals_{split}_s"] = time.time() - t0
+        counts = [len(v) for v in props.values()]
+        if (sorted(props, key=int) != [str(i) for i in range(n)] or min(counts) == 0
+                or not all(np.isfinite(v).all() and (np.diff(v[:, 4]) <= 0).all()
+                           for v in props.values())):
+            fail(f"gen_proposals {split}: {len(props)} images, counts {counts}")
+        out[f"proposals_per_image_{split}"] = [min(counts), float(np.mean(counts)), max(counts)]
+    t0 = time.time()
+    (_, _, fast_metrics), _ = run_cli(train_detector.main, [
+        "--family", "fast_rcnn", "--voc07", str(voc07), "--work-dir", str(work / "fast"),
+        "--epochs", "1", "--proposal-file", files["trainval"],
+        "--proposal-file-val", files["test"]])
+    out["fast_rcnn_cli_s"] = time.time() - t0
+    if not (np.isfinite(fast_metrics[-1]["loss"]) and "mAP" in fast_metrics[-1]):
+        fail(f"train_detector --family fast_rcnn: {fast_metrics}")
+    out.update(rpn_metrics=rpn_metrics, fast_rcnn_metrics=fast_metrics)
+    return out
+
+
+def proposals_path(device, card: str) -> tuple:
+    """The phase of the proposal families: RPN-only, Fast R-CNN, Cascade
+    RPN, TridentNet and Grid R-CNN at full width (608 x 1024) through
+    proposal_family_path (training, the tiny steps on the card against the
+    CPU, the eval over the 26 canvases, Fast R-CNN's on the RPN's
+    proposals); the RPN -> gen_proposals -> Fast R-CNN workflow through
+    the CLIs (proposal_cli_path); the trainer's CLI with --family
+    grid_rcnn, its Detector and the FPS tool (frcnn_cli_path). No export
+    on the card (the tiny exports are CPU tests). Each path's kernel
+    launch counts reset just before it and read just after: neither
+    kernel lies on these paths, so each must read 0. Returns (result,
+    launches by path)."""
+    t0 = time.time()
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        count_path(out, launches, name, fn)
+
+    pool_proposals = {}
+    for family in PROPOSAL_FAMILIES:
+        counted(family, lambda family=family: proposal_family_path(device, card, family,
+                                                                   pool_proposals))
+    counted("proposal_cli", lambda: proposal_cli_path(device, PROPOSALS / "cli"))
+    print("train_detector --family rpn, gen_proposals, train_detector --family fast_rcnn:",
+          json.dumps(out["proposal_cli"]), f"[{card}]", flush=True)
+    counted("grid_rcnn_cli", lambda: frcnn_cli_path(device, "grid_rcnn", PROPOSALS / "grid"))
+    print("train_detector --family grid_rcnn, Detector and FPS tool:",
+          json.dumps(out["grid_rcnn_cli"]), f"[{card}]", flush=True)
+    shutil.rmtree(PROPOSALS, ignore_errors=True)
     out["phase_s"] = time.time() - t0
     return out, launches
 
@@ -4105,7 +4759,9 @@ def backbones_path(device, card: str) -> tuple:
 # --- the two-stage families' export, archive server and train step across ranks -----
 
 DEPLOY = REPO / "build" / "chip_smoke_two_stage_deploy"
-RANK_FAMILIES = ("faster_rcnn", "double_head_rcnn")  # their train steps on two ranks
+# their train steps on two ranks, in one group of rank subprocesses (each group took
+# about 25 s to start on the card's host)
+RANK_FAMILIES = ("faster_rcnn", "double_head_rcnn", "pisa_faster_rcnn")
 RANK_TIMED = 3  # timed steps per rank after the DIST_STEPS compared ones
 TWO_STAGE_REQUESTS = 16  # to the two-stage archive's server: two batches of the fixtures
 
@@ -4114,64 +4770,69 @@ def sharpened_two_stage(device, family: str):
     """The family's full-width config and model (seed 0, its heads
     sharpened on the first synthetic batch, as frcnn_eval_path), and the
     synthetic pool: (cfg, model, triples, n)."""
-    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
 
     cfg = ZOO_FAMILIES[family][0]()
-    model = build_two_stage(cfg, device=device, seed=0)
+    model = seeded_two_stage(cfg, device)
     triples, n = synthetic_pool(cfg)
     first = upload(triples[0][1], device)
     sharpen_frcnn(model, cfg.for_orientation(triples[0][0]), first.images, first.img_shapes)
     return cfg, model, triples, n
 
 
-def export_both_orientations(cfg, model) -> float:
+def export_both_orientations(cfg, model, root: Path) -> dict:
     """The model's eval step exported at batch 8 in both orientations and
-    saved under DEPLOY: the seconds it took."""
+    saved under `root` (family_orientation.pt2): the seconds it took and
+    each program's fused operator nodes."""
     from aod_meh_hua_torch.tools.deployment import export_model
 
     t0 = time.time()
+    nodes = {}
     for o in ("landscape", "portrait"):
-        export_model.save_program(export_model.export_eval_step(cfg.for_orientation(o), model,
-                                                                BATCH),
-                                  str(DEPLOY / f"{cfg.family}_{o}.pt2"))
-    return time.time() - t0
+        program = export_model.export_eval_step(cfg.for_orientation(o), model, BATCH)
+        nodes[o] = export_model.fused_nodes(program)
+        export_model.save_program(program, str(root / f"{cfg.family}_{o}.pt2"))
+    return {"export_s": time.time() - t0, "fused_nodes": nodes}
 
 
 def export_program(spec: dict) -> dict:
     """Subprocess program: export_both_orientations of the family's
-    full-width model with the weights of spec's file (tracing is host
-    work: two families trace at once)."""
+    full-width model (RetinaNet's with fused_blocks on) with the weights of
+    spec's file. Tracing is host work: it runs beside the main process's
+    phases, two families at once in the deploy phase."""
     import torch
+    from aod_meh_hua_torch.models.detector import build_retinanet
     from aod_meh_hua_torch.models.two_stage import build_two_stage
-    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, RetinaNetConfig
 
-    cfg = ZOO_FAMILIES[spec["family"]][0]()
-    model = build_two_stage(cfg, device="cuda", seed=0)
+    if spec["family"] == "retinanet":
+        cfg = RetinaNetConfig(fused_blocks=True)
+        model = build_retinanet(cfg, device="cuda")
+    else:
+        cfg = ZOO_FAMILIES[spec["family"]][0]()
+        model = build_two_stage(cfg, device="cuda")
     model.load_state_dict(torch.load(spec["weights"], map_location="cuda"))
-    return {"export_s": export_both_orientations(cfg, model)}
+    return export_both_orientations(cfg, model, Path(spec["root"]))
 
 
-def start_export_program(family: str, model):
+def start_export_program(family: str, model, root: Path = DEPLOY):
     """export_program for `model` in a subprocess of this script
-    (--rank-program export, its log under DEPLOY): the process."""
+    (--rank-program export, its log, result and programs under `root`):
+    the process."""
     import torch
 
-    DIST.mkdir(parents=True, exist_ok=True)
-    weights = DEPLOY / f"{family}_weights.pt"
+    weights = root / f"{family}_weights.pt"
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, weights)
-    spec = DEPLOY / f"{family}_export.json"
-    spec.write_text(json.dumps({"family": family, "weights": str(weights)}))
-    with open(DEPLOY / f"{family}_export.log", "w") as log:
-        return subprocess.Popen([sys.executable, "-u", "-X", "faulthandler",
-                                 str(REPO / "chip_smoke.py"), "--rank-program", "export",
-                                 str(spec)], env=dict(os.environ, RANK="0"), stdout=log,
-                                stderr=subprocess.STDOUT, cwd=str(REPO))
+    spec = root / f"{family}_export.json"
+    spec.write_text(json.dumps({"family": family, "weights": str(weights), "root": str(root),
+                                "result": str(root / f"{family}_export.result.json")}))
+    with open(root / f"{family}_export.log", "w") as log:
+        return spawn(["--rank-program", "export", str(spec)], dict(os.environ, RANK="0"), log)
 
 
-def finish_export_program(proc, family: str) -> float:
+def finish_export_program(proc, family: str, root: Path = DEPLOY) -> dict:
     """Wait for start_export_program's process (DIST_WALL_S at most): its
-    export seconds."""
+    result (export_both_orientations')."""
     try:
         proc.wait(timeout=DIST_WALL_S)
     except subprocess.TimeoutExpired:
@@ -4179,8 +4840,8 @@ def finish_export_program(proc, family: str) -> float:
         proc.wait(30)
     if proc.returncode != 0:
         fail(f"{family} export subprocess: exit code {proc.returncode}; log tail "
-             f"{(DEPLOY / f'{family}_export.log').read_text()[-3000:]}")
-    return json.loads((DIST / "export_r0.result.json").read_text())["export_s"]
+             f"{(root / f'{family}_export.log').read_text()[-3000:]}")
+    return json.loads((root / f"{family}_export.result.json").read_text())
 
 
 def exported_against_eager(device, cfg, model, triples, n: int, export_s: float):
@@ -4480,16 +5141,15 @@ def two_stage_ranks_path(device, families=RANK_FAMILIES) -> dict:
     equal. No kernel launch on either rank; ms per step per rank. Every
     reading is made before a failure is raised."""
     import torch
-    from aod_meh_hua_torch.models.two_stage import build_two_stage
     from aod_meh_hua_torch.utils.config import ZOO_FAMILIES, TrainConfig
 
-    DIST.mkdir(parents=True, exist_ok=True)
+    started = start_rank_programs("two_stage_steps")  # they start while the plain steps run
     tb = TrainConfig().batch_size
     spec, plain = {"families": list(families)}, {}
     for family in families:
         lcfg, batch = synthetic_train_batch(ZOO_FAMILIES[family][0](), "landscape", tb,
                                             DIST_BATCH_SEED)
-        model = build_two_stage(lcfg, device=device, seed=0)
+        model = seeded_two_stage(lcfg, device)
         sharpen_frcnn(model, lcfg, torch.from_numpy(batch.images).to(device),
                       torch.from_numpy(batch.img_shapes).to(device), classes=False)
         init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
@@ -4501,7 +5161,7 @@ def two_stage_ranks_path(device, families=RANK_FAMILIES) -> dict:
         del model
         torch.cuda.empty_cache()
     t0 = time.time()
-    ranks = run_rank_programs("two_stage_steps", spec)
+    ranks = run_rank_programs(started, spec)
     ranks_s = time.time() - t0
     if [(r["rank"], r["backend"], r["device"]) for r in ranks] != \
             [(i, "gloo", str(device)) for i in range(DIST_RANKS)]:
@@ -4566,33 +5226,46 @@ def errs_of_scale_max(runs: list, want: dict) -> dict:
     return out
 
 
-def two_stage_deploy_path(device, card: str) -> tuple:
-    """The phase of the two-stage families' export, archive server and
-    train step across ranks, each path's kernel launch counts reset just
-    before it and read just after: neither kernel lies on these paths, so
-    each must read 0. Returns (result, launches by path)."""
-    import torch
+EXPORT_FAMILIES = ("faster_rcnn", "cascade_rcnn")  # exported at full width, deploy phase
 
+
+def start_two_stage_exports(device) -> dict:
+    """EXPORT_FAMILIES' sharpened full-width models (sharpened_two_stage),
+    each exported by a subprocess of its own (start_export_program), started
+    before the Faster R-CNN phase so that the tracing, host work, runs
+    beside it and the zoo phase: family -> (cfg, model, triples, n,
+    process)."""
     shutil.rmtree(DEPLOY, ignore_errors=True)
     DEPLOY.mkdir(parents=True)
+    started = {}
+    for family in EXPORT_FAMILIES:
+        cfg, model, triples, n = sharpened_two_stage(device, family)
+        started[family] = (cfg, model, triples, n, start_export_program(family, model))
+    return started
+
+
+def two_stage_deploy_path(device, card: str, started: dict) -> tuple:
+    """The phase of the two-stage families' export (the programs of
+    start_two_stage_exports), archive server and train step across ranks,
+    each path's kernel launch counts reset just before it and read just
+    after: neither kernel lies on these paths, so each must read 0.
+    Returns (result, launches by path)."""
+    import torch
+
     t0 = time.time()
     out, launches = {}, {}
 
     def counted(name, fn):
         count_path(out, launches, name, fn)
 
-    # the Faster R-CNN programs trace in a subprocess while this process
-    # traces the cascade's
-    built = {f: sharpened_two_stage(device, f) for f in ("faster_rcnn", "cascade_rcnn")}
-    faster = start_export_program("faster_rcnn", built["faster_rcnn"][1])
+    built = {f: v[:4] for f, v in started.items()}
     detectors = {}
 
     def export(family):
         cfg, model, triples, n = built[family]
-        export_s = (export_both_orientations(cfg, model) if family == "cascade_rcnn"
-                    else finish_export_program(faster, family))
-        reading, detectors[family] = exported_against_eager(device, cfg, model, triples, n,
-                                                           export_s)
+        reading, detectors[family] = exported_against_eager(
+            device, cfg, model, triples, n,
+            finish_export_program(started[family][4], family)["export_s"])
         return reading
 
     for family in ("cascade_rcnn", "faster_rcnn"):
@@ -4604,6 +5277,7 @@ def two_stage_deploy_path(device, card: str) -> tuple:
     print("serve --archive (cascade_rcnn):", json.dumps(out["two_stage_serve_archive"]),
           f"[{card}]", flush=True)
     del built
+    started.clear()
     torch.cuda.empty_cache()
     counted("two_stage_ranks", lambda: two_stage_ranks_path(device))
     print("two-stage train steps on two ranks:", json.dumps(out["two_stage_ranks"]),
@@ -4845,16 +5519,18 @@ def rank_triples(triples, rank: int, world: int, b: int = BATCH):
     return out
 
 
-def run_rank_programs(program: str, spec: dict) -> list:
+def start_rank_programs(program: str) -> tuple:
     """`program` in DIST_RANKS subprocesses of this script (--rank-program),
     with torchrun's variables, every rank on cuda:0 (LOCAL_RANK 0, as two
-    hosts of one card each) over gloo; their JSON results in rank order.
-    Fails when a rank fails or outlives DIST_WALL_S (then it is killed)."""
+    hosts of one card each) over gloo, started before their spec exists:
+    each imports the port and reaches the card, then waits for the spec
+    (rank_main), so that the main process makes it meanwhile. Returns
+    (program, processes, logs) for run_rank_programs."""
     from aod_meh_hua_torch.parallel.launch import free_port
 
     DIST.mkdir(parents=True, exist_ok=True)
     spec_path = DIST / f"{program}.json"
-    spec_path.write_text(json.dumps(spec))
+    spec_path.unlink(missing_ok=True)
     port = free_port()
     procs, logs = [], []
     for r in range(DIST_RANKS):
@@ -4862,11 +5538,19 @@ def run_rank_programs(program: str, spec: dict) -> list:
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         log = open(DIST / f"{program}_r{r}.log", "w")
         logs.append(log)
-        procs.append(subprocess.Popen([sys.executable, "-u", "-X", "faulthandler",
-                                       str(REPO / "chip_smoke.py"),
-                                       "--rank-program", program, str(spec_path)],
-                                      env=env, stdout=log, stderr=subprocess.STDOUT,
-                                      cwd=str(REPO)))
+        procs.append(spawn(["--rank-program", program, str(spec_path)], env, log))
+    return program, procs, logs
+
+
+def run_rank_programs(started: tuple, spec: dict) -> list:
+    """start_rank_programs' processes given `spec`: their JSON results in
+    rank order. Fails when a rank fails or outlives DIST_WALL_S after its
+    spec (then it is killed)."""
+    program, procs, logs = started
+    spec_path = DIST / f"{program}.json"
+    tmp = spec_path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(spec))
+    os.replace(tmp, spec_path)  # whole, or not yet, to the waiting ranks
     deadline = time.time() + DIST_WALL_S
     try:
         for p in procs:
@@ -5015,8 +5699,9 @@ RANK_PROGRAMS = {"train_and_sweep": rank_train_and_sweep, "al_cli": rank_al_cli,
 
 def rank_main(argv) -> int:
     """`chip_smoke.py --rank-program NAME SPEC`: one rank of a distributed
-    phase (run_rank_programs starts them), or the deploy phase's export
-    program (start_export_program); writes its result under DIST."""
+    phase (start_rank_programs starts them; it waits for SPEC), or an
+    export program (start_export_program); writes its result under DIST,
+    or to the spec's "result" file."""
     import torch
 
     from aod_meh_hua_torch.kernels.build import build_all
@@ -5025,10 +5710,28 @@ def rank_main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     build_all()  # the main process built them: this loads the libraries
-    result = RANK_PROGRAMS[name](json.loads(Path(spec_path).read_text()))
+    # reach the card and import the programs' modules while the spec is made
+    torch.zeros(1, device="cuda")
+    import aod_meh_hua_torch.engine.two_stage  # noqa: F401
+    import aod_meh_hua_torch.parallel  # noqa: F401
+    import aod_meh_hua_torch.tools.train_retinanet  # noqa: F401
+    spec = wait_for_spec(Path(spec_path))
+    result = RANK_PROGRAMS[name](spec)
     rank = int(os.environ["RANK"])
-    (DIST / f"{name}_r{rank}.result.json").write_text(json.dumps(result))
+    Path(spec.get("result", DIST / f"{name}_r{rank}.result.json")).write_text(json.dumps(result))
     return 0
+
+
+def wait_for_spec(path: Path) -> dict:
+    """A rank's spec, once the main process has written it
+    (run_rank_programs); exits when the main process has gone or past
+    DIST_WALL_S."""
+    deadline = time.time() + DIST_WALL_S
+    while not path.exists():
+        if os.getppid() != int(os.environ["CHIP_SMOKE_PID"]) or time.time() > deadline:
+            raise SystemExit(f"chip_smoke rank: no spec at {path}, or the main process is gone")
+        time.sleep(0.05)
+    return json.loads(path.read_text())
 
 
 def acquisition_flips(single: np.ndarray, ranks: np.ndarray, x_l0: np.ndarray,
@@ -5061,6 +5764,8 @@ def distributed_path(device, card: str, score_sd: dict, unc_single: np.ndarray,
     shutil.rmtree(DIST, ignore_errors=True)
     DIST.mkdir(parents=True)
     t0 = time.time()
+    # both groups of ranks start while NCCL at world 1 runs, and wait for their specs
+    started = {p: start_rank_programs(p) for p in ("train_and_sweep", "al_cli")}
     world1, init, plain, spread, one_image = nccl_world1_path(device)
     print("NCCL world 1:", json.dumps(world1), f"[{card}]", flush=True)
     from_zero = {k for k, v in init.items() if v.is_floating_point() and not v.any()}
@@ -5071,8 +5776,9 @@ def distributed_path(device, card: str, score_sd: dict, unc_single: np.ndarray,
     torch.cuda.empty_cache()
 
     t1 = time.time()
-    ranks = run_rank_programs("train_and_sweep", {"train_init": str(DIST / "train_init.pt"),
-                                                  "score_model": str(DIST / "score_model.pt")})
+    ranks = run_rank_programs(started["train_and_sweep"],
+                              {"train_init": str(DIST / "train_init.pt"),
+                               "score_model": str(DIST / "score_model.pt")})
     ranks_s = time.time() - t1
     if [(r["rank"], r["backend"], r["device"]) for r in ranks] != \
             [(i, "gloo", "cuda:0") for i in range(DIST_RANKS)]:
@@ -5143,7 +5849,7 @@ def distributed_path(device, card: str, score_sd: dict, unc_single: np.ndarray,
     argv = ["--voc07", str(voc07), "--work-dir", str(work), "--cycles", "2",
             "--ckpt-interval", "1", "--score-batch-size", "8", "--zero-rate", "0.15"]
     t1 = time.time()
-    cli = run_rank_programs("al_cli", {"argv": argv})
+    cli = run_rank_programs(started["al_cli"], {"argv": argv})
     cli_s = time.time() - t1
     if [(c["rank"], c["world"]) for c in cli] != [(i, DIST_RANKS) for i in range(DIST_RANKS)]:
         fail(f"2-rank AL CLI: ranks {[(c['rank'], c['world']) for c in cli]}")
@@ -5190,7 +5896,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-program"]:
         return rank_main(sys.argv[2:])
     t_script = time.time()
-    from aod_meh_hua_torch.kernels.build import build_all
+    atexit.register(kill_children)  # a failed check leaves no subprocess behind
+    from aod_meh_hua_torch.kernels.build import finish_build, start_build
     from aod_meh_hua_torch.utils.config import RetinaNetConfig
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5199,8 +5906,24 @@ def main() -> int:
     card = card_line()
     print(f"card: {card} (TF32 off for every comparison)", flush=True)
     t0 = time.time()
-    build_all()
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    building = start_build()
+    # the SSD paths, on which no hand-written kernel lies, run while nvcc builds
+    reset_launches()
+    ssd_train = ssd_train_path(device)
+    ssd_train_launches = read_launches()
+    if any(ssd_train_launches.values()):
+        fail(f"SSD training: a hand-written kernel launched: {ssd_train_launches}")
+    print("SSD training path:", json.dumps(ssd_train), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print("SSD training card vs CPU:", json.dumps(ssd_card_vs_cpu(device)), f"[{card}]",
+          flush=True)
+    ssd_score, ssd_score_launches = ssd_score_path(device)
+    print("SSD scoring and eval path:", json.dumps(ssd_score), f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    finish_build(building)
+    print(f"build: {time.time() - t0:.1f} s from its start, beside the SSD paths; "
+          f"{time.time() - t1:.1f} s waited after them", flush=True)
 
     cases = kernel_phase(device)
     mm_cases = matmul_kernel_phase(device)
@@ -5250,18 +5973,6 @@ def main() -> int:
     api, api_launches = api_path(device)
     print("API path:", json.dumps(api), f"[{card}]", flush=True)
     torch.cuda.empty_cache()
-    reset_launches()
-    ssd_train = ssd_train_path(device)
-    ssd_train_launches = read_launches()
-    if any(ssd_train_launches.values()):
-        fail(f"SSD training: a hand-written kernel launched: {ssd_train_launches}")
-    print("SSD training path:", json.dumps(ssd_train), f"[{card}]", flush=True)
-    torch.cuda.empty_cache()
-    print("SSD training card vs CPU:", json.dumps(ssd_card_vs_cpu(device)), f"[{card}]",
-          flush=True)
-    ssd_score, ssd_score_launches = ssd_score_path(device)
-    print("SSD scoring and eval path:", json.dumps(ssd_score), f"[{card}]", flush=True)
-    torch.cuda.empty_cache()
     dec = decoder_check()
     print("decoder (host):", json.dumps(dec), f"[{card}]", flush=True)
     print("SSD augment chain (host):", json.dumps(augment_check()), f"[{card}]", flush=True)
@@ -5277,6 +5988,7 @@ def main() -> int:
     print(f"SSD AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
     voc07 = REPO / "build" / "chip_smoke_al" / "VOC2007"  # the AL phase's tree
+    serving_model = start_serving_export(device)
     t0 = time.time()
     sp, sp_launches = score_pool_cli_path(device, voc07)
     print("score_pool CLI:", json.dumps(sp), f"[{card}]", flush=True)
@@ -5287,10 +5999,11 @@ def main() -> int:
     print("ensemble AL path:", json.dumps(al_ens), f"[{card}]", flush=True)
     print(f"ensemble AL phase: {time.time() - t0:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
-    serving, serving_launches = serving_path(device, voc07)
+    serving, serving_launches = serving_path(device, voc07, serving_model)
     print("serving path:", json.dumps(serving), f"[{card}]", flush=True)
     print(f"serving phase: {serving['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
+    exports = start_two_stage_exports(device)  # they trace beside the next two phases
     frcnn, frcnn_launches = frcnn_path(device, card)
     print(f"Faster R-CNN phase: {frcnn['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
@@ -5298,7 +6011,7 @@ def main() -> int:
     print(f"Cascade, Dynamic and Double-Head R-CNN, two-stage TTA, server and trainer phase: "
           f"{zoo['phase_s']:.1f} s [{card}]", flush=True)
     torch.cuda.empty_cache()
-    deploy, deploy_launches = two_stage_deploy_path(device, card)
+    deploy, deploy_launches = two_stage_deploy_path(device, card, exports)
     print(f"two-stage export, archive server and ranks phase: {deploy['phase_s']:.1f} s "
           f"[{card}]", flush=True)
     torch.cuda.empty_cache()
@@ -5315,6 +6028,12 @@ def main() -> int:
     print(f"Faster R-CNN backbones, necks, GN+WS and PISA phase: {backbones['phase_s']:.1f} s "
           f"[{card}]", flush=True)
     torch.cuda.empty_cache()
+    proposals, proposals_launches = proposals_path(device, card)
+    print("proposal families phase, s by path:",
+          json.dumps({k: v["path_s"] for k, v in proposals.items() if k != "phase_s"}),
+          f"[{card}]", flush=True)
+    print(f"proposal families phase: {proposals['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
     dist_result, dist_sweep, dist_al = distributed_path(device, card, score_sd, unc, al, voc07)
     print("distributed path:", json.dumps(dist_result), f"[{card}]", flush=True)
     print(f"distributed phase: {dist_result['phase_s']:.1f} s [{card}]", flush=True)
@@ -5325,7 +6044,7 @@ def main() -> int:
                  **{f"dist_sweep_rank{r}": c for r, c in enumerate(dist_sweep)},
                  "dist_al_cli_2_ranks": add_launches(*dist_al), **serving_launches,
                  "faster_rcnn": frcnn_launches, **zoo_launches, **deploy_launches,
-                 **variants_launches, **backbones_launches}
+                 **variants_launches, **backbones_launches, **proposals_launches}
     main_rows = [r for r in cases if r["case"] in ("C2", "C3") and r["dtype"] == "float32"]
     per_fwd = {"C2": 2, "C3": 3}  # launches per forward at each shape
     total = lambda key: sum(per_fwd[r["case"]] * r[key] for r in main_rows)  # noqa: E731

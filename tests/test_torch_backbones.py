@@ -122,7 +122,7 @@ def test_configs_equal(family):
 
 
 def test_registry_is_the_jax_order_cut_to_the_port():
-    assert len(tcfg.ZOO_FAMILIES) == 14
+    assert len(tcfg.ZOO_FAMILIES) == 19
     assert list(tcfg.ZOO_FAMILIES) == [f for f in jcfg.ZOO_FAMILIES if f in tcfg.ZOO_FAMILIES]
     assert set(tmodels.TWO_STAGE_FAMILIES) == set(tcfg.ZOO_FAMILIES)
     assert set(tts.TRAIN_STEPS) == set(tcfg.ZOO_FAMILIES)

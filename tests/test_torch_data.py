@@ -346,12 +346,12 @@ def test_burn_epochs_replays_the_stream(voc_tree):
 
 def test_loader_options_of_other_families_raise(voc_tree):
     """The options of families the port does not have raise (augment_fn,
-    the SSD chain's, is ported: tests/test_torch_ssd_data.py)."""
+    the SSD chain's, is ported: tests/test_torch_ssd_data.py; Fast
+    R-CNN's proposal_source: tests/test_torch_rpn_fast_rcnn.py)."""
     _, tds = _pools(voc_tree)
     _, tp = _mini_pipes()
-    for kw in (dict(with_masks=True), dict(proposal_source=lambda i: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainLoader(tds, [0], ttiny(), tp, batch_size=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrainLoader(tds, [0], ttiny(), tp, batch_size=2, with_masks=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EvalLoader(tds, [0], tp, batch_size=2, transform_fn=lambda img, i: img)
 

@@ -194,3 +194,35 @@ def test_unported_scoring_options_raise(override):
     model = build_retinanet(base, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         make_score_step(model, cfg, device="cpu")
+
+
+def _tiny_builds():
+    from aod_meh_hua_torch.models import two_stage
+    from aod_meh_hua_torch.models import detector, ssd_detector
+    from aod_meh_hua_torch.utils.config import ZOO_FAMILIES
+
+    yield "retinanet", detector, lambda: build_retinanet(ttiny(), device="cpu", seed=3)
+    yield "ssd", ssd_detector, lambda: build_ssd(SSDConfig(width_mult=0.125), device="cpu",
+                                                 seed=3)
+    for family, (_, tiny) in ZOO_FAMILIES.items():
+        yield family, two_stage, lambda tiny=tiny: two_stage.build_two_stage(tiny(), "cpu", 3)
+    for backbone in ("resnext", "res2net", "regnet"):
+        yield backbone, two_stage, lambda backbone=backbone: two_stage.build_two_stage(
+            ZOO_FAMILIES["faster_rcnn"][1](backbone_type=backbone, regnet_arch="regnetx_400mf"),
+            "cpu", 3)
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in _tiny_builds()])
+def test_builders_skip_only_overwritten_default_init(name, monkeypatch):
+    """The builders construct under SkipDefaultInit: every conv and linear
+    layer whose default init it skips is drawn again by init_weights, so
+    the state dict equals a build with torch's default init, bit for bit."""
+    import contextlib
+
+    module, build = next((m, b) for n, m, b in _tiny_builds() if n == name)
+    skipped = build().state_dict()
+    monkeypatch.setattr(module, "SkipDefaultInit", contextlib.nullcontext)
+    default = build().state_dict()
+    assert list(skipped) == list(default)
+    for k, v in default.items():
+        assert torch.equal(skipped[k], v), k

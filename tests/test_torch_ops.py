@@ -335,8 +335,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "aod_meh_hua_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 82
     # the two-stage families' modules (the variants' attention, necks and
-    # backbones, PISA's step), the config printer and the deployment tools
-    # among them
+    # backbones, PISA's step, the proposal families' models and steps), the
+    # config printer, gen_proposals and the deployment tools among them
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"aod_meh_hua_torch/{m}.py" for m in (
         "ops/roi_align", "ops/sampler", "ops/nms", "models/two_stage", "engine/two_stage",
@@ -345,7 +345,9 @@ def test_port_imports_no_jax():
         "tools/deployment/test_exported", "tools/deployment/serve",
         "utils/profiling", "models/attention", "models/fpn", "models/resnest",
         "models/hrnet", "models/fpg", "models/gn_ws", "models/backbones",
-        "engine/pisa")} <= names
+        "engine/pisa", "models/rpn_only", "models/cascade_rpn", "models/deform",
+        "models/trident", "models/grid_rcnn", "engine/rpn_only", "engine/cascade_rpn",
+        "engine/trident", "engine/grid_rcnn", "tools/gen_proposals")} <= names
     refused = ("jax", "jaxlib", "flax", "aod_meh_hua_tpu", "cv2", "PIL", "torchvision",
                "msgpack",
                # the root `tools` too: the port copies from tools/analysis, it does not import it

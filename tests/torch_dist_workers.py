@@ -176,7 +176,8 @@ def driver_run(rank: int, world: int, spec: dict) -> dict:
 
 def two_stage_steps(rank: int, world: int, spec: dict, mesh: bool = True) -> dict:
     """A two-stage family's train steps (spec: cfg, init (state dict),
-    arrays (the global Batch's arrays), draws (per step, the global
+    arrays (the global Batch's arrays, or Fast R-CNN's ProposalBatch's),
+    draws (per step, the global
     batch's uniforms by stage)), data parallel over the ranks; with
     mesh=False the one-process step on the whole batch. Returns each
     step's aux, Dynamic R-CNN's state after each step, and the state dict
@@ -188,11 +189,14 @@ def two_stage_steps(rank: int, world: int, spec: dict, mesh: bool = True) -> dic
     from aod_meh_hua_torch.parallel import gather_to_host, make_mesh, replicate, shard_batch
     from aod_meh_hua_torch.utils.config import TrainConfig
 
+    from aod_meh_hua_torch.engine.rpn_only import ProposalBatch
+
     cfg = spec["cfg"]
     model = build_two_stage(cfg, device="cpu")
     model.load_state_dict(spec["init"])
     grid = None
-    batch = Batch(*(torch.from_numpy(np.asarray(a)) for a in spec["arrays"]))
+    kind = ProposalBatch if len(spec["arrays"]) == len(ProposalBatch._fields) else Batch
+    batch = kind(*(torch.from_numpy(np.asarray(a)) for a in spec["arrays"]))
     if mesh:
         grid = make_mesh(world, device_type="cpu")
         replicate(model, grid)

@@ -212,11 +212,17 @@ def _two_stage_tree(family, overrides):
                                         build_faster_rcnn)
     from aod_meh_hua_tpu.utils.config import ZOO_FAMILIES
 
+    from aod_meh_hua_tpu.models.cascade_rpn import build_cascade_rpn
     from aod_meh_hua_tpu.models.gn_ws import build_gn_ws
+    from aod_meh_hua_tpu.models.grid_rcnn import build_grid_rcnn
+    from aod_meh_hua_tpu.models.rpn_only import build_fast_rcnn, build_rpn_only
+    from aod_meh_hua_tpu.models.trident import build_trident
 
     cfg = ZOO_FAMILIES[family][1](**dict(overrides))
     build = {"cascade_rcnn": build_cascade_rcnn, "double_head_rcnn": build_double_head_rcnn,
-             "gn_ws": build_gn_ws}.get(family, build_faster_rcnn)
+             "gn_ws": build_gn_ws, "rpn": build_rpn_only, "fast_rcnn": build_fast_rcnn,
+             "cascade_rpn": build_cascade_rpn, "tridentnet": build_trident,
+             "grid_rcnn": build_grid_rcnn}.get(family, build_faster_rcnn)
     model = build(cfg)
     h, w = cfg.canvas
     return model, jax.eval_shape(model.init, jax.random.PRNGKey(0),
@@ -256,7 +262,7 @@ def jax_two_stage(family, seed=0, rpn_cls_std=3.0, fc_cls_std=1.5, **overrides):
         shape, name = leaf.shape, keys[-1]
         if name == "kernel":
             std = float(np.prod(shape[:-1])) ** -0.5
-            if "rpn_cls" in keys:
+            if "rpn_cls" in keys or "s1_cls" in keys:
                 std *= rpn_cls_std
             elif "fc_cls" in keys:
                 std *= fc_cls_std
@@ -339,3 +345,75 @@ def jax_step_uniforms(key, b, n_anchor, n_roi, roi_draws=2):
         return out[stage]
 
     return uniforms
+
+
+def jax_family_uniforms(family, key, cfg, b):
+    """A port `uniforms(stage, n, k)` source holding the draws of the JAX
+    train step of a proposal family under `key` (engine/two_stage.py
+    step_draws names the stages):
+    - rpn, cascade_rpn: split(key, B) per image, (kp, kn) in the sampler;
+    - fast_rcnn: the same for the RoI sampler;
+    - tridentnet: k_rpn, k_roi = split(key), each split into the R * B
+      branch-major rows (row r * B + i), branch r's rows for "rpn{r}" and
+      "roi{r}";
+    - grid_rcnn: k_rpn, k_roi, k_jit = split(key, 3), each split per
+      image; the jitter the [S, 4] uniform of each image's key, flattened."""
+    from aod_meh_hua_torch.engine.two_stage import step_draws
+
+    sizes = step_draws(cfg)
+
+    def per_row(k, rows, n, m):
+        draws = [jax_sampler_draws(kk, n, m) for kk in jax.random.split(k, rows)]
+        return tuple(torch.from_numpy(np.stack([d[i] for d in draws])) for i in range(m))
+
+    out = {}
+    if family in ("rpn", "cascade_rpn", "fast_rcnn"):
+        (stage, (n, m)), = sizes.items()
+        out[stage] = per_row(key, b, n, m)
+    elif family == "tridentnet":
+        r = len(cfg.trident_dilations)
+        for stage, k in zip(("rpn", "roi"), jax.random.split(key)):
+            n = sizes[f"{stage}0"][0]
+            rows = per_row(k, r * b, n, 2)
+            for j in range(r):
+                out[f"{stage}{j}"] = tuple(u[j * b:(j + 1) * b] for u in rows)
+    elif family == "grid_rcnn":
+        k_rpn, k_roi, k_jit = jax.random.split(key, 3)
+        out["rpn"] = per_row(k_rpn, b, *sizes["rpn"])
+        out["roi"] = per_row(k_roi, b, *sizes["roi"])
+        s = sizes["jitter"][0] // 4
+        out["jitter"] = (torch.from_numpy(np.stack([
+            np.asarray(jax.random.uniform(kk, (s, 4))).reshape(-1)
+            for kk in jax.random.split(k_jit, b)])),)
+    else:
+        raise ValueError(family)
+
+    def uniforms(stage, n, k):
+        assert out[stage][0].shape[1] == n and len(out[stage]) == k, (stage, n, k)
+        return out[stage]
+
+    return uniforms
+
+
+def proposal_batch(cfg, seed=0, b=2):
+    """A Fast R-CNN ProposalBatch of numpy arrays: two_stage_batch's images
+    and gts with proposals in cfg.num_proposals slots, each valid gt with
+    four jittered copies of it first, then random boxes inside the image,
+    the last 4 slots of the second image invalid."""
+    images, gt_boxes, gt_labels, gt_valid, _, shapes = two_stage_batch(cfg, seed, b)
+    rng = np.random.RandomState(seed + 100)
+    p = cfg.num_proposals
+    props = np.zeros((b, p, 4), np.float32)
+    for i in range(b):
+        h, w = shapes[i]
+        rows = [g + rng.randn(4) * 2.0 for g in gt_boxes[i][gt_valid[i]] for _ in range(4)]
+        while len(rows) < p:
+            bw, bh = rng.uniform(6, 40), rng.uniform(6, 40)
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            rows.append([x1, y1, x1 + bw, y1 + bh])
+        props[i] = np.asarray(rows[:p], np.float32)
+        props[i, :, 0::2] = np.clip(props[i, :, 0::2], 0, w)
+        props[i, :, 1::2] = np.clip(props[i, :, 1::2], 0, h)
+    valid = np.ones((b, p), bool)
+    valid[1, -4:] = False
+    return images, gt_boxes, gt_labels, gt_valid, shapes, props, valid
